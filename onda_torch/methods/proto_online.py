@@ -1,0 +1,601 @@
+"""Online prototype-based adaptation (`onda_tpu/methods/proto_online.py`).
+
+One adaptation step over an `AdaptState`:
+
+    EMA-teacher forward (train-mode BN on the student's buffers, no stat
+    update) → static-teacher forward → switch policy, gating the dynamic
+    teacher → K1 pseudo-labels (hard at the old τ, soft at the drifted τ) →
+    prototype EMA → one student gradient pass over the source-replay and
+    target slices → CE, RCE and regularizer → SGD with the LR_RATIO split →
+    model EMA → monitor updates.
+
+Forwards run through `torch.func.functional_call` on one module tree with
+the state's parameter and buffer dicts; every train-mode BatchNorm takes its
+statistics from K2. The step updates the student's parameters, momentum,
+BN buffers and EMA teacher in place. Inside the step the host waits on the
+device only once, for the dynamic teacher's gate (see `prior_policy`); the
+scalar logs leave the device as one packed tensor, read when the caller first
+looks at them.
+
+Not ported yet: the replay buffer and its insertions, BN_POLICY double and
+keep, AUTO_DYNAMIC, PREDICTION_SAVE and sample rendering.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from ..config import unset, value_or
+from ..ops import kernels as K
+from ..ops import losses as L
+from ..ops import metrics as M
+from ..ops import prototypes as P
+from ..ops.interp import resize_nearest, upsample_bilinear_ac
+from ..ops.monitor import Monitor
+from . import optim
+from .prior_policy import POLICY_BY_METHOD, compute_prior
+from .state import AdaptState, clone_tree, make_adapt_state
+from .timing import SpeedMeter
+
+MONITOR_KEYS = (
+    "model",
+    "prior EMA",
+    "prior static",
+    "prior dynamic",
+    "prior",
+    "prototypes",
+    "tau",
+    "pseudolabel confidence",
+    "percentage_static",
+)
+
+NUM_FEATURES = 256  # ProDA classifier feature width (reference deeplabv2.py:205)
+
+
+def _softmax(x):
+    """Class probabilities of NCHW logits, in f32."""
+    return F.softmax(x.float(), dim=1)
+
+
+def _conf(p, dim=1):
+    """Mean max-probability confidence (reference prototypes.py:215)."""
+    return p.max(dim=dim).values.mean()
+
+
+def _flat(x):
+    """(N, C, H, W) → (N·H·W, C), pixels in (n, h, w) order."""
+    return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+
+
+def cycle(loader):
+    while True:
+        yield from loader
+
+
+class LazyLogs(dict):
+    """Step logs: scalars packed into one f32 device tensor, read on the host
+    (one device-to-host copy) the first time any of them is looked at; array
+    entries (e.g. soft_predictions) are there from the start."""
+
+    def __init__(self, logs: dict):
+        keys = sorted(k for k, v in logs.items() if not isinstance(v, torch.Tensor) or v.dim() == 0)
+        super().__init__({k: v for k, v in logs.items() if k not in keys})
+        self._scalar_keys = keys
+        self._packed = torch.stack([torch.as_tensor(logs[k]).detach().float().reshape(())
+                                    .to(self._device(logs)) for k in keys]) if keys else None
+
+    @staticmethod
+    def _device(logs):
+        for v in logs.values():
+            if isinstance(v, torch.Tensor):
+                return v.device
+        return torch.device("cpu")
+
+    def _materialize(self):
+        if self._packed is not None:
+            super().update(zip(self._scalar_keys, self._packed.tolist()))
+            self._packed = None
+
+    def __getitem__(self, key):
+        self._materialize()
+        return super().__getitem__(key)
+
+    def __contains__(self, key):
+        return key in self._scalar_keys or super().__contains__(key)
+
+    def get(self, key, default=None):
+        self._materialize()
+        return super().get(key, default)
+
+    def pop(self, key, *default):
+        if key in self._scalar_keys:
+            self._materialize()
+        return super().pop(key, *default)
+
+    def keys(self):
+        self._materialize()
+        return super().keys()
+
+    def items(self):
+        self._materialize()
+        return super().items()
+
+    def values(self):
+        self._materialize()
+        return super().values()
+
+    def __iter__(self):
+        self._materialize()
+        return super().__iter__()
+
+    def __len__(self):
+        self._materialize()
+        return super().__len__()
+
+
+class ProtoOnlineAdapter:
+    """Host-side engine: owns the AdaptState, the step and evaluation, and the
+    reference's train loop (per-step logging, per-epoch cross-domain
+    evaluation and checkpoint, reference prototypes.py:466-520)."""
+
+    def __init__(self, model, variables, cfg, cfg_spec, num_classes: int, logger=None,
+                 device="cuda"):
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.cfg = cfg
+        self.cfg_spec = cfg_spec
+        self.num_classes = num_classes
+        self.logger = logger
+        self.policy = POLICY_BY_METHOD.get(cfg.METHOD.ADAPTATION.NAME, "base")
+
+        mon_args = {}
+        if not unset(cfg_spec.EXP_MONITOR_CONST):
+            mon_args["exp_const"] = float(cfg_spec.EXP_MONITOR_CONST)
+        if not unset(cfg_spec.DEV_MONITOR_FUNC):
+            mon_args["dev_func"] = cfg_spec.DEV_MONITOR_FUNC
+        self.monitor = Monitor(MONITOR_KEYS, limit=int(cfg_spec.AVG_MONITOR_SIZE),
+                               device=self.device, **mon_args)
+
+        proto = P.init_state(num_classes, NUM_FEATURES, tau=float(cfg_spec.TAU), device=self.device)
+        self.skip_proto = False
+        if isinstance(cfg_spec.LOAD_PROTO, str):
+            proto, loaded = P.load(proto, cfg_spec.LOAD_PROTO)
+            self.skip_proto = loaded
+            if loaded:
+                print("Prototypes loaded!")
+        self.state = make_adapt_state(variables, proto, self.monitor.init(),
+                                      seed=int(cfg.TRAINING.RANDOM_SEED), device=self.device)
+        self.param_labels = optim.label_params(self.state.params, aux_grad=bool(model.multi_level))
+        self.lr_ratios = self._lr_ratios()
+        self._step_cache = {}
+        self.conf_reg_thresh = (
+            1.0 if unset(cfg_spec.CONFIDENCE_REGULARIZATION_THRESHOLD)
+            else float(cfg_spec.CONFIDENCE_REGULARIZATION_THRESHOLD))
+        self.ece_record = not (isinstance(cfg.OTHERS.ECE_SKIP, bool) and cfg.OTHERS.ECE_SKIP)
+        if not unset(cfg_spec.LOAD_MODEL) and cfg_spec.LOAD_MODEL:
+            self.load_model(cfg_spec.LOAD_MODEL)
+
+    # ------------------------------------------------------------------
+    # configuration plumbing
+    # ------------------------------------------------------------------
+    def _lr_ratios(self):
+        ratio = self.cfg.MODEL.LR_RATIO
+        if ratio is None or unset(ratio):
+            ratio = "1:10"
+        r0, r1 = (int(v) for v in ratio.split(":"))
+        return float(r0), float(r1)
+
+    @property
+    def resolution_hw(self):
+        w, h = self.cfg.SCHEME.RESOLUTION
+        return int(h), int(w)
+
+    def _forward(self, params, stats, images, train, update_stats=False):
+        """Model forward with the given parameter and buffer dicts; returns `main`."""
+        _, main = functional_call(
+            self.model, (params, stats), (images,),
+            {"train": train, "update_stats": update_stats,
+             "generator": self.state.generator if train else None})
+        return main
+
+    def _to_device(self, x, dtype=None):
+        return torch.as_tensor(x).to(self.device, dtype=dtype, non_blocking=True)
+
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
+    def _build_step(self, have_src: bool, source_repeat: int, want_soft: bool):
+        spec = self.cfg_spec
+        monitor, policy, C = self.monitor, self.policy, self.num_classes
+        metric = spec.DISTANCE_MEASURE
+        ma_lambda = float(spec.MA_LAMBDA)
+        pseudo_thresh = float(spec.PSEUDO_THRESH)
+        soft_labels = bool(value_or(spec.SOFT_LABELS, False))
+        rce_alpha, rce_beta = float(spec.RCE_ALPHA), float(spec.RCE_BETA)
+        reg_weight, regularizer = float(spec.REGULARIZER_WEIGHT), spec.REGULARIZER
+        js_d = float(spec.JS_D)
+        model_reg = float(value_or(spec.MODEL_REGULARIZATION, 0.0))
+        buff_ce_w, buff_rce_w = float(spec.BUFF_CE), float(spec.BUFF_RCE)
+        bn_policy = spec.BN_POLICY if spec.BN_POLICY in ("freeze", "double", "keep") else "freeze"
+        if have_src and bn_policy != "freeze":
+            raise NotImplementedError(f"BN_POLICY {bn_policy!r} is not ported yet")
+        momentum, weight_decay = float(spec.MOMENTUM), float(spec.WEIGHT_DECAY)
+        ema_update = float(spec.EMA_UPDATE)
+        static_on = float(spec.STATIC_LAMBDA) > 0
+        conf_reg_thresh = self.conf_reg_thresh
+        labels = self.param_labels
+        trainable = [k for k, lab in labels.items() if lab != optim.FROZEN]
+        r0, r1 = self.lr_ratios
+        fwd = self._forward
+
+        def step(state: AdaptState, trg_images, src_images, src_labels, lr_base: float):
+            mon = state.monitor
+            dev = trg_images.device
+            zero = torch.zeros((), device=dev)
+
+            # ---- teachers (no grad) -------------------------------------
+            with torch.no_grad():
+                ema_main = fwd(state.ema_params, state.batch_stats, trg_images, train=True)
+                prior_ema = _softmax(ema_main["out"])
+                mon = monitor.add(mon, "prior EMA", _conf(prior_ema))
+                prior_static = None
+                if static_on:
+                    static_main = fwd(state.static_params, state.static_batch_stats, trg_images,
+                                      train=False)
+                    prior_static = _softmax(static_main["out"])
+                    mon = monitor.add(mon, "prior static", _conf(prior_static))
+
+                def dyn_forward():
+                    main = fwd(state.dynamic_params, state.dynamic_batch_stats, trg_images,
+                               train=False)
+                    return _softmax(main["out"])
+
+                prior, dyn_p, calc_dyn, switch, plogs = compute_prior(
+                    policy, spec, monitor, mon, state.switch, prior_ema, prior_static,
+                    dyn_forward, frozen=False)
+                if "percentage_static" in plogs:
+                    mon = monitor.add(mon, "percentage_static", plogs["percentage_static"])
+                mon = monitor.add(mon, "prior dynamic", _conf(dyn_p), enable=calc_dyn)
+                mon = monitor.add(mon, "prior", _conf(prior))
+
+                # ---- K1 pseudo-labels: hard at the old τ, soft at the new τ
+                b, _, hh, ww = prior_ema.shape
+                feat = _flat(ema_main["feat"]).float().contiguous()
+                prior_flat = _flat(prior).contiguous()
+                scale = P.inv_std(state.proto, metric)
+                _, hard, prop_max = K.pseudo_labels(
+                    feat, state.proto.mean, prior_flat, state.proto.tau, pseudo_thresh, scale)
+                mon = monitor.add(mon, "prototypes", prop_max.mean())
+                tau_bump = monitor.avg(mon, "prototypes") > conf_reg_thresh
+                new_tau = state.proto.tau + 0.001 * tau_bump.float()
+                mon = monitor.add(mon, "tau", new_tau, enable=tau_bump)
+                soft, _, _ = K.pseudo_labels(
+                    feat, state.proto.mean, prior_flat, new_tau, pseudo_thresh, scale)
+                mon = monitor.add(mon, "pseudolabel confidence", _conf(soft, dim=-1))
+                pseudolabels = hard.view(b, hh, ww)
+                soft_nchw = soft.view(b, hh, ww, C).permute(0, 3, 1, 2)
+
+                # ---- prototype EMA ---------------------------------------
+                onehot = P.onehot_assign(_flat(ema_main["out"]).float())
+                vect, sq, sums = P.class_moments(feat, onehot)
+                proto = P.ma(state.proto.replace(tau=new_tau), vect, sq, sums, ma_lambda)
+                del ema_main, feat, prior_flat, onehot
+
+            # ---- student: source slices (BN stats frozen) + target slice --
+            live = dict(state.params)
+            for k in trainable:
+                live[k] = state.params[k].detach().requires_grad_(True)
+            trg_target = soft_nchw if soft_labels else pseudolabels
+            buff_ce = buff_ce_last = buff_rce = buff_rce_last = zero
+            if have_src:
+                for s in range(source_repeat):
+                    # under `freeze` the source slice's stat updates are
+                    # discarded: running it with update_stats=False is the same
+                    out_s = fwd(live, state.batch_stats, src_images[s], train=True)["out"].float()
+                    if buff_ce_w > 0:
+                        buff_ce_last = L.cross_entropy_2d(out_s, src_labels[s])
+                        buff_ce = buff_ce + buff_ce_last
+                    if buff_rce_w > 0:
+                        buff_rce_last = L.rce(out_s, src_labels[s])
+                        buff_rce = buff_rce + buff_rce_last
+            out_t = fwd(live, state.batch_stats, trg_images, train=True,
+                        update_stats=True)["out"].float()
+            ce = L.cross_entropy_2d(out_t, trg_target, soft=soft_labels) if rce_alpha > 0 else zero
+            rce_l = L.rce(out_t, trg_target, soft=soft_labels) if rce_beta > 0 else zero
+            sym = rce_alpha * ce + rce_beta * rce_l
+            reg = L.regular_loss(regularizer, out_t) if reg_weight > 0 else zero
+            js = L.js_divergence(out_t, pseudolabels) if js_d > 0 else zero
+            mreg = L.ewc_loss(model_reg, state.static_params, live) if model_reg > 0 else zero
+            total_t = sym + reg_weight * reg + js_d * js + mreg
+            total = total_t + buff_ce_w * buff_ce + buff_rce_w * buff_rce
+            grads = dict(zip(trainable, torch.autograd.grad(total, [live[k] for k in trainable])))
+            del live
+
+            # ---- SGD + EMA ----------------------------------------------
+            with torch.no_grad():
+                out_t = out_t.detach()
+                mon = monitor.add(mon, "model", _conf(_softmax(out_t)))
+                optim.update(state.params, grads, state.opt_momentum, labels,
+                             lr_base * r0, lr_base * r1, momentum, weight_decay)
+                del grads
+                for k, e in state.ema_params.items():
+                    e.mul_(ema_update).add_(state.params[k], alpha=1.0 - ema_update)
+
+                logs = {
+                    "ce_loss": ce, "rce_loss": rce_l, "sym_loss": sym,
+                    "regularization_loss": reg, "JS Divergance loss": js,
+                    "Total target loss": total_t, "model regularization": mreg,
+                    "buff_ce_loss": buff_ce_last, "buff_rce_loss": buff_rce_last,
+                    "buff_loss": buff_ce_w * buff_ce_last + buff_rce_w * buff_rce_last,
+                    "pseudolabel_pixel_num":
+                        ((pseudolabels >= 0) & (pseudolabels != 255)).float().sum(),
+                    "output & prototype agreement":
+                        (pseudolabels == out_t.argmax(dim=1)).float().mean(),
+                    "mean_prototype_intensity_values": (proto.mean**2).mean(),
+                    "encoder_lr": torch.full((), lr_base * r0, device=dev),
+                    "dynamic forward fired": calc_dyn.float(),
+                }
+                for key in MONITOR_KEYS:
+                    logs[f"{key} confidence ma"] = monitor.avg(mon, key)
+                    logs[f"{key} exp confidence ma"] = monitor.exp_avg(mon, key)
+                logs["dev avg prior static"] = monitor.dev_avg(mon, "prior static")
+                if want_soft:
+                    logs["soft_predictions"] = soft_nchw
+            new_state = dataclasses.replace(state, proto=proto, monitor=mon, switch=switch,
+                                            step=state.step + 1)
+            return new_state, LazyLogs(logs)
+
+        return step
+
+    def step_fn(self, have_src: bool, source_repeat: int, want_soft: bool):
+        key = (have_src, source_repeat, want_soft)
+        if key not in self._step_cache:
+            self._step_cache[key] = self._build_step(have_src, source_repeat, want_soft)
+        return self._step_cache[key]
+
+    # ------------------------------------------------------------------
+    # prototype bootstrap (reference calculate_prototypes, prototypes.py:128-155)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _bootstrap(self, images, labels, from_source: bool):
+        # train-mode BN with frozen stats and live dropout (reference prototypes.py:473-478)
+        state, C = self.state, self.num_classes
+        main = self._forward(state.params, state.batch_stats, images, train=True)
+        feat = _flat(main["feat"]).float()
+        hh, ww = main["out"].shape[2:]
+        if from_source:
+            lbl = resize_nearest(labels, (hh, ww)).reshape(-1).long()
+            onehot = (lbl[:, None] == torch.arange(C, device=lbl.device)).float()  # 255 → zero row
+        else:
+            onehot = P.onehot_assign(_flat(main["out"]).float())
+        vect, sq, sums = P.class_moments(feat, onehot)
+        state.proto = P.append(state.proto, vect, sq, sums)
+
+    def calculate_prototypes(self, loader) -> None:
+        from_source = self.cfg_spec.STARTING_PROTO == "source"
+        it = loader.sequential() if hasattr(loader, "sequential") else loader
+        for batch in it:
+            images = self._to_device(batch["image"], torch.float32)
+            labels = self._to_device(batch["label"], torch.long) if from_source else None
+            self._bootstrap(images, labels, from_source)
+        P.save(self.state.proto, self._proto_path("current"))
+
+    def _proto_path(self, tag):
+        root = str(self.cfg.OTHERS.SNAPSHOT_DIR)
+        os.makedirs(root, exist_ok=True)
+        return os.path.join(root, f"proto_{tag}.pickle")
+
+    # ------------------------------------------------------------------
+    # evaluation (reference adaptation_model.py:127-179, prototypes.py:374-394)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _eval_batch(self, images, labels, valid_mask, hists, eces, with_proto: bool):
+        state, spec, C, fwd = self.state, self.cfg_spec, self.num_classes, self._forward
+        main = fwd(state.params, state.batch_stats, images, train=False)
+        preds = {"model": main["out"]}
+        if with_proto:
+            # all teachers in eval mode; monitor and switch frozen
+            ema_main = fwd(state.ema_params, state.batch_stats, images, train=False)
+            prior_ema = _softmax(ema_main["out"])
+            prior_static = None
+            if float(spec.STATIC_LAMBDA) > 0:
+                prior_static = _softmax(
+                    fwd(state.static_params, state.static_batch_stats, images, train=False)["out"])
+
+            def dyn_forward():
+                return _softmax(
+                    fwd(state.dynamic_params, state.dynamic_batch_stats, images, train=False)["out"])
+
+            prior, _, _, _, _ = compute_prior(
+                self.policy, spec, self.monitor, state.monitor, state.switch, prior_ema,
+                prior_static, dyn_forward, frozen=True)
+            b, _, hh, ww = prior_ema.shape
+            soft, _, _ = K.pseudo_labels(
+                _flat(ema_main["feat"]).float().contiguous(), state.proto.mean,
+                _flat(prior).contiguous(), state.proto.tau, float(spec.PSEUDO_THRESH),
+                P.inv_std(state.proto, spec.DISTANCE_MEASURE))
+            preds["proto"] = soft.view(b, hh, ww, C).permute(0, 3, 1, 2)
+        for key, logit_map in preds.items():
+            probs = _softmax(upsample_bilinear_ac(logit_map.float(), self.resolution_hw))
+            hists[key] += M.fast_hist(labels, probs.argmax(dim=1), C)
+            if self.ece_record:
+                eces[key] = M.ece_record(eces[key], probs, labels, valid_mask[:, None, None])
+
+    def evaluate(self, loader) -> dict:
+        with_proto = not bool(value_or(self.cfg_spec.SKIP_PROTO_EVAL, False))
+        keys = ["model"] + (["proto"] if with_proto else [])
+        C = self.num_classes
+        bins = 1000 if unset(self.cfg.OTHERS.BINS) else int(self.cfg.OTHERS.BINS)
+        hists = {k: torch.zeros((C, C), dtype=torch.long, device=self.device) for k in keys}
+        eces = {k: M.ece_init(bins, self.device) for k in keys}
+        for batch in loader:
+            labels = self._to_device(batch["label"], torch.long)
+            valid = batch.get("valid", len(labels))
+            if valid < len(labels):  # padded final batch: mask out the padding
+                labels = labels.clone()
+                labels[valid:] = 255
+            valid_mask = (torch.arange(len(labels), device=self.device) < valid).float()
+            self._eval_batch(self._to_device(batch["image"], torch.float32), labels, valid_mask,
+                             hists, eces, with_proto)
+        result = {k: M.per_class_iu(h) for k, h in hists.items()}
+        self._last_ece = (
+            {f"ece {k}": float(M.ece_value(a)) for k, a in eces.items()} if self.ece_record else {})
+        return result
+
+    def evaluate_all(self, validation_loaders: dict) -> dict:
+        import numpy as np
+
+        log = {}
+        for val_set, loader in validation_loaders.items():
+            for key, per_class in self.evaluate(loader).items():
+                log[f"Val mIoU {key} of {val_set}"] = float(np.nanmean(per_class))
+                log[f"Val std IoU {key} of {val_set}"] = float(np.nanstd(per_class))
+            for name, value in getattr(self, "_last_ece", {}).items():
+                log[f"{name} {val_set}"] = value
+        return log
+
+    def _copy_dynamic(self):
+        self.state.dynamic_params = clone_tree(self.state.params)
+        self.state.dynamic_batch_stats = clone_tree(self.state.batch_stats)
+
+    # ------------------------------------------------------------------
+    # train loop (reference prototypes.py:466-520)
+    # ------------------------------------------------------------------
+    def train(self, trainloader, targetloader, validation_loaders) -> None:
+        spec = self.cfg_spec
+        if value_or(spec.AUTO_DYNAMIC, False):
+            raise NotImplementedError("AUTO_DYNAMIC is not ported yet")
+        if not unset(spec.PREDICTION_SAVE):
+            raise NotImplementedError("PREDICTION_SAVE is not ported yet")
+        samples_every = int(value_or(self.cfg.OTHERS.GENERATE_SAMPLES_EVERY, 10))
+        if samples_every > 0:
+            raise NotImplementedError(
+                "sample rendering is not ported yet: set OTHERS.GENERATE_SAMPLES_EVERY to 0")
+        self._copy_dynamic()
+        if not spec.SKIP_CALC:
+            if not self.skip_proto:
+                print("Computing Prototypes")
+                src = trainloader if spec.STARTING_PROTO == "source" else targetloader
+                self.calculate_prototypes(src)
+                self.skip_proto = True
+            print("Model evaluation")
+            self._log(self.evaluate_all(validation_loaders))
+
+        steps = int(spec.EPOCHS) * len(targetloader)
+        source_repeat = int(spec.SOURCE_REPEAT)
+        have_src = float(self.cfg.TRAINING.REPLAY_BUFFER) > 0 and trainloader is not None
+        perc_fill = float(value_or(self.cfg.TRAINING.PERC_FILL_PER_DOMAIN, 0.0))
+        update_prob = 0.0
+        if steps:
+            update_prob = (perc_fill * float(self.cfg.TRAINING.REPLAY_BUFFER)
+                           / float(self.cfg.TRAINING.BATCH_SIZE) / steps)
+        step = self.step_fn(have_src, source_repeat, update_prob > 0)
+        src_iter = cycle(trainloader) if have_src else None
+        trg_iter = cycle(targetloader)
+        power = float(spec.POWER)
+        base_lr = float(spec.LEARNING_RATE)
+        meter = SpeedMeter(limit=20, enabled=bool(value_or(self.cfg.OTHERS.SCHEDULE, False)))
+        frames_done = 0
+        wall_t0 = time.perf_counter()
+        for i_iter in range(steps):
+            meter.reset()
+            lr = base_lr * (1.0 - i_iter / steps) ** power if power else base_lr
+            if have_src:
+                batches = [next(src_iter) for _ in range(source_repeat)]
+                src_images = self._to_device(
+                    torch.stack([torch.as_tensor(b["image"]) for b in batches]), torch.float32)
+                src_labels = self._to_device(
+                    torch.stack([torch.as_tensor(self._src_label(b)) for b in batches]), torch.long)
+            else:
+                src_images = src_labels = None
+            trg_batch = next(trg_iter)
+            trg_images = self._to_device(trg_batch["image"], torch.float32)
+            meter.mark("Batch Fetch")
+            self.state, logs = step(self.state, trg_images, src_images, src_labels, lr)
+            meter.mark("Step Dispatch")
+            host_logs = {"Total buffer updates": self._buffer_update(
+                logs.pop("soft_predictions", None), update_prob, trainloader)}
+            if i_iter == 0:
+                host_logs["Step compile+run seconds"] = time.perf_counter() - wall_t0
+                frames_done = 0
+                wall_t0 = time.perf_counter()
+            else:
+                frames_done += int(trg_images.shape[0])
+            if (i_iter + 1) % len(targetloader) == 0:
+                elapsed = time.perf_counter() - wall_t0
+                if elapsed > 0 and frames_done:
+                    host_logs["Adaptation frames per second"] = frames_done / elapsed
+                print("Model evaluation")
+                host_logs.update(self.evaluate_all(validation_loaders))
+                self.save_model()
+                frames_done = 0
+                wall_t0 = time.perf_counter()
+            meter.mark("Host Work")
+            logs.update(host_logs)
+            if meter.enabled:
+                logs["Total target loss"]  # force the packed device-to-host read
+                meter.mark("Log Sync")
+                logs.update(meter.averages())
+            self._log(logs)
+        self.save_model()
+
+    def _src_label(self, batch):
+        if "stored_predictions" in batch:
+            return batch["stored_predictions"]
+        return batch["label_res"]
+
+    def _buffer_update(self, soft_nchw, probability, trainloader) -> int:
+        """Replay-buffer insertions (reference buffer_update, prototypes.py:453-464):
+        skipped, as in the JAX package, when the source loader has no
+        `add_from_batch`."""
+        if probability <= 0 or soft_nchw is None or not hasattr(trainloader, "add_from_batch"):
+            return 0
+        raise NotImplementedError("replay-buffer insertions are not ported yet")
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
+    def save_model(self) -> None:
+        """The full state as one `torch.save` (`adapt_state.pt`) plus the
+        prototype pickle (reference adaptation_model.py:202-216)."""
+        root = str(self.cfg.OTHERS.SNAPSHOT_DIR)
+        os.makedirs(root, exist_ok=True)
+        s = self.state
+        payload = {f.name: getattr(s, f.name) for f in dataclasses.fields(s)
+                   if f.name not in ("proto", "monitor", "switch", "generator")}
+        payload["proto"] = vars(s.proto)
+        payload["monitor"] = vars(s.monitor)
+        payload["switch"] = vars(s.switch)
+        payload["generator"] = s.generator.get_state()
+        torch.save(payload, os.path.join(root, "adapt_state.pt"))
+        P.save(s.proto, self._proto_path(self.cfg_spec.set_ or "current"))
+
+    def load_model(self, path: str) -> None:
+        """`adapt_state.pt` restores the full state (exact resume); any other
+        file is a model state_dict and restores the student only."""
+        payload = torch.load(path, map_location=self.device, weights_only=False)
+        s = self.state
+        if "params" in payload and "proto" in payload:
+            gen_state = payload.pop("generator")
+            proto, mon, switch = (payload.pop(k) for k in ("proto", "monitor", "switch"))
+            self.state = dataclasses.replace(
+                s, **payload, proto=P.ProtoState(**proto), monitor=type(s.monitor)(**mon),
+                switch=type(s.switch)(**switch))
+            self.state.generator.set_state(gen_state.cpu() if hasattr(gen_state, "cpu") else gen_state)
+            return
+        missing = (set(s.params) | set(s.batch_stats)) - set(payload)
+        if missing:
+            raise KeyError(f"state_dict is missing {sorted(missing)[:8]}")
+        for tree in (s.params, s.batch_stats):
+            for k, v in tree.items():
+                v.copy_(payload[k])
+
+    def _log(self, metrics: dict) -> None:
+        if self.logger is not None:
+            self.logger.log(metrics)

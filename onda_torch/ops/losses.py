@@ -1,0 +1,97 @@
+"""Segmentation / adaptation losses on NCHW logits (`onda_tpu/ops/losses.py`).
+
+Predictions are (N, C, H, W) logits; hard labels are (N, H, W) integers with
+255 = ignore; soft labels are (N, C, H, W). Formulas follow the reference
+framework/utils/loss.py and methods/prototypes.py:29-39, quirks included.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+IGNORE = 255
+
+
+def _valid_mask(target: torch.Tensor) -> torch.Tensor:
+    """(target >= 0) & (target != 255), float (reference loss.py:36)."""
+    return ((target >= 0) & (target != IGNORE)).float()
+
+
+def _onehot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(N, C, H, W) one-hot; labels outside [0, C) give a zero row."""
+    classes = torch.arange(num_classes, device=labels.device)[None, :, None, None]
+    return (labels[:, None].long() == classes).float()
+
+
+def cross_entropy_2d(logits, target, soft: bool = False):
+    """Masked mean CE over valid pixels (reference loss.py:16-45).
+
+    Soft mode keeps the reference's quirk: the target is truncated to integers
+    (`.long()` in loss_calc, reference func.py:35-42) and the CE is taken on
+    RAW logits, so the value is nan and the gradient is zero
+    (see `onda_tpu/ops/losses.py::cross_entropy_2d`)."""
+    if soft:
+        t = torch.trunc(target)
+        return -(t * torch.log(logits + 1e-6)).sum(dim=1).mean()
+    mask = _valid_mask(target)
+    logp = F.log_softmax(logits, dim=1)
+    tclip = target.clamp(0, logits.shape[1] - 1).long()
+    picked = logp.gather(1, tclip[:, None])[:, 0]
+    total = -(picked * mask).sum()
+    count = mask.sum()
+    return torch.where(count > 0, total / count.clamp(min=1.0), torch.zeros_like(total))
+
+
+def entropy_loss(probs):
+    """Normalized entropy of probability maps (reference loss.py:48-56)."""
+    n, c, h, w = probs.shape
+    return -torch.sum(probs * torch.log2(probs + 1e-30)) / (n * h * w * math.log2(c))
+
+
+def _clamped_one_hot(labels, num_classes: int):
+    """One-hot with 255 → zero row, clamped to [1e-4, 1] (reference loss.py:100-106)."""
+    return _onehot(labels, num_classes).clamp(1e-4, 1.0)
+
+
+def rce(logits, labels, soft: bool = False):
+    """Reverse cross-entropy (reference loss.py:88-112)."""
+    probs = F.softmax(logits, dim=1)
+    n, c, h, w = logits.shape
+    if soft:
+        return -(probs * torch.log(labels + 1e-6)).sum() / (n * h * w)
+    mask = _valid_mask(labels)
+    one_hot = _clamped_one_hot(labels, c)
+    return -((probs * torch.log(one_hot)).sum(dim=1) * mask).sum() / (mask.sum() + 1e-6)
+
+
+def js_divergence(logits, labels):
+    """Jensen–Shannon divergence vs hard labels (reference loss.py:62-85): masked
+    predictions, a clamped but unmasked one-hot, scaled by N*H*W / mask.sum()."""
+    probs = F.softmax(logits, dim=1)
+    n, c, h, w = logits.shape
+    mask = _valid_mask(labels)
+    mpred = probs * mask[:, None]
+    one_hot = _clamped_one_hot(labels, c)
+    per = entropy_loss((one_hot + mpred) / 2.0) - (entropy_loss(one_hot) + entropy_loss(mpred)) / 2.0
+    return per * n * h * w / mask.sum()
+
+
+def regular_loss(regularizer: str, logits):
+    """MRENT: (p·log p).sum()/(N·H·W); MRKLD: −log p.sum()/(N·C·H·W)
+    (reference methods/prototypes.py:29-39)."""
+    n, c, h, w = logits.shape
+    logp = F.log_softmax(logits, dim=1)
+    if regularizer == "MRENT":
+        return (F.softmax(logits, dim=1) * logp).sum() / (n * h * w)
+    if regularizer == "MRKLD":
+        return -logp.sum() / (n * c * h * w)
+    return logits.new_zeros(())
+
+
+def ewc_loss(lamda: float, anchor_params: dict, current_params: dict):
+    """EWC-style weight anchoring with unit Fisher (reference ewc.py:47-54)."""
+    total = sum(((anchor_params[k] - current_params[k]) ** 2).sum() for k in current_params)
+    return lamda / 2.0 * total
