@@ -4,16 +4,26 @@
     python3 chip_smoke.py                # every phase; needs one CUDA card
     python3 chip_smoke.py --skip-main    # kernel phases only
     python3 chip_smoke.py --profile      # also write a profiler table of one step
+    python3 chip_smoke.py --compare DIR  # also time an earlier onda_torch package's
+                                         # K1 and K2 (DIR/onda_torch, e.g. unpacked
+                                         # from a parent commit with git archive)
+                                         # against this tree's, in turns, under
+                                         # three timers (TIMERS): this script's
+                                         # and the first port's, on which the
+                                         # earlier records were taken
 
 Phases:
  1. card name and power limit; the TF32 settings of each phase;
  2. build the CUDA kernels of onda_torch/csrc (one nvcc per source, in parallel);
  3. K1 (pseudo_labels_kernel) against its plain version at the main path's
-    shape (P = 4*65*129, F = 256, C = 19), euclidean and mahalanobis;
+    shape (P = 4*65*129, F = 256, C = 19), euclidean and mahalanobis, and at
+    C = 1, C = 32 and P = 700 and 1 (not multiples of its 128-pixel tile);
  4. K2 (bn_stats_kernel) against a float64 reference at every distinct
-    BatchNorm input shape of DeepLabv2-R50 at batch 4, 1024x512, f32 and bf16,
-    NCHW and channels_last; the BatchNorm autograd.Function's gradients
-    against autograd of the plain version;
+    BatchNorm input shape of DeepLabv2-R50 at batch 4, 1024x512 and at
+    adversarial shapes (odd planes, one element, planes that start at an odd
+    element), f32 and bf16, NCHW and channels_last, each call repeated to show
+    that the result is the same bit for bit; the BatchNorm autograd.Function's
+    gradients against autograd of the plain version;
  5. a small-input check: one bootstrap and one adaptation step of a tiny model
     on the card against the same on the CPU (plain versions of both kernels);
  6. the main path at full size: configs/hybrid_switch.yml (R50 ProDA head,
@@ -22,10 +32,15 @@ Phases:
     counters read around each part; one more step must sync the host exactly
     once (the dynamic teacher's gate).
 
+Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
+while the host queues the timed calls, so the host's time to queue a launch
+does not count, and each call finds a cold L2. Each timing line gives the
+share of the bound (bound ms / ms).
+
 Prints the card line and one JSON line of kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
-Writes the per-shape K2 table (and the profile) under --out-dir
-(default build/chip_smoke/).
+Writes the per-shape K2 table (and the profile, and the comparison) under
+--out-dir (default build/chip_smoke/).
 """
 
 from __future__ import annotations
@@ -68,22 +83,43 @@ def bound_ms(nbytes: float, flops: float = 0.0):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def cuda_ms(torch, fn, iters=10, warmup=2):
-    """Mean device time of fn, each call after a write of 128 MB that
-    evicts the 50 MB L2 (the main path finds its inputs cold)."""
-    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+def cuda_ms(torch, fn, iters=10, warmup=2, queue_ahead=True, flush="read"):
+    """Mean device time of fn, each call after a pass over 128 MB that evicts
+    the 50 MB L2 (the main path finds its inputs cold). `flush="read"` reads
+    the 128 MB, leaving the L2 clean; "write" zeroes them, and then every
+    timed call also pays to write back the dirty lines it evicts. With `queue_ahead` the device sleeps while the host
+    queues every call, so that the time between the events is the device's
+    alone; the sleep grows until it outlasts the queueing. Without it, a
+    call's time includes whatever the device waited for the host to queue it."""
+    buf = torch.ones(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    evict = {"read": buf.sum, "write": buf.zero_}[flush]
     for _ in range(warmup):
         fn()
-    total = 0.0
-    for _ in range(iters):
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
+    cycles = 20_000_000
+    for _ in range(5):
         torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        if queue_ahead:
+            torch.cuda._sleep(cycles)
+        slept = torch.cuda.Event()
+        slept.record()
+        events = []
+        for _ in range(iters):
+            evict()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        caught_up = slept.query()  # the sleep ended before the last call was queued
+        torch.cuda.synchronize()
+        if not (queue_ahead and caught_up):
+            return sum(s.elapsed_time(e) for s, e in events) / iters
+        cycles *= 4
+    raise SmokeFailure("the device outran the host at every sleep: does the timed call sync?")
+
+
+def share(bound, ms):
+    return bound / ms if ms > 0 else float("nan")
 
 
 # ---------------------------------------------------------------------------
@@ -91,44 +127,62 @@ def cuda_ms(torch, fn, iters=10, warmup=2):
 # ---------------------------------------------------------------------------
 
 
-def check_k1(torch, K, P):
-    n_pix, n_feat, n_cls, thresh = 4 * 65 * 129, 256, 19, 0.3
-    g = torch.Generator(device="cuda").manual_seed(1)
+def k1_inputs(torch, n_pix, n_feat, n_cls, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
     protos = 0.3 * torch.randn(n_cls, n_feat, device="cuda", generator=g)
     cls = torch.randint(0, n_cls, (n_pix,), device="cuda", generator=g)
     feat = protos[cls] + 0.5 * torch.randn(n_pix, n_feat, device="cuda", generator=g)
     prior = torch.rand(n_pix, n_cls, device="cuda", generator=g) + 0.05
     prior = (prior / prior.sum(-1, keepdim=True)).contiguous()
     scale = 0.5 + 1.5 * torch.rand(n_feat, device="cuda", generator=g)
-    tau = torch.tensor(1.0, device="cuda")
-    result = {}
-    for metric, sc in (("euclidean", None), ("mahalanobis", scale)):
-        soft, hard, pmax = K.pseudo_labels(feat, protos, prior, tau, thresh, sc)
-        torch.cuda.synchronize()
-        w_soft, w_hard, w_pmax = P.pseudo_labels_plain(feat, protos, prior, tau, thresh, sc)
-        err = (soft - w_soft).abs().max().item()
-        ok = torch.allclose(soft, w_soft, rtol=1e-4, atol=1e-5)
-        agree = (hard == w_hard).float().mean().item()
-        pmax_ok = torch.allclose(pmax, w_pmax, rtol=1e-4, atol=1e-5)
-        print(f"K1 {metric}: soft max_abs_err {err:.3e} (rtol 1e-4, atol 1e-5: {ok}); "
-              f"hard agreement {agree:.6f}; prop_max ok {pmax_ok}; "
-              f"pseudo-labelled pixels {(hard != 255).float().mean().item():.3f}")
-        check(ok, f"K1 {metric}: soft labels disagree with the plain version (max err {err})")
-        check(agree > 0.999, f"K1 {metric}: hard-label agreement {agree} <= 0.999")
-        check(pmax_ok, f"K1 {metric}: prop_max disagrees with the plain version")
-        result[metric] = err
+    return feat, protos, prior, scale
+
+
+def check_k1(torch, K, P):
+    main = (4 * 65 * 129, 256, 19)
+    thresh, tau = 0.3, torch.tensor(1.0, device="cuda")
+    # the main path's shape, then C = 1 and 32 and P off the 128-pixel tile
+    cases = [main, (main[0], 256, 1), (main[0], 256, 32), (700, 256, 19), (1, 256, 19)]
+    max_err = 0.0
+    for n_pix, n_feat, n_cls in cases:
+        feat, protos, prior, scale = k1_inputs(torch, n_pix, n_feat, n_cls, 1)
+        for metric, sc in (("euclidean", None), ("mahalanobis", scale)):
+            soft, hard, pmax = K.pseudo_labels(feat, protos, prior, tau, thresh, sc)
+            torch.cuda.synchronize()
+            w_soft, w_hard, w_pmax = P.pseudo_labels_plain(feat, protos, prior, tau, thresh, sc)
+            err = (soft - w_soft).abs().max().item()
+            ok = torch.allclose(soft, w_soft, rtol=1e-4, atol=1e-5)
+            agree = (hard == w_hard).float().mean().item()
+            pmax_ok = torch.allclose(pmax, w_pmax, rtol=1e-4, atol=1e-5)
+            print(f"K1 P={n_pix} F={n_feat} C={n_cls} {metric}: soft max_abs_err {err:.3e} "
+                  f"(rtol 1e-4, atol 1e-5: {ok}); hard agreement {agree:.6f}; prop_max ok "
+                  f"{pmax_ok}; pseudo-labelled pixels {(hard != 255).float().mean().item():.3f}")
+            tag = f"K1 P={n_pix} C={n_cls} {metric}"
+            check(ok, f"{tag}: soft labels disagree with the plain version (max err {err})")
+            check(agree > 0.999, f"{tag}: hard-label agreement {agree} <= 0.999")
+            check(pmax_ok, f"{tag}: prop_max disagrees with the plain version")
+            if (n_pix, n_feat, n_cls) == main:
+                max_err = max(max_err, err)
+    n_pix, n_feat, n_cls = main
+    feat, protos, prior, scale = k1_inputs(torch, n_pix, n_feat, n_cls, 1)
     ms = cuda_ms(torch, lambda: K.pseudo_labels(feat, protos, prior, tau, thresh, scale))
     plain = cuda_ms(torch, lambda: P.pseudo_labels_plain(feat, protos, prior, tau, thresh, scale))
+    read = cuda_ms(torch, lambda: feat.sum())  # a yardstick: one plain read of the features
+    one = k1_inputs(torch, 1, n_feat, n_cls, 1)  # one pixel, one tile: the fixed cost of a call
+    ms_one = cuda_ms(torch, lambda: K.pseudo_labels(one[0], one[1], one[2], tau, thresh, one[3]))
     nbytes = 4 * (n_pix * n_feat + n_cls * n_feat + 2 * n_pix * n_cls + n_feat + 1 + 2 * n_pix)
     b_ms, b_by = bound_ms(nbytes, 2.0 * n_pix * n_cls * n_feat + n_pix * n_feat)
     print(f"K1 timing (mahalanobis, cold L2): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+          f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB), "
+          f"{100 * share(b_ms, ms):.1f}% of the bound; feat.sum() alone {read:.4f} ms; "
+          f"K1 at P=1 {ms_one:.4f} ms")
     return {"name": "pseudo_labels_kernel", "route": "cuda",
             "source": "onda_torch/csrc/pseudo_labels.cu",
             "replaces": "onda_tpu/ops/pallas_kernels.py:59",
             "shape": f"P={n_pix} F={n_feat} C={n_cls} f32, mahalanobis",
-            "max_abs_err": max(result.values()), "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "check": "pass"}
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": share(b_ms, ms),
+            "library_ms": None, "check": "pass"}
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +205,54 @@ def bn_input_shapes(torch, batch=4, hw=(512, 1024)):
     return shapes
 
 
+K2_ODD_SHAPES = [(1, 1, 1, 1), (2, 3, 5, 7), (3, 17, 32, 24), (1, 2048, 65, 129)]
+
+
+def k2_layouts(torch, x):
+    """x as K2 meets it: NCHW and channels_last, each also starting one
+    element past a 16-byte boundary (a contiguous view at storage offset 1)."""
+    n, c, h, w = x.shape
+    out = {"nchw": x, "channels_last": x.contiguous(memory_format=torch.channels_last)}
+    for name, dims, perm in (("nchw+1", (n, c, h, w), (0, 1, 2, 3)),
+                             ("channels_last+1", (n, h, w, c), (0, 3, 1, 2))):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:].view(dims).permute(perm)
+        view.copy_(x)
+        out[name] = view
+    return out
+
+
+def check_k2_once(torch, K, x, tag):
+    """K2 on x in every layout against float64, and twice to the same bits.
+    Returns (max mean error, max var error) of the NCHW call."""
+    x64 = x.double()
+    ref_mean = x64.mean(dim=(0, 2, 3))
+    ref_var = x64.var(dim=(0, 2, 3), unbiased=False)
+    amax = x64.abs().max().item()
+    flat = ref_var == 0  # one value per channel: only the f32 rounding of x² is left
+    result = None
+    for layout, xl in k2_layouts(torch, x).items():
+        mean, var = K.bn_stats(xl)
+        mean2, var2 = K.bn_stats(xl)
+        torch.cuda.synchronize()
+        check(torch.equal(mean, mean2) and torch.equal(var, var2),
+              f"K2 {tag} {layout}: two calls differ (not deterministic)")
+        e_mean = (mean.double() - ref_mean).abs().max().item()
+        d_var = (var.double() - ref_var).abs()
+        e_var = (d_var / ref_var.abs().clamp(min=1e-30))[~flat].max().item() if (~flat).any() else 0.0
+        e_flat = d_var[flat].max().item() if flat.any() else 0.0
+        # mean: f32 partial sums of at most a few hundred values per thread,
+        # folded in f64, so its error is a few f32 ulps of max|x|; var:
+        # E[x²] − E[x]² with |E[x]| up to ~3 std leaves a relative error well
+        # under 1e-4
+        ok = e_mean <= 1e-6 * amax and e_var <= 1e-4 and e_flat <= 1e-6 * amax**2
+        check(ok, f"K2 {tag} {layout}: mean err {e_mean:.3e} (limit {1e-6 * amax:.3e}), var rel "
+                  f"err {e_var:.3e} (limit 1e-4), zero-var err {e_flat:.3e}")
+        if layout == "nchw":
+            result = (e_mean, e_var, (var.double() - ref_var).abs().max().item())
+    return result
+
+
 def check_k2(torch, K, layers, out_dir):
     shapes = bn_input_shapes(torch)
     check(len(shapes) == 53, f"expected 53 BatchNorm calls in R50, got {len(shapes)}")
@@ -158,34 +260,20 @@ def check_k2(torch, K, layers, out_dir):
     g = torch.Generator(device="cuda").manual_seed(2)
     rows, max_err = [], 0.0
     per_shape = {}
-    for shape in distinct:
+    for shape in distinct + K2_ODD_SHAPES:
         c = shape[1]
         offset = torch.randn(1, c, 1, 1, device="cuda", generator=g)
         spread = 0.5 + torch.rand(1, c, 1, 1, device="cuda", generator=g)
         base = torch.randn(shape, device="cuda", generator=g) * spread + offset
         for dtype in (torch.float32, torch.bfloat16):
             x = base.to(dtype)
-            x64 = x.double()
-            ref_mean = x64.mean(dim=(0, 2, 3))
-            ref_var = x64.var(dim=(0, 2, 3), unbiased=False)
-            amax = x64.abs().max().item()
-            for layout in ("nchw", "channels_last"):
-                xl = x if layout == "nchw" else x.contiguous(memory_format=torch.channels_last)
-                mean, var = K.bn_stats(xl)
-                torch.cuda.synchronize()
-                e_mean = (mean.double() - ref_mean).abs().max().item()
-                e_var = ((var.double() - ref_var).abs() / ref_var.abs().clamp(min=1e-30)).max().item()
-                # mean: f32 partial sums of <= 4096 (NCHW) or 128 (channels_last)
-                # values folded in f64, so its error is a few f32 ulps of max|x|;
-                # var: E[x²] − E[x]² with |E[x]| up to ~3 std, f32 partials,
-                # leaves a relative error well under 1e-4
-                ok = e_mean <= 1e-6 * amax and e_var <= 1e-4
-                check(ok, f"K2 {shape} {dtype} {layout}: mean err {e_mean:.3e} "
-                          f"(limit {1e-6 * amax:.3e}), var rel err {e_var:.3e} (limit 1e-4)")
-                if dtype == torch.float32 and layout == "nchw":
-                    max_err = max(max_err, e_mean, (var.double() - ref_var).abs().max().item())
-                rows.append({"shape": shape, "dtype": str(dtype), "layout": layout,
-                             "mean_abs_err": e_mean, "var_rel_err": e_var})
+            e_mean, e_var, e_var_abs = check_k2_once(torch, K, x, f"{shape} {dtype}")
+            rows.append({"shape": shape, "dtype": str(dtype), "mean_abs_err": e_mean,
+                         "var_rel_err": e_var})
+            if shape not in distinct:
+                continue
+            if dtype == torch.float32:
+                max_err = max(max_err, e_mean, e_var_abs)
             # time the layout the main path uses (NCHW)
             ms = cuda_ms(torch, lambda: K.bn_stats(x))
             plain = cuda_ms(torch, lambda: K.bn_stats_plain(x))
@@ -195,13 +283,19 @@ def check_k2(torch, K, layers, out_dir):
             per_shape[(shape, str(dtype))] = (ms, plain, lib, b_ms)
             print(f"K2 {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                   f"torch.var_mean {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-                  f"{nbytes / 1e6:.1f} MB)")
-            del x, x64
+                  f"{nbytes / 1e6:.1f} MB), {100 * share(b_ms, ms):.1f}% of the bound")
+            del x
         del base
+    print(f"K2 checked at {len(rows)} shape/type pairs, 4 layouts each, against float64; "
+          f"every call repeated gave the same bits")
+    slower = [k for k, v in per_shape.items() if v[0] > v[2]]
+    print(f"K2 slower than torch.var_mean at {len(slower)} of {len(per_shape)} shape/type "
+          f"pairs: {slower}")
     # one forward's 53 BN inputs (f32), summed with multiplicity
     tot = [sum(per_shape[(s, "torch.float32")][i] for s in shapes) for i in range(4)]
     print(f"K2 over the 53 BN inputs of one R50 forward (f32): kernel {tot[0]:.4f} ms, "
-          f"plain {tot[1]:.4f} ms, torch.var_mean {tot[2]:.4f} ms, bound {tot[3]:.4f} ms")
+          f"plain {tot[1]:.4f} ms, torch.var_mean {tot[2]:.4f} ms, bound {tot[3]:.4f} ms, "
+          f"{100 * share(tot[3], tot[0]):.1f}% of the bound")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "k2_shapes.json"), "w") as f:
         json.dump({"checks": rows, "timings": [
@@ -232,7 +326,94 @@ def check_k2(torch, K, layers, out_dir):
             "replaces": "onda_tpu/ops/pallas_kernels.py:146",
             "shape": "the 53 BatchNorm inputs of one R50 forward, b4 1024x512 f32 NCHW (times summed)",
             "max_abs_err": max_err, "ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[3],
-            "bound_by": "bytes", "library_ms": tot[2], "check": "pass"}
+            "bound_by": "bytes", "bound_share": share(tot[3], tot[0]), "library_ms": tot[2],
+            "check": "pass"}
+
+
+# ---------------------------------------------------------------------------
+# --compare: an earlier package's kernels against this tree's, in turns
+# ---------------------------------------------------------------------------
+
+
+def load_earlier_kernels(path):
+    """The `ops.kernels` module of the onda_torch package at path/onda_torch,
+    imported as `onda_torch_earlier`; its kernels build under path/build."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(path), "onda_torch")
+    check(os.path.isfile(os.path.join(pkg, "ops", "kernels.py")), f"no onda_torch package in {path}")
+    spec = importlib.util.spec_from_file_location(
+        "onda_torch_earlier", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["onda_torch_earlier"] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module("onda_torch_earlier.ops.kernels")
+
+
+TIMERS = {"device": dict(),                                    # this script's timer
+          "write_flush": dict(flush="write"),                   # device time, L2 left dirty
+          "host_queued": dict(flush="write", queue_ahead=False)}  # and the host's queueing counted
+
+
+def compare_earlier(torch, K, path, out_dir):
+    """Time the earlier K1 and K2 against this tree's on the same inputs, in
+    turns (earlier, this, this, earlier), with each of TIMERS."""
+    old = load_earlier_kernels(path)
+    t = time.perf_counter()
+    old.build.build_all()
+    print(f"earlier kernels from {path}: build {time.perf_counter() - t:.3f} s")
+    rows = []
+
+    def turns(name, shape, f_old, f_new, b_ms):
+        row = {"kernel": name, "shape": shape, "bound_ms": b_ms}
+        for key, opts in TIMERS.items():
+            ms = [cuda_ms(torch, f, **opts) for f in (f_old, f_new, f_new, f_old)]
+            row[key] = {"earlier_ms": (ms[0] + ms[3]) / 2, "ms": (ms[1] + ms[2]) / 2, "turns": ms}
+        d = row["device"]
+        print(f"compare {name} {shape}: earlier {d['earlier_ms']:.4f} ms, this {d['ms']:.4f} ms "
+              f"(turns {', '.join(f'{v:.4f}' for v in d['turns'])}); bound {b_ms:.4f} ms, "
+              f"{100 * share(b_ms, d['earlier_ms']):.1f}% -> {100 * share(b_ms, d['ms']):.1f}%; " +
+              "; ".join(f"{key}: earlier {row[key]['earlier_ms']:.4f}, this {row[key]['ms']:.4f} ms"
+                        for key in TIMERS if key != "device"))
+        rows.append(row)
+        return row
+
+    n_pix, n_feat, n_cls = 4 * 65 * 129, 256, 19
+    feat, protos, prior, scale = k1_inputs(torch, n_pix, n_feat, n_cls, 1)
+    tau = torch.tensor(1.0, device="cuda")
+    nbytes = 4 * (n_pix * n_feat + n_cls * n_feat + 2 * n_pix * n_cls + n_feat + 1 + 2 * n_pix)
+    turns("pseudo_labels_kernel", f"P={n_pix} F={n_feat} C={n_cls} mahalanobis",
+          lambda: old.pseudo_labels(feat, protos, prior, tau, 0.3, scale),
+          lambda: K.pseudo_labels(feat, protos, prior, tau, 0.3, scale),
+          bound_ms(nbytes, 2.0 * n_pix * n_cls * n_feat + n_pix * n_feat)[0])
+    del feat, protos, prior
+
+    shapes = bn_input_shapes(torch)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    per = {}
+    for shape in sorted(set(shapes), key=lambda s: -math.prod(s)):
+        base = torch.randn(shape, device="cuda", generator=g) + 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            x = base.to(dtype)
+            b_ms = bound_ms(x.numel() * x.element_size() + 8 * shape[1], 3.0 * x.numel())[0]
+            per[(shape, dtype)] = turns("bn_stats_kernel", f"{shape} {str(dtype)[6:]}",
+                                        lambda: old.bn_stats(x), lambda: K.bn_stats(x), b_ms)
+            del x
+        del base
+    total = {key: {k: sum(per[(s, torch.float32)][key][k] for s in shapes)
+                   for k in ("earlier_ms", "ms")} for key in TIMERS}
+    bound = sum(per[(s, torch.float32)]["bound_ms"] for s in shapes)
+    d = total["device"]
+    print(f"compare bn_stats_kernel over the 53 BN inputs of one R50 forward (f32): earlier "
+          f"{d['earlier_ms']:.4f} ms, this {d['ms']:.4f} ms, bound {bound:.4f} ms "
+          f"({100 * share(bound, d['earlier_ms']):.1f}% -> {100 * share(bound, d['ms']):.1f}%); " +
+          "; ".join(f"{key}: earlier {total[key]['earlier_ms']:.4f}, this {total[key]['ms']:.4f} ms"
+                    for key in TIMERS if key != "device"))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "compare.json"), "w") as f:
+        json.dump({"earlier": os.path.abspath(path), "rows": rows,
+                   "bn_stats_forward_f32": dict(total, bound_ms=bound)}, f, indent=1)
 
 
 # ---------------------------------------------------------------------------
@@ -424,13 +605,18 @@ def main_path(torch, K, profile: bool, out_dir: str):
             return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
         busy = sum(dev_us(e) for e in kernels) / 1e3
-        ours = {name: sum(dev_us(e) for e in kernels if any(s in e.key for s in keys)) / 1e3
-                for name, keys in (("pseudo_labels_kernel", ("pseudo_labels_kernel",)),
-                                   ("bn_stats_kernel", ("stats_nchw_kernel", "stats_cl_kernel",
-                                                        "finalize_kernel")))}
+        names = {"pseudo_labels_kernel": ("pseudo_labels_kernel",),
+                 "bn_stats_kernel": ("bn_stats_cluster_kernel", "stats_cl_kernel",
+                                     "finalize_kernel")}
+        ours = {name: [e for e in kernels if any(k in e.key for k in keys)]
+                for name, keys in names.items()}
         print(f"profiled step: wall {1e3 * t_prof:.3f} ms, device busy {busy:.3f} ms "
               f"({100 * busy / (1e3 * t_prof):.1f}%); " +
-              ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items()))
+              ", ".join(f"{k} {sum(dev_us(e) for e in v) / 1e3:.3f} ms in "
+                        f"{sum(e.count for e in v)} device launches" for k, v in ours.items()))
+        k2_launches = sum(e.count for e in ours["bn_stats_kernel"])
+        check(k2_launches == 159, f"K2 took {k2_launches} device launches in the profiled step, "
+                                  f"expected one per call (159)")
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "profile_step.txt"), "w") as f:
             f.write(events.table(sort_by="cuda_time_total", row_limit=80))
@@ -443,8 +629,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--skip-main", action="store_true", help="kernel phases only")
     parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--compare", metavar="DIR",
+                        help="time the K1 and K2 of the onda_torch package in DIR against this tree's")
     parser.add_argument("--out-dir", default=os.path.join(HERE, "build", "chip_smoke"),
-                        help="where the per-shape K2 table and the profile go")
+                        help="where the per-shape K2 table, the profile and the comparison go")
     args = parser.parse_args()
 
     import torch
@@ -473,6 +661,8 @@ def main() -> int:
     k1 = check_k1(torch, K, P)
     k2 = check_k2(torch, K, layers, args.out_dir)
     small_input_check(torch)
+    if args.compare:
+        compare_earlier(torch, K, args.compare, args.out_dir)
     counts, summary = {}, {}
     if not args.skip_main:
         torch.backends.cudnn.allow_tf32 = True

@@ -4,7 +4,8 @@ functions the JAX step calls and against the Pallas kernels in interpret
 mode; the train-mode BatchNorm autograd.Function against jax.grad.
 
 The CUDA kernels themselves are checked against their plain versions on the
-card (chip_smoke.py phases 3-4, and the `cuda`-marked test here)."""
+card (chip_smoke.py phases 3-4, and the `cuda`-marked test of
+tests/test_torch_kernel_plans.py, which imports no JAX so that it runs there)."""
 
 import numpy as np
 import pytest
@@ -114,30 +115,3 @@ def test_wrappers_reject_mixed_devices():
     x = torch.zeros(2, 3)
     with pytest.raises(ValueError):
         K._on_cpu(x, torch.zeros(1, device="meta"))
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain():
-    """K1 and K2 on the card against their plain versions (the full-size check
-    is chip_smoke.py)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    feat = torch.randn(PIX, F, device="cuda", generator=g)
-    protos = torch.randn(C, F, device="cuda", generator=g)
-    prior = torch.rand(PIX, C, device="cuda", generator=g) + 0.05
-    prior = prior / prior.sum(-1, keepdim=True)
-    scale = 0.5 + torch.rand(F, device="cuda", generator=g)
-    tau = torch.tensor(20.0, device="cuda")
-    soft, hard, pmax = K.pseudo_labels(feat, protos, prior, tau, 0.3, scale)
-    w_soft, w_hard, w_pmax = TP.pseudo_labels_plain(feat, protos, prior, tau, 0.3, scale)
-    torch.testing.assert_close(soft, w_soft, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(pmax, w_pmax, rtol=1e-4, atol=1e-5)
-    assert (hard == w_hard).float().mean() > 0.999
-    for dtype in (torch.float32, torch.bfloat16):
-        x = (torch.randn(3, 17, 32, 24, device="cuda", generator=g) + 0.5).to(dtype)
-        for xl in (x, x.contiguous(memory_format=torch.channels_last)):
-            mean, var = K.bn_stats(xl)
-            w_mean, w_var = K.bn_stats_plain(x.double())
-            torch.testing.assert_close(mean.double(), w_mean, rtol=0, atol=1e-6)
-            torch.testing.assert_close(var.double(), w_var, rtol=1e-4, atol=1e-6)
