@@ -2,19 +2,17 @@
 """Smoke test of the onda_torch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py                # every phase; needs one CUDA card
-    python3 chip_smoke.py --skip-main    # kernel phases only
+    python3 chip_smoke.py --skip-main    # kernel phases only (1-5)
     python3 chip_smoke.py --profile      # also write a profiler table of one step
     python3 chip_smoke.py --compare DIR  # also time an earlier onda_torch package's
                                          # K1 and K2 (DIR/onda_torch, e.g. unpacked
                                          # from a parent commit with git archive)
-                                         # against this tree's, in turns, under
-                                         # three timers (TIMERS): this script's
-                                         # and the first port's, on which the
-                                         # earlier records were taken
+                                         # against this tree's, in turns
 
 Phases:
  1. card name and power limit; the TF32 settings of each phase;
- 2. build the CUDA kernels of onda_torch/csrc (one nvcc per source, in parallel);
+ 2. build the CUDA kernels of onda_torch/csrc (one nvcc per source, in parallel)
+    and, beside them, the C++ host prep of onda_torch/native (g++);
  3. K1 (pseudo_labels_kernel) against its plain version at the main path's
     shape (P = 4*65*129, F = 256, C = 19), euclidean and mahalanobis, and at
     C = 1, C = 32 and P = 700 and 1 (not multiples of its 128-pixel tile);
@@ -30,7 +28,17 @@ Phases:
     batch 4, 1024x512, f32) with seeded random weights and in-memory seeded
     data: calculate_prototypes, train() for one epoch, evaluate_all; launch
     counters read around each part; one more step must sync the host exactly
-    once (the dynamic teacher's gate).
+    once (the dynamic teacher's gate);
+ 7. the CLI on PNG files on disk: a seeded weather-Cityscapes tree of
+    2048x1024 frames (clear, rain 25 and 50 mm; 32 train and 4 val frames
+    each) through `onda_torch.train_ouda.main` on configs/hybrid_switch.yml
+    cut only in its data path, domain order, epochs, absent checkpoint files
+    and snapshot directory: launch counts, every batch from the C++ executor,
+    finite losses, metrics keys, checkpoints, prototype pickles and sample
+    PNGs checked; frames/s from disk, per-step stage times, the device's busy
+    share over two profiled steps and the host prep's own rate printed; then
+    a resumed run (AUTO_RESUME) with a replay buffer that the steps insert
+    into.
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
@@ -39,8 +47,9 @@ share of the bound (bound ms / ms).
 
 Prints the card line and one JSON line of kernel results, then as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
-Writes the per-shape K2 table (and the profile, and the comparison) under
---out-dir (default build/chip_smoke/).
+Writes the per-shape K2 table, the CLI runs' output and profile table (and
+the step profile, and the comparison) under --out-dir (default
+build/chip_smoke/).
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -83,28 +93,24 @@ def bound_ms(nbytes: float, flops: float = 0.0):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def cuda_ms(torch, fn, iters=10, warmup=2, queue_ahead=True, flush="read"):
-    """Mean device time of fn, each call after a pass over 128 MB that evicts
-    the 50 MB L2 (the main path finds its inputs cold). `flush="read"` reads
-    the 128 MB, leaving the L2 clean; "write" zeroes them, and then every
-    timed call also pays to write back the dirty lines it evicts. With `queue_ahead` the device sleeps while the host
-    queues every call, so that the time between the events is the device's
-    alone; the sleep grows until it outlasts the queueing. Without it, a
-    call's time includes whatever the device waited for the host to queue it."""
+def cuda_ms(torch, fn, iters=10, warmup=2):
+    """Mean device time of fn, each call after a read of 128 MB that evicts the
+    50 MB L2 (the main path finds its inputs cold) and leaves it clean. The
+    device sleeps while the host queues every call, so the time between the
+    events is the device's alone; the sleep grows until it outlasts the
+    queueing."""
     buf = torch.ones(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
-    evict = {"read": buf.sum, "write": buf.zero_}[flush]
     for _ in range(warmup):
         fn()
     cycles = 20_000_000
     for _ in range(5):
         torch.cuda.synchronize()
-        if queue_ahead:
-            torch.cuda._sleep(cycles)
+        torch.cuda._sleep(cycles)
         slept = torch.cuda.Event()
         slept.record()
         events = []
         for _ in range(iters):
-            evict()
+            buf.sum()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
@@ -112,7 +118,7 @@ def cuda_ms(torch, fn, iters=10, warmup=2, queue_ahead=True, flush="read"):
             events.append((start, end))
         caught_up = slept.query()  # the sleep ended before the last call was queued
         torch.cuda.synchronize()
-        if not (queue_ahead and caught_up):
+        if not caught_up:
             return sum(s.elapsed_time(e) for s, e in events) / iters
         cycles *= 4
     raise SmokeFailure("the device outran the host at every sleep: does the timed call sync?")
@@ -178,7 +184,7 @@ def check_k1(torch, K, P):
           f"K1 at P=1 {ms_one:.4f} ms")
     return {"name": "pseudo_labels_kernel", "route": "cuda",
             "source": "onda_torch/csrc/pseudo_labels.cu",
-            "replaces": "onda_tpu/ops/pallas_kernels.py:59",
+            "replaces": "onda_tpu/ops/pallas_kernels.py:60",
             "shape": f"P={n_pix} F={n_feat} C={n_cls} f32, mahalanobis",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "bound_share": share(b_ms, ms),
@@ -351,14 +357,9 @@ def load_earlier_kernels(path):
     return importlib.import_module("onda_torch_earlier.ops.kernels")
 
 
-TIMERS = {"device": dict(),                                    # this script's timer
-          "write_flush": dict(flush="write"),                   # device time, L2 left dirty
-          "host_queued": dict(flush="write", queue_ahead=False)}  # and the host's queueing counted
-
-
 def compare_earlier(torch, K, path, out_dir):
     """Time the earlier K1 and K2 against this tree's on the same inputs, in
-    turns (earlier, this, this, earlier), with each of TIMERS."""
+    turns (earlier, this, this, earlier)."""
     old = load_earlier_kernels(path)
     t = time.perf_counter()
     old.build.build_all()
@@ -366,16 +367,12 @@ def compare_earlier(torch, K, path, out_dir):
     rows = []
 
     def turns(name, shape, f_old, f_new, b_ms):
-        row = {"kernel": name, "shape": shape, "bound_ms": b_ms}
-        for key, opts in TIMERS.items():
-            ms = [cuda_ms(torch, f, **opts) for f in (f_old, f_new, f_new, f_old)]
-            row[key] = {"earlier_ms": (ms[0] + ms[3]) / 2, "ms": (ms[1] + ms[2]) / 2, "turns": ms}
-        d = row["device"]
-        print(f"compare {name} {shape}: earlier {d['earlier_ms']:.4f} ms, this {d['ms']:.4f} ms "
-              f"(turns {', '.join(f'{v:.4f}' for v in d['turns'])}); bound {b_ms:.4f} ms, "
-              f"{100 * share(b_ms, d['earlier_ms']):.1f}% -> {100 * share(b_ms, d['ms']):.1f}%; " +
-              "; ".join(f"{key}: earlier {row[key]['earlier_ms']:.4f}, this {row[key]['ms']:.4f} ms"
-                        for key in TIMERS if key != "device"))
+        ms = [cuda_ms(torch, f) for f in (f_old, f_new, f_new, f_old)]
+        row = {"kernel": name, "shape": shape, "bound_ms": b_ms, "earlier_ms": (ms[0] + ms[3]) / 2,
+               "ms": (ms[1] + ms[2]) / 2, "turns": ms}
+        print(f"compare {name} {shape}: earlier {row['earlier_ms']:.4f} ms, this {row['ms']:.4f} ms "
+              f"(turns {', '.join(f'{v:.4f}' for v in ms)}); bound {b_ms:.4f} ms, "
+              f"{100 * share(b_ms, row['earlier_ms']):.1f}% -> {100 * share(b_ms, row['ms']):.1f}%")
         rows.append(row)
         return row
 
@@ -401,15 +398,11 @@ def compare_earlier(torch, K, path, out_dir):
                                         lambda: old.bn_stats(x), lambda: K.bn_stats(x), b_ms)
             del x
         del base
-    total = {key: {k: sum(per[(s, torch.float32)][key][k] for s in shapes)
-                   for k in ("earlier_ms", "ms")} for key in TIMERS}
+    total = {k: sum(per[(s, torch.float32)][k] for s in shapes) for k in ("earlier_ms", "ms")}
     bound = sum(per[(s, torch.float32)]["bound_ms"] for s in shapes)
-    d = total["device"]
     print(f"compare bn_stats_kernel over the 53 BN inputs of one R50 forward (f32): earlier "
-          f"{d['earlier_ms']:.4f} ms, this {d['ms']:.4f} ms, bound {bound:.4f} ms "
-          f"({100 * share(bound, d['earlier_ms']):.1f}% -> {100 * share(bound, d['ms']):.1f}%); " +
-          "; ".join(f"{key}: earlier {total[key]['earlier_ms']:.4f}, this {total[key]['ms']:.4f} ms"
-                    for key in TIMERS if key != "device"))
+          f"{total['earlier_ms']:.4f} ms, this {total['ms']:.4f} ms, bound {bound:.4f} ms "
+          f"({100 * share(bound, total['earlier_ms']):.1f}% -> {100 * share(bound, total['ms']):.1f}%)")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "compare.json"), "w") as f:
         json.dump({"earlier": os.path.abspath(path), "rows": rows,
@@ -508,8 +501,6 @@ def main_path(torch, K, profile: bool, out_dir: str):
     val = make_batches(torch, 1, batch, hw, 12)
     torch.cuda.synchronize()
     print(f"main path set-up (model, state, data): {time.perf_counter() - t0:.3f} s")
-    counts = {}
-
     K.reset_launches()
     ad.calculate_prototypes(src)
     torch.cuda.synchronize()
@@ -536,9 +527,7 @@ def main_path(torch, K, profile: bool, out_dir: str):
     final = ad.evaluate_all({"smoke": val})
     torch.cuda.synchronize()
     evaluated = dict(K.launches)
-    for phase in (boot, trained, evaluated):
-        for k, v in phase.items():
-            counts[k] = counts.get(k, 0) + v
+    counts = {k: boot[k] + trained[k] + evaluated[k] for k in boot}
 
     step_logs = [(t, l) for t, l in logger.entries if "Total target loss" in l]
     check(len(step_logs) == steps, f"{len(step_logs)} step logs for {steps} steps")
@@ -625,6 +614,285 @@ def main_path(torch, K, profile: bool, out_dir: str):
                     "peak_gib": peak / 2**30}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the CLI on PNG files on disk
+# ---------------------------------------------------------------------------
+
+CLI_INTENSITIES = (0, 25, 50)
+CLI_FRAMES = {"train": 32, "val": 4}  # frames per intensity and set
+FRAME_HW = (1024, 2048)               # Cityscapes' own frame size
+PROFILE_AT = 5                        # the first step OTHERS.PROFILE traces
+STEP_KEYS = ("Total target loss", "ce_loss", "rce_loss", "regularization_loss", "buff_ce_loss",
+             "pseudolabel_pixel_num", "encoder_lr", "dynamic forward fired",
+             "prototypes confidence ma", "Total buffer updates", "time/Batch Fetch")
+
+
+def frame_image(rng, hw):
+    """A smooth seeded RGB pattern with mild noise: its PNG compresses about as a
+    photograph's does (white noise would decode at a cost no real frame has)."""
+    import numpy as np
+
+    h, w = hw
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.empty((h, w, 3), np.float32)
+    for c in range(3):
+        fx, fy = rng.uniform(1.0, 8.0, 2)
+        px, py = rng.uniform(0.0, 2 * np.pi, 2)
+        img[..., c] = (120 + 60 * np.sin(2 * np.pi * fx * x + px) * np.cos(2 * np.pi * fy * y + py)
+                       + 40 * (x - y))
+    img += rng.normal(0.0, 2.5, (h, w, 3)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def frame_label(rng, hw):
+    """Blocks of raw Cityscapes labelIds (0-33)."""
+    import numpy as np
+
+    h, w = hw
+    return np.repeat(np.repeat(rng.integers(0, 34, (8, 16), dtype=np.uint8), h // 8, 0), w // 16, 1)
+
+
+def write_dataset(root, seed):
+    """A seeded weather-Cityscapes tree (clear, rain/25mm, rain/50mm; labels
+    shared by the intensities of a frame, as in the real dataset) and its
+    metadata.json; returns (rows, bytes of image PNGs)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from onda_torch.data.metadata import Table
+    from onda_torch.utils.viz import write_png
+
+    jobs, rows = [], []
+    for set_, n in CLI_FRAMES.items():
+        for i in range(n):
+            frame = f"city_{set_}_{i:03d}"
+            lbl_rel = f"gtFine/{set_}/city/{frame}_gtFine_labelIds.png"
+            jobs.append((lbl_rel, frame_label))
+            for intensity in CLI_INTENSITIES:
+                domain = "clear" if intensity == 0 else f"rain/{intensity}mm"
+                img_rel = f"leftImg8bit/{set_}/{domain}/city/{frame}_leftImg8bit.png"
+                jobs.append((img_rel, frame_image))
+                rows.append({"image_path": img_rel, "label_path": lbl_rel, "set": set_,
+                             "intensity": intensity})
+
+    def write(job):
+        index, (rel, make) = job
+        write_png(os.path.join(root, rel), make(np.random.default_rng([seed, index]), FRAME_HW))
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        list(pool.map(write, enumerate(jobs)))
+    Table(rows, ["image_path", "label_path", "set", "intensity"]).to_json(
+        os.path.join(root, "metadata.json"))
+    return rows, sum(os.path.getsize(os.path.join(root, r["image_path"])) for r in rows)
+
+
+def cli_config(root, snap, path, domains, **others):
+    """configs/hybrid_switch.yml as shipped but for the cuts of phase 7."""
+    import yaml
+
+    with open(os.path.join(HERE, "configs", "hybrid_switch.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["SCHEME"].update(PATH=root, DOMAIN_ORDER=domains)
+    cfg["MODEL"].pop("LOAD")  # the pretrained .pth and prototype pickle are absent
+    spec = cfg["METHOD"]["ADAPTATION"][cfg["METHOD"]["ADAPTATION"]["NAME"]]
+    spec.pop("LOAD_PROTO")
+    spec["EPOCHS"] = 1
+    cfg["OTHERS"].update(SNAPSHOT_DIR=snap, SCHEDULE=True)
+    for key, value in others.items():
+        section, name = key.split(".")
+        cfg[section][name] = value
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return cfg
+
+
+def run_cli(torch, K, cfg_path, log_path):
+    """onda_torch.train_ouda.main in this process, its output into log_path;
+    the launch and batch counts are reset just before and read just after."""
+    import contextlib
+
+    from onda_torch import train_ouda
+    from onda_torch.data import loader
+
+    K.reset_launches()
+    loader.reset_batches()
+    t = time.perf_counter()
+    with open(log_path, "w") as log:
+        try:
+            with contextlib.redirect_stdout(log):
+                train_ouda.main(["--cfg", cfg_path])
+        finally:
+            torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    with open(log_path) as log:
+        text = log.read()
+    return dict(K.launches), dict(loader.BATCHES), seconds, text
+
+
+def step_stage_ms(records):
+    """Per-step stage times from the SpeedMeter's running averages (the
+    average over steps 0..k, logged at step k, differenced); ms."""
+    out = {}
+    for key in [k for k in records[0] if k.startswith("time/")]:
+        avg = [r[key] for r in records]
+        out[key] = [1e3 * ((k + 1) * avg[k] - k * avg[k - 1] if k else avg[0]) for k in range(len(avg))]
+    return out
+
+
+def prep_rate(root, rows, workers, batch=4, repeats=5):
+    """The C++ prep alone: images and labels per second for one batch at
+    `workers` threads (files in the page cache)."""
+    import numpy as np
+    from onda_torch.data.metadata import load_dataset_info
+    from onda_torch.data.segmentation import LabelMapper
+    from onda_torch.native import BatchExecutor
+
+    info = load_dataset_info()
+    lut = LabelMapper(dict(tuple(p) for p in info["label2train"])).lut
+    pick = [r for r in rows if r["set"] == "train" and r["intensity"] == 25][:batch]
+    images = [os.path.join(root, r["image_path"]) for r in pick]
+    labels = [os.path.join(root, r["label_path"]) for r in pick]
+    ex = BatchExecutor(workers)
+    img = np.empty((batch, 3, 512, 1024), np.float32)
+    full, res = np.empty((batch, 512, 1024), np.int32), np.empty((batch, 65, 129), np.int32)
+    times = {"images": [], "labels": []}
+    for _ in range(repeats):
+        t = time.perf_counter()
+        ex.wait(ex.submit_images(images, (512, 1024), info["mean"], info["std"], img), images)
+        times["images"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        ex.wait(ex.submit_labels(labels, (512, 1024), (65, 129), lut, full, res), labels)
+        times["labels"].append(time.perf_counter() - t)
+    ex.close()
+    return {k: batch / statistics.median(v) for k, v in times.items()}
+
+
+def cli_path(torch, K, out_dir, in_memory_fps):
+    """Phase 7: the shipped config through `onda_torch.train_ouda.main` on a
+    seeded dataset of PNG files, then a resumed run that inserts into the
+    replay buffer. Returns the launch counts of both runs and the numbers."""
+    import shutil
+
+    import numpy as np
+
+    work = tempfile.mkdtemp(prefix="onda_cli_")
+    try:
+        root, snap = os.path.join(work, "weather_cityscapes") + "/", os.path.join(work, "snapshots")
+        t = time.perf_counter()
+        rows, img_bytes = write_dataset(root, seed=7)
+        n_img = len(rows)
+        print(f"phase 7 dataset: {n_img} frames of {FRAME_HW[1]}x{FRAME_HW[0]} (intensities "
+              f"{CLI_INTENSITIES}, {CLI_FRAMES} per intensity), mean image PNG "
+              f"{img_bytes / n_img / 1e6:.3f} MB, written in {time.perf_counter() - t:.3f} s")
+        cfg = cli_config(root, snap, os.path.join(work, "run1.yml"), [[25], [50]],
+                         **{"OTHERS.PROFILE": 2})
+        workers = int(cfg["OTHERS"]["NUM_WORKERS"])
+        batch = int(cfg["TRAINING"]["BATCH_SIZE"])
+        print("phase 7 run 1: configs/hybrid_switch.yml with the cuts SCHEME.PATH=<the dataset>, "
+              "DOMAIN_ORDER=[[25], [50]], EPOCHS=1, MODEL.LOAD and LOAD_PROTO unset, "
+              "SNAPSHOT_DIR=<temporary>, OTHERS.SCHEDULE=true, OTHERS.PROFILE=2; as shipped: "
+              f"b{batch}, {cfg['SCHEME']['RESOLUTION']}, REPLAY_BUFFER "
+              f"{cfg['TRAINING']['REPLAY_BUFFER']}, NUM_WORKERS {workers}, "
+              f"GENERATE_SAMPLES_EVERY {cfg['OTHERS']['GENERATE_SAMPLES_EVERY']}, "
+              f"VALIDATION {cfg['OTHERS']['VALIDATION']}")
+        rates = prep_rate(root, rows, workers)
+        print(f"host prep alone (C++ executor, {workers} threads, one batch of {batch}, files in "
+              f"the page cache): {rates['images']:.3f} images/s, {rates['labels']:.3f} labels/s")
+
+        launches, batches, seconds, text = run_cli(torch, K, os.path.join(work, "run1.yml"),
+                                                   os.path.join(out_dir, "cli_run1.log"))
+        with open(os.path.join(snap, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        n_run1 = len(records)
+        steps_per_domain = CLI_FRAMES["train"] // batch
+        steps = 2 * steps_per_domain
+        n_src = min(int(cfg["TRAINING"]["REPLAY_BUFFER"]), CLI_FRAMES["train"])
+        boot = n_src // batch  # the source loader drops the last partial batch
+        print(f"phase 7 run 1: {seconds:.3f} s; launches {launches}; batches made {batches}")
+        want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": 159 * steps + 53 * boot}
+        check(launches == want, f"CLI run launches {launches}, expected {want} "
+                                f"(K1 2/step, K2 159/step + 53 per bootstrap batch)")
+        check(batches.get("collate", 0) == 0 and batches.get("executor", 0) > 0,
+              f"every batch must come from the C++ executor, got {batches}")
+        step_records = [r for r in records if "Total target loss" in r]
+        check(len(step_records) == steps, f"{len(step_records)} step records, expected {steps}")
+        for r in step_records:
+            for key, value in r.items():
+                check("loss" not in key or math.isfinite(value), f"step {r['_step']}: {key} = {value}")
+            missing = [k for k in STEP_KEYS if k not in r]
+            check(not missing, f"step record {r['_step']} lacks {missing}")
+        keys = set().union(*records)
+        for prefix in ("Adaptation frames per second", "Val mIoU model of ", "Condition "):
+            check(any(k.startswith(prefix) for k in keys), f"metrics.jsonl has no {prefix!r} key")
+        files = os.listdir(snap)
+        samples = os.listdir(os.path.join(snap, "samples"))
+        n_val_sets = len(CLI_INTENSITIES)
+        check("adapt_state.pt" in files, "no adapt_state.pt")
+        check(any(f.startswith("proto_") and f.endswith(".pickle") for f in files), "no proto pickle")
+        check("model_train_[[0]]_after_src_training.pth" in files, f"no source .pth in {files}")
+        check(len(samples) == 2 * n_val_sets * CLI_FRAMES["val"],
+              f"{len(samples)} sample PNGs, expected {2 * n_val_sets * CLI_FRAMES['val']}")
+
+        fps = [r["Adaptation frames per second"] for r in step_records
+               if "Adaptation frames per second" in r]
+        print("phase 7 CLI from disk: Adaptation frames per second per domain "
+              + ", ".join(f"{v:.3f}" for v in fps)
+              + f"; phase 6 in memory {in_memory_fps:.3f} frames/s")
+        stages = {}
+        for d in range(2):
+            per = step_stage_ms(step_records[d * steps_per_domain:(d + 1) * steps_per_domain])
+            for key, ms in per.items():
+                stages.setdefault(key, []).append(ms)
+            print(f"phase 7 domain {d}: per-step stage ms (steps 0..{steps_per_domain - 1}): "
+                  + "; ".join(f"{k[5:]} " + ", ".join(f"{v:.3f}" for v in ms) for k, ms in per.items()))
+        # steps 1..4 of each domain: step 0 warms up, 5 and 6 are profiled (the
+        # trace starts in 5's Batch Fetch and is written in 6's Host Work), 7
+        # evaluates, renders samples and checkpoints
+        clean = slice(1, PROFILE_AT)
+        median = {k[5:]: statistics.median(x for ms in v for x in ms[clean]) for k, v in stages.items()}
+        step_ms = statistics.median(sum(col) for v in zip(*stages.values())
+                                    for col in zip(*(ms[clean] for ms in v)))
+        print("phase 7 median stage ms over steps 1..4 of both domains: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in median.items())
+              + f"; their sum {step_ms:.3f} ms per step, {batch / (step_ms / 1e3):.3f} frames/s")
+        with open(os.path.join(snap, "profile", "summary.json")) as f:
+            prof = json.load(f)
+        print(f"phase 7 profiled steps 5-6 of domain 1 (torch.profiler): wall {prof['wall_ms']:.3f} ms, "
+              f"kernels {prof['kernel_ms']:.3f} ms ({100 * prof['kernel_share']:.1f}% busy, "
+              f"{100 * (1 - prof['kernel_share']):.1f}% idle), copies {prof['copy_ms']:.3f} ms")
+        shutil.copy(os.path.join(snap, "profile", "profile.txt"),
+                    os.path.join(out_dir, "cli_profile.txt"))
+
+        cli_config(root, snap, os.path.join(work, "run2.yml"), [[25]], **{
+            "OTHERS.AUTO_RESUME": True, "TRAINING.BUFFER_DYNAMIC": True,
+            "TRAINING.PERC_FILL_PER_DOMAIN": 1.0})
+        launches2, _, seconds2, text2 = run_cli(torch, K, os.path.join(work, "run2.yml"),
+                                                os.path.join(out_dir, "cli_run2.log"))
+        with open(os.path.join(snap, "metrics.jsonl")) as f:
+            records2 = [json.loads(line) for line in f][n_run1:]
+        inserted = sum(r.get("Total buffer updates", 0) for r in records2)
+        resumed = [line for line in text2.splitlines() if line.startswith("AUTO_RESUME: restoring")]
+        buffer_line = [line for line in text2.splitlines() if line.startswith("Buffer size:")]
+        fps2 = [r["Adaptation frames per second"] for r in records2 if "Adaptation frames per second" in r]
+        print(f"phase 7 run 2 (run 1's cuts but no PROFILE; AUTO_RESUME, BUFFER_DYNAMIC, "
+              f"PERC_FILL_PER_DOMAIN 1.0, DOMAIN_ORDER [[25]]): {seconds2:.3f} s; {resumed[:1]} "
+              f"{buffer_line[:1]}; launches {launches2}; buffer insertions {inserted}; "
+              f"Adaptation frames per second {', '.join(f'{v:.3f}' for v in fps2)}")
+        check(resumed, "the second run did not resume")
+        want2 = {"pseudo_labels_kernel": 2 * steps_per_domain, "bn_stats_kernel": 159 * steps_per_domain}
+        check(launches2 == want2, f"resumed run launches {launches2}, expected {want2} (no bootstrap)")
+        check(inserted > 0, "the resumed run inserted nothing into the replay buffer")
+        summary = {"cli_frames_per_s": fps, "cli_resumed_frames_per_s": fps2,
+                   "in_memory_frames_per_s": in_memory_fps, "stage_ms_median": median,
+                   "steady_step_ms": step_ms, "steady_frames_per_s": batch / (step_ms / 1e3),
+                   "prep_images_per_s": rates["images"], "prep_labels_per_s": rates["labels"],
+                   "profile": prof, "buffer_insertions": inserted}
+        return [launches, launches2], summary
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--skip-main", action="store_true", help="kernel phases only")
@@ -642,6 +910,7 @@ def main() -> int:
     check(os.path.isdir(os.path.join(HERE, "onda_torch")),
           "the onda_torch package is not beside chip_smoke.py")
     sys.path.insert(0, HERE)
+    from onda_torch import native
     from onda_torch.models import layers
     from onda_torch.ops import build
     from onda_torch.ops import kernels as K
@@ -655,22 +924,31 @@ def main() -> int:
     print("kernel phases: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
 
     t = time.perf_counter()
+    prep = threading.Thread(target=lambda: prep_build.append(native.build()))
+    prep_build = []
+    prep.start()  # g++ of the host prep runs beside nvcc
     build.build_all(verbose=True)
     print(f"kernel build: {time.perf_counter() - t:.3f} s into {build.BUILD_DIR}")
+    prep.join()
+    check(prep_build, "the C++ host prep did not build (its error is above)")
+    print(f"C++ host prep build: {time.perf_counter() - t:.3f} s into {prep_build[0]}")
 
     k1 = check_k1(torch, K, P)
     k2 = check_k2(torch, K, layers, args.out_dir)
     small_input_check(torch)
     if args.compare:
         compare_earlier(torch, K, args.compare, args.out_dir)
-    counts, summary = {}, {}
+    paths, summary = {}, {}
     if not args.skip_main:
         torch.backends.cudnn.allow_tf32 = True
         print("main path: cudnn.allow_tf32=True (PyTorch's default: convolutions in TF32), "
               "cuda.matmul.allow_tf32=False")
-        counts, summary = main_path(torch, K, args.profile, args.out_dir)
-    k1["launches"] = counts.get("pseudo_labels_kernel", 0)
-    k2["launches"] = counts.get("bn_stats_kernel", 0)
+        paths["in_memory"], summary = main_path(torch, K, args.profile, args.out_dir)
+        (paths["cli"], paths["cli_resumed"]), summary["cli"] = cli_path(
+            torch, K, args.out_dir, summary["frames_per_s"])
+    for k in (k1, k2):
+        k["launches_by_path"] = {p: c.get(k["name"], 0) for p, c in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     print(f"main path summary: {json.dumps(summary)}")
     print(card)
     print(json.dumps({"kernels": [k1, k2]}))

@@ -17,31 +17,41 @@ device only once, for the dynamic teacher's gate (see `prior_policy`); the
 scalar logs leave the device as one packed tensor, read when the caller first
 looks at them.
 
-Not ported yet: the replay buffer and its insertions, BN_POLICY double and
-keep, AUTO_DYNAMIC, PREDICTION_SAVE and sample rendering.
+Around the step, `train` feeds batches through `DeviceFeeder`s (the next
+batch's copy overlaps the step), inserts pseudo-labeled target frames into a
+replay buffer, evaluates, renders samples and checkpoints once per epoch.
+
+Not ported yet (they raise): BN_POLICY double and keep, AUTO_DYNAMIC and
+PREDICTION_SAVE (ROADMAP M13), OTHERS.ASYNC_SAVE, and more than one device
+(M17).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import json
 import os
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..config import unset, value_or
+from ..data.loader import DeviceFeeder, cycle, host_tensor
 from ..ops import kernels as K
 from ..ops import losses as L
 from ..ops import metrics as M
 from ..ops import prototypes as P
 from ..ops.interp import resize_nearest, upsample_bilinear_ac
 from ..ops.monitor import Monitor
+from ..utils.checkpoint import save_atomic
 from . import optim
 from .prior_policy import POLICY_BY_METHOD, compute_prior
 from .state import AdaptState, clone_tree, make_adapt_state
-from .timing import SpeedMeter
+from .timing import SpeedMeter, samples_due
 
 MONITOR_KEYS = (
     "model",
@@ -73,9 +83,21 @@ def _flat(x):
     return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
 
 
-def cycle(loader):
-    while True:
-        yield from loader
+def _union_ms(intervals) -> float:
+    """Total length, in ms, of the union of (start, end) intervals in µs."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
+def _stack(arrays):
+    """Stack a leading axis; one array becomes a view (pinned memory stays pinned)."""
+    if len(arrays) == 1:
+        return arrays[0][None]
+    return torch.stack(arrays) if isinstance(arrays[0], torch.Tensor) else np.stack(arrays)
 
 
 class LazyLogs(dict):
@@ -146,6 +168,12 @@ class ProtoOnlineAdapter:
 
     def __init__(self, model, variables, cfg, cfg_spec, num_classes: int, logger=None,
                  device="cuda"):
+        if value_or(cfg.OTHERS.ASYNC_SAVE, False):
+            raise NotImplementedError("OTHERS.ASYNC_SAVE is not ported yet")
+        for key in ("DATA_PARALLEL", "TENSOR_PARALLEL"):
+            if value_or(cfg.OTHERS[key], False):
+                raise NotImplementedError(f"OTHERS.{key}: the port runs on one device "
+                                          "(multi-GPU is ROADMAP M17)")
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -174,6 +202,7 @@ class ProtoOnlineAdapter:
         self.param_labels = optim.label_params(self.state.params, aux_grad=bool(model.multi_level))
         self.lr_ratios = self._lr_ratios()
         self._step_cache = {}
+        self._applied_spec = self._step_relevant_spec(cfg_spec)
         self.conf_reg_thresh = (
             1.0 if unset(cfg_spec.CONFIDENCE_REGULARIZATION_THRESHOLD)
             else float(cfg_spec.CONFIDENCE_REGULARIZATION_THRESHOLD))
@@ -191,6 +220,29 @@ class ProtoOnlineAdapter:
         r0, r1 = (int(v) for v in ratio.split(":"))
         return float(r0), float(r1)
 
+    # spec keys the step never reads: set_ and SKIP_CALC change every domain,
+    # EPOCHS only sizes the host loop
+    _HOST_ONLY_SPEC_KEYS = ("set_", "SKIP_CALC", "EPOCHS")
+
+    @classmethod
+    def _step_relevant_spec(cls, spec):
+        return copy.deepcopy({k: v for k, v in dict(spec).items()
+                              if k not in cls._HOST_ONLY_SPEC_KEYS})
+
+    def update_cfg_spec(self, new_spec):
+        """Per-domain cfg overrides (reference train_ouda.py:248-260). A built
+        step holds the spec's values, so a change of any key but the host-only
+        ones drops the built steps. The CLI mutates the same spec object for
+        every domain, so the comparison is against a copy of what was last
+        applied."""
+        snap = self._step_relevant_spec(new_spec)
+        changed = snap != self._applied_spec
+        self.cfg_spec = new_spec
+        self._applied_spec = snap
+        self.lr_ratios = self._lr_ratios()
+        if changed:
+            self._step_cache.clear()
+
     @property
     def resolution_hw(self):
         w, h = self.cfg.SCHEME.RESOLUTION
@@ -205,7 +257,13 @@ class ProtoOnlineAdapter:
         return main
 
     def _to_device(self, x, dtype=None):
-        return torch.as_tensor(x).to(self.device, dtype=dtype, non_blocking=True)
+        """x on the adapter's device, converted there to dtype. A copy to a card
+        starts from page-locked memory, so it neither waits for the device nor
+        lets the host memory go before the copy has read it."""
+        if self.device.type == "cuda":
+            x = host_tensor(x).to(self.device, non_blocking=True)
+        x = torch.as_tensor(x)
+        return x if dtype is None else x.to(dtype)
 
     # ------------------------------------------------------------------
     # the step
@@ -224,7 +282,7 @@ class ProtoOnlineAdapter:
         buff_ce_w, buff_rce_w = float(spec.BUFF_CE), float(spec.BUFF_RCE)
         bn_policy = spec.BN_POLICY if spec.BN_POLICY in ("freeze", "double", "keep") else "freeze"
         if have_src and bn_policy != "freeze":
-            raise NotImplementedError(f"BN_POLICY {bn_policy!r} is not ported yet")
+            raise NotImplementedError(f"BN_POLICY {bn_policy!r} is not ported yet (ROADMAP M13)")
         momentum, weight_decay = float(spec.MOMENTUM), float(spec.WEIGHT_DECAY)
         ema_update = float(spec.EMA_UPDATE)
         static_on = float(spec.STATIC_LAMBDA) > 0
@@ -460,6 +518,49 @@ class ProtoOnlineAdapter:
                 log[f"{name} {val_set}"] = value
         return log
 
+    @torch.no_grad()
+    def _predict(self, images):
+        """The student's class map at the input size: eval forward, bilinear
+        align_corners upsample, argmax."""
+        out = self._forward(self.state.params, self.state.batch_stats, images, train=False)["out"]
+        return upsample_bilinear_ac(out.float(), self.resolution_hw).argmax(dim=1)
+
+    def test_on_samples(self, validation_loaders: dict, n: int = 10) -> dict:
+        """Up to n rendered samples per validation set (reference
+        da_model.test_on_samples, adaptation_model.py:181-200), as `MaskSample`s
+        whose PNG lies under SNAPSHOT_DIR/samples. The prediction of a batch
+        comes to the host in one copy."""
+        from ..data.metadata import load_dataset_info
+        from ..utils.viz import MaskSample, denormalize_rgb, save_sample
+
+        info = load_dataset_info()
+        palette = info["palette"]
+        class_labels = (self.cfg.classnum_to_label if not unset(self.cfg.classnum_to_label)
+                        else info["classnum_to_label"])
+        mean = self.cfg.SCHEME.MEAN if not unset(self.cfg.SCHEME.MEAN) else [0, 0, 0]
+        std = self.cfg.SCHEME.STD if not unset(self.cfg.SCHEME.STD) else [255, 255, 255]
+        out_dir = os.path.join(str(self.cfg.OTHERS.SNAPSHOT_DIR), "samples")
+        log = {}
+        for val_set, loader in validation_loaders.items():
+            count = 0
+            for batch in loader:
+                preds = self._predict(self._to_device(batch["image"], torch.float32)).int().cpu().numpy()
+                label = batch.get("label")
+                for b in range(len(preds)):
+                    if count >= n:
+                        break
+                    label_b = np.asarray(label[b]) if label is not None else None
+                    rgb_b = denormalize_rgb(np.asarray(batch["image"][b]), mean, std)
+                    path = save_sample(
+                        rgb_b, preds[b], label_b, palette,
+                        os.path.join(out_dir, f"{val_set}_{count}_step{int(self.state.step)}.png"))
+                    log[f"Condition {val_set} sample {count}"] = MaskSample(
+                        rgb_b, preds[b], label_b, class_labels, f"Sample from {val_set}", path)
+                    count += 1
+                if count >= n:
+                    break
+        return log
+
     def _copy_dynamic(self):
         self.state.dynamic_params = clone_tree(self.state.params)
         self.state.dynamic_batch_stats = clone_tree(self.state.batch_stats)
@@ -470,13 +571,9 @@ class ProtoOnlineAdapter:
     def train(self, trainloader, targetloader, validation_loaders) -> None:
         spec = self.cfg_spec
         if value_or(spec.AUTO_DYNAMIC, False):
-            raise NotImplementedError("AUTO_DYNAMIC is not ported yet")
+            raise NotImplementedError("AUTO_DYNAMIC is not ported yet (ROADMAP M13)")
         if not unset(spec.PREDICTION_SAVE):
-            raise NotImplementedError("PREDICTION_SAVE is not ported yet")
-        samples_every = int(value_or(self.cfg.OTHERS.GENERATE_SAMPLES_EVERY, 10))
-        if samples_every > 0:
-            raise NotImplementedError(
-                "sample rendering is not ported yet: set OTHERS.GENERATE_SAMPLES_EVERY to 0")
+            raise NotImplementedError("PREDICTION_SAVE is not ported yet (ROADMAP M13)")
         self._copy_dynamic()
         if not spec.SKIP_CALC:
             if not self.skip_proto:
@@ -496,10 +593,40 @@ class ProtoOnlineAdapter:
             update_prob = (perc_fill * float(self.cfg.TRAINING.REPLAY_BUFFER)
                            / float(self.cfg.TRAINING.BATCH_SIZE) / steps)
         step = self.step_fn(have_src, source_repeat, update_prob > 0)
-        src_iter = cycle(trainloader) if have_src else None
-        trg_iter = cycle(targetloader)
+        # (OTHERS.AOT_CACHE, a cache of the JAX package's compiled step, has no
+        # counterpart: the port compiles no step)
+
+        # the next target batch's copy overlaps the current step; so does the
+        # source replay's, unless it is drawn from a buffer that the steps'
+        # insertions mutate: prefetching would draw each batch before the
+        # previous step's insertions land, so such a buffer is drawn when the
+        # step needs it (OTHERS.PREFETCH_SOURCE: true opts into the overlap)
+        trg_feed = DeviceFeeder(cycle(targetloader), self.device, keys=("image",))
+        if have_src:
+            mutating = hasattr(trainloader, "add_from_batch")
+            src_iter = iter(trainloader) if mutating else cycle(trainloader)
+            src_feed = DeviceFeeder(
+                self._stacked_source(src_iter, source_repeat), self.device,
+                keys=("image", "label"),
+                ahead=bool(value_or(self.cfg.OTHERS.PREFETCH_SOURCE, not mutating)))
+        rng = np.random.default_rng(int(self.cfg.TRAINING.RANDOM_SEED))
         power = float(spec.POWER)
         base_lr = float(spec.LEARNING_RATE)
+        # step-interval checkpoints, beyond the reference's per-epoch ones
+        save_every = int(value_or(self.cfg.OTHERS.SAVE_EVERY, 0))
+        # OTHERS.PROFILE: N traces N steps after the first 5 with
+        # torch.profiler, written under SNAPSHOT_DIR/profile
+        profile_steps = int(value_or(self.cfg.OTHERS.PROFILE, 0))
+        profile_at = 5
+        if profile_steps and steps <= profile_at + profile_steps:
+            print(f"OTHERS.PROFILE: need > {profile_at + profile_steps} steps, have {steps}; "
+                  "skipping trace")
+            profile_steps = 0
+        profiler = None
+        # OTHERS.SCHEDULE: host stage timing of the loop. Batch Fetch: waiting
+        # for the fed batches; Step Dispatch: queueing the step; Host Work:
+        # insertions, evaluation, samples, checkpoints; Log Sync: reading the
+        # step's packed logs
         meter = SpeedMeter(limit=20, enabled=bool(value_or(self.cfg.OTHERS.SCHEDULE, False)))
         frames_done = 0
         wall_t0 = time.perf_counter()
@@ -507,32 +634,41 @@ class ProtoOnlineAdapter:
             meter.reset()
             lr = base_lr * (1.0 - i_iter / steps) ** power if power else base_lr
             if have_src:
-                batches = [next(src_iter) for _ in range(source_repeat)]
-                src_images = self._to_device(
-                    torch.stack([torch.as_tensor(b["image"]) for b in batches]), torch.float32)
-                src_labels = self._to_device(
-                    torch.stack([torch.as_tensor(self._src_label(b)) for b in batches]), torch.long)
+                src_batch = next(src_feed)
+                src_images, src_labels = src_batch["image"], src_batch["label"].long()
             else:
                 src_images = src_labels = None
-            trg_batch = next(trg_iter)
-            trg_images = self._to_device(trg_batch["image"], torch.float32)
+            if profile_steps and i_iter == profile_at:
+                profiler, profile_t0 = self._start_profile()
+            trg_batch = next(trg_feed)
             meter.mark("Batch Fetch")
-            self.state, logs = step(self.state, trg_images, src_images, src_labels, lr)
+            self.state, logs = step(self.state, trg_batch["image"], src_images, src_labels, lr)
             meter.mark("Step Dispatch")
             host_logs = {"Total buffer updates": self._buffer_update(
-                logs.pop("soft_predictions", None), update_prob, trainloader)}
+                trg_batch, logs.pop("soft_predictions", None), update_prob, trainloader, rng)}
+            if profiler is not None and i_iter + 1 == profile_at + profile_steps:
+                logs["Total target loss"]  # the profiled steps end at their packed-log read
+                self._stop_profile(profiler, profile_t0, profile_steps)
+                profiler = None
+            if save_every and (i_iter + 1) % save_every == 0:
+                self.save_model()
             if i_iter == 0:
                 host_logs["Step compile+run seconds"] = time.perf_counter() - wall_t0
                 frames_done = 0
                 wall_t0 = time.perf_counter()
             else:
-                frames_done += int(trg_images.shape[0])
+                frames_done += int(trg_batch["image"].shape[0])
             if (i_iter + 1) % len(targetloader) == 0:
+                # streaming throughput of the epoch, host feed included;
+                # evaluation and checkpoints between epochs are not counted
                 elapsed = time.perf_counter() - wall_t0
                 if elapsed > 0 and frames_done:
                     host_logs["Adaptation frames per second"] = frames_done / elapsed
                 print("Model evaluation")
                 host_logs.update(self.evaluate_all(validation_loaders))
+                samples_every = int(value_or(self.cfg.OTHERS.GENERATE_SAMPLES_EVERY, 10))
+                if samples_due(samples_every, i_iter, len(targetloader)):
+                    host_logs.update(self.test_on_samples(validation_loaders))
                 self.save_model()
                 frames_done = 0
                 wall_t0 = time.perf_counter()
@@ -545,27 +681,90 @@ class ProtoOnlineAdapter:
             self._log(logs)
         self.save_model()
 
+    def _stacked_source(self, src_iter, source_repeat: int):
+        """Source-replay batches with a leading SOURCE_REPEAT axis."""
+        while True:
+            batches = [next(src_iter) for _ in range(source_repeat)]
+            yield {"image": _stack([b["image"] for b in batches]),
+                   "label": _stack([self._src_label(b) for b in batches])}
+
     def _src_label(self, batch):
         if "stored_predictions" in batch:
             return batch["stored_predictions"]
         return batch["label_res"]
 
-    def _buffer_update(self, soft_nchw, probability, trainloader) -> int:
-        """Replay-buffer insertions (reference buffer_update, prototypes.py:453-464):
-        skipped, as in the JAX package, when the source loader has no
-        `add_from_batch`."""
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+            torch.cuda.synchronize(self.device)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler, time.perf_counter()
+
+    def _stop_profile(self, profiler, t0: float, n_steps: int) -> None:
+        """Stop the trace and write it under SNAPSHOT_DIR/profile: the Chrome
+        trace, the table by operator, and summary.json with the window's wall
+        time and the time the device was busy in it (the union of the kernels'
+        intervals on the trace's timeline; copies and memsets apart)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        profiler.stop()
+        out = os.path.join(str(self.cfg.OTHERS.SNAPSHOT_DIR), "profile")
+        os.makedirs(out, exist_ok=True)
+        trace = os.path.join(out, "trace.json")
+        profiler.export_chrome_trace(trace)
+        with open(os.path.join(out, "profile.txt"), "w") as f:
+            f.write(profiler.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        busy = {kind: _union_ms([(e["ts"], e["ts"] + e["dur"]) for e in events
+                                 if e.get("cat") in cats and "dur" in e])
+                for kind, cats in (("kernel", ("kernel",)), ("copy", ("gpu_memcpy", "gpu_memset")))}
+        summary = {"steps": n_steps, "wall_ms": wall_ms, "kernel_ms": busy["kernel"],
+                   "copy_ms": busy["copy"],
+                   "kernel_share": busy["kernel"] / wall_ms if wall_ms > 0 else float("nan"),
+                   "device": str(self.device)}
+        with open(os.path.join(out, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+
+    @torch.no_grad()
+    def _buffer_update(self, trg_batch, soft_nchw, probability, trainloader, rng) -> int:
+        """Insert pseudo-labeled target frames into the replay buffer (reference
+        buffer_update, prototypes.py:453-464): each frame with `probability`,
+        one `rng.random(batch)` draw per step. The soft predictions are
+        upsampled (bilinear, align_corners) and argmaxed on the device; that
+        map is the frame's `label`, and its nearest resize to the 1/8+1 grid
+        its `label_res` and `stored_predictions`. Only the inserted rows come
+        to the host."""
         if probability <= 0 or soft_nchw is None or not hasattr(trainloader, "add_from_batch"):
             return 0
-        raise NotImplementedError("replay-buffer insertions are not ported yet")
+        hits = np.where(rng.random(len(trg_batch["image"])) < probability)[0]
+        if not len(hits):
+            return 0
+        rows = torch.as_tensor(hits, device=soft_nchw.device)
+        soft = soft_nchw.index_select(0, rows).float()
+        up = upsample_bilinear_ac(soft, self.resolution_hw).argmax(dim=1).int()
+        stored = resize_nearest(up, tuple(soft.shape[2:])).cpu().numpy()
+        insert = {key: [value[i] for i in hits] for key, value in trg_batch.items()
+                  if isinstance(value, list)}
+        insert.update(image=trg_batch["image"].index_select(0, rows).cpu().numpy(),
+                      label=up.cpu().numpy(), label_res=stored, stored_predictions=stored)
+        for j in range(len(hits)):
+            trainloader.add_from_batch(insert, j)
+        return len(hits)
 
     # ------------------------------------------------------------------
     # persistence
     # ------------------------------------------------------------------
     def save_model(self) -> None:
-        """The full state as one `torch.save` (`adapt_state.pt`) plus the
-        prototype pickle (reference adaptation_model.py:202-216)."""
+        """The full state as one `torch.save` (`adapt_state.pt`, replaced only
+        once the new file is whole) plus the prototype pickle (reference
+        adaptation_model.py:202-216)."""
         root = str(self.cfg.OTHERS.SNAPSHOT_DIR)
-        os.makedirs(root, exist_ok=True)
         s = self.state
         payload = {f.name: getattr(s, f.name) for f in dataclasses.fields(s)
                    if f.name not in ("proto", "monitor", "switch", "generator")}
@@ -573,7 +772,7 @@ class ProtoOnlineAdapter:
         payload["monitor"] = vars(s.monitor)
         payload["switch"] = vars(s.switch)
         payload["generator"] = s.generator.get_state()
-        torch.save(payload, os.path.join(root, "adapt_state.pt"))
+        save_atomic(payload, os.path.join(root, "adapt_state.pt"))
         P.save(s.proto, self._proto_path(self.cfg_spec.set_ or "current"))
 
     def load_model(self, path: str) -> None:

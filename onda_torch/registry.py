@@ -1,4 +1,4 @@
-"""Registries: model and adaptation-method resolution (`onda_tpu/registry.py`).
+"""Registries: dataset, model and adaptation-method resolution (`onda_tpu/registry.py`).
 
 Mirrors the reference handler layer (reference framework/handlers/): name
 whitelists act as schema checks.
@@ -6,9 +6,25 @@ whitelists act as schema checks.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .config import unset
+
+DATABASE_NAMES = [
+    "rainy_cityscapes_video",
+    "external_video",
+    "rainy_cityscapes",
+    "fog_cityscapes",
+]
+
+METADATA_FILES = {
+    "rainy_cityscapes": "metadata.json",
+    "fog_cityscapes": "metadata_fog.json",
+    "rainy_cityscapes_video": "metadata_video.json",
+    "external_video": "metadata_bern.json",
+}
 
 MODEL_NAMES = [
     "DeepLabv2-Resnet50",
@@ -81,6 +97,37 @@ def get_model(cfg, n_classes: int, device="cuda"):
         _load_checkpoint(model, str(load))
     model = model.to(device)
     return model, variables_of(model)
+
+
+def get_db(cfg) -> dict:
+    """Split the metadata table per domain (reference database_handler.py:12-73).
+
+    Returns {"domains_src": [...], "domains_trg": [...], "db_info": info}, each
+    domain a {"train": {set_: Table}, "val": {set_: Table}} bucket. The table
+    is SCHEME.METADATA, or the dataset's file under SCHEME.PATH."""
+    from .data import metadata as MD
+    from .data.splits import get_split
+
+    name = cfg.SCHEME.DATASET
+    if name not in DATABASE_NAMES:
+        raise ValueError(f"cfg.SCHEME.DATASET not in {DATABASE_NAMES}: {name!r}")
+    info = MD.load_dataset_info()
+    table_path = cfg.SCHEME.METADATA if not unset(cfg.SCHEME.METADATA) else None
+    if table_path is None:
+        table_path = os.path.join(str(cfg.SCHEME.PATH), METADATA_FILES[name])
+    if not os.path.exists(table_path):
+        raise FileNotFoundError(f"metadata table {table_path} not found (the reference's "
+                                "metadata JSONs are not distributed; tools/make_metadata.py "
+                                "writes one from a dataset tree)")
+    table = MD.load_table(table_path)
+    # the video datasets are train-only streams: no "val" buckets at all
+    labeled_val = name not in ("external_video", "rainy_cityscapes_video")
+    domains = list(cfg.SCHEME.SOURCE) + list(cfg.SCHEME.DOMAIN_ORDER)
+    dbs = [get_split(table, cfg.SCHEME.COLUMN, [domain], [domain] if labeled_val else [],
+                     cfg.SCHEME.FILTERS or {})
+           for domain in domains]
+    n_src = len(list(cfg.SCHEME.SOURCE))
+    return {"domains_src": dbs[:n_src], "domains_trg": dbs[n_src:], "db_info": info}
 
 
 def get_adapt_method(cfg):

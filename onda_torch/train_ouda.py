@@ -1,0 +1,179 @@
+"""Online domain adaptation CLI: `python -m onda_torch.train_ouda --cfg <yaml>`
+(the port of `train_ouda.py`; reference train_ouda.py:60-261).
+
+* SEGMENT source pretraining with `EPOCHS: 0` (every shipped config) saves
+  the source model as `model_train_{SOURCE}_after_src_training.pth`;
+* the replay buffer is drawn from the source train rows (a float
+  REPLAY_BUFFER is a fraction, an int a count);
+* AUTO_RESUME restores the newest whole `adapt_state*.pt`;
+* the ordered target-domain loop applies the per-domain overrides
+  (DOMAIN_OPTIONS / ORDER_OPTIONS) and `SKIP_CALC |= f_domain`, so that
+  only the first domain bootstraps prototypes and evaluates before adapting;
+  model, teachers, prototypes and monitors carry over between domains.
+
+It runs on the card (`--device cuda`, the default) unless asked for the CPU;
+without a card it stops. Not ported yet (they raise): EVALUATION mode (ROADMAP
+M11) and SEGMENT training with EPOCHS > 0 (M12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from pprint import pprint
+
+import numpy as np
+import torch
+
+
+def get_arguments(argv=None):
+    parser = argparse.ArgumentParser(description="Online domain adaptation (OnDA), PyTorch")
+    parser.add_argument("--cfg", type=str, required=True, help="config file")
+    parser.add_argument("--wandb", action="store_true", help="also log to wandb")
+    parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    return parser.parse_args(argv)
+
+
+def getf(x):
+    return next(iter(x))
+
+
+def main(argv=None):
+    """Run the CLI; returns the adapter after the last domain."""
+    args = get_arguments(argv)
+    from .config import cfg_from_file, default_config, unset
+    from .data import Loader, ReplayBuffer, SegmentationDataset, Table
+    from .native import BatchExecutor
+    from .registry import get_adapt_method, get_db, get_model
+    from .utils.checkpoint import checkpoints_by_mtime, save_atomic
+    from .utils.logging_ import Logger
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: run on a card, or pass --device cpu")
+
+    cfg = cfg_from_file(args.cfg, default_config())
+    print("Using config:")
+    pprint(cfg.to_dict())
+    np.random.seed(int(cfg.TRAINING.RANDOM_SEED))
+
+    if cfg.METHOD.PRETRAIN.NAME == "EVALUATION":
+        raise NotImplementedError("EVALUATION mode is not ported yet (ROADMAP M11)")
+    if cfg.METHOD.PRETRAIN.NAME == "SEGMENT" and int(cfg.METHOD.PRETRAIN.SEGMENT.EPOCHS) > 0:
+        raise NotImplementedError("SEGMENT training with EPOCHS > 0 is not ported yet (ROADMAP M12)")
+
+    datasets = get_db(cfg)
+    info = datasets["db_info"]
+    cfg.classnum_to_label = info["classnum_to_label"]
+    num_classes = len(info["label"])
+    cfg.NUM_CLASSES = num_classes
+
+    model, variables = get_model(cfg, num_classes, device=device)
+    print("Model has been Loaded")
+
+    logger = Logger(project="OUDA", config=cfg.to_dict(), log_dir=str(cfg.OTHERS.SNAPSHOT_DIR),
+                    use_wandb=args.wandb)
+
+    # db_std is gated on SCHEME.MEAN, not on STD, as in the reference
+    # (reference train_ouda.py:101-110): STD without MEAN is ignored
+    db_mean = info["mean"] if unset(cfg.SCHEME.MEAN) or cfg.SCHEME.MEAN is None else cfg.SCHEME.MEAN
+    db_std = info["std"] if unset(cfg.SCHEME.MEAN) or cfg.SCHEME.MEAN is None else cfg.SCHEME.STD
+    original = not (unset(cfg.SCHEME.ORIGINAL_RES) or cfg.SCHEME.ORIGINAL_RES == cfg.SCHEME.RESOLUTION)
+    label2train = dict(tuple(pair) for pair in info["label2train"])
+    workers = max(int(cfg.OTHERS.NUM_WORKERS), 1)
+    executor = BatchExecutor(workers)
+
+    def ds(frame):
+        return SegmentationDataset(str(cfg.SCHEME.PATH), frame, label2train, cfg.SCHEME.RESOLUTION,
+                                   mean=np.asarray(db_mean), std=np.asarray(db_std),
+                                   original_label=original, executor=executor)
+
+    def dl(frame, shuffle, train=True):
+        return Loader(ds(frame), batch_size=int(cfg.TRAINING.BATCH_SIZE), shuffle=shuffle,
+                      seed=int(cfg.TRAINING.RANDOM_SEED), drop_last=train, pad_last=not train,
+                      num_threads=workers, pin_memory=device.type == "cuda")
+
+    src_train = Table.concat(getf(db["train"].values()) for db in datasets["domains_src"])
+    validation_sets = {}
+    if datasets["domains_src"] and datasets["domains_src"][0]["val"]:
+        for dom in datasets["domains_src"]:
+            validation_sets[getf(dom["val"].keys())] = dl(getf(dom["val"].values()), False, train=False)
+        for trg_domain in datasets["domains_trg"]:
+            if trg_domain["val"]:
+                validation_sets[getf(trg_domain["train"].keys())] = dl(
+                    getf(trg_domain["val"].values()), False, train=False)
+
+    if cfg.METHOD.PRETRAIN.NAME == "SEGMENT":
+        # after SEGMENT, even a 0-epoch one, the source model is saved as the
+        # student's state_dict in the reference's key layout (reference
+        # train_ouda.py:185-197)
+        pth = os.path.join(str(cfg.OTHERS.SNAPSHOT_DIR),
+                           f"model_train_{cfg.SCHEME.SOURCE}_after_src_training.pth")
+        save_atomic({k: v.detach().cpu() for k, v in model.state_dict().items()}, pth)
+
+    seed = int(cfg.TRAINING.RANDOM_SEED)
+    buff_size = cfg.TRAINING.REPLAY_BUFFER
+    if isinstance(buff_size, float):
+        src_sample = src_train.sample(frac=buff_size, random_state=seed)
+    else:
+        src_sample = src_train.sample(n=min(int(buff_size), len(src_train)), random_state=seed)
+    if buff_size == 0:
+        src_loader = None
+    elif isinstance(cfg.TRAINING.BUFFER_DYNAMIC, bool) and cfg.TRAINING.BUFFER_DYNAMIC:
+        src_loader = ReplayBuffer(ds(src_sample), int(cfg.TRAINING.BATCH_SIZE), seed=seed)
+        print(f"Buffer size: {src_loader.nbytes() / 1024**2:.1f} MB")
+    else:
+        src_loader = dl(src_sample, True)
+    print("Starting UDA")
+
+    cfg_spec = cfg.METHOD.ADAPTATION[cfg.METHOD.ADAPTATION.NAME]
+    adapter = get_adapt_method(cfg)(model, variables, cfg, cfg_spec, num_classes, logger,
+                                    device=device)
+    # crash recovery: the newest whole full-state snapshot (model, teachers,
+    # optimizer, prototypes, monitors: an exact resume)
+    snap_dir = str(cfg.OTHERS.SNAPSHOT_DIR)
+    auto_resume = cfg.OTHERS.AUTO_RESUME
+    if isinstance(auto_resume, bool) and auto_resume and os.path.isdir(snap_dir):
+        for cand in checkpoints_by_mtime(snap_dir)[::-1]:
+            try:
+                adapter.load_model(str(cand))
+            except Exception as exc:  # noqa: BLE001 - an unreadable snapshot: try the next older
+                print(f"AUTO_RESUME skip: {cand.name} (unloadable: {type(exc).__name__}: {exc})")
+                continue
+            print(f"AUTO_RESUME: restoring {cand}")
+            adapter.skip_proto = True
+            break
+
+    f_domain = False
+    for order, trg_domain in enumerate(datasets["domains_trg"]):
+        set_ = getf(trg_domain["train"].keys())
+        trg_loader = dl(getf(trg_domain["train"].values()),
+                        bool(cfg.TRAINING.SHUFFLE) or unset(cfg.TRAINING.SHUFFLE))
+        validation_method = cfg.OTHERS.VALIDATION
+        if validation_method == "all":
+            val_set = validation_sets
+        elif validation_method == "single":
+            val_set = {set_: dl(getf(trg_domain["val"].values()), False, train=False)}
+        elif validation_method == "none":
+            val_set = {}
+        else:
+            raise ValueError(f"cfg.OTHERS.VALIDATION value error: {validation_method}")
+        cfg_spec.set_ = set_
+        if not unset(cfg.SCHEME.DOMAIN_OPTIONS) and str(set_) in cfg.SCHEME.DOMAIN_OPTIONS:
+            for key, value in cfg.SCHEME.DOMAIN_OPTIONS[str(set_)].items():
+                print(f"Selecting values for domain {key}:{value}")
+                cfg_spec[key] = value
+        if not unset(cfg.SCHEME.ORDER_OPTIONS) and order in cfg.SCHEME.ORDER_OPTIONS:
+            for key, value in cfg.SCHEME.ORDER_OPTIONS[order].items():
+                print(f"Selecting values for domain {key}:{value}")
+                cfg_spec[key] = value
+        cfg_spec.SKIP_CALC |= f_domain
+        f_domain = True
+        adapter.update_cfg_spec(cfg_spec)
+        adapter.train(src_loader, trg_loader, val_set)
+    logger.close()
+    return adapter
+
+
+if __name__ == "__main__":
+    main()

@@ -47,3 +47,15 @@ def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          env=env, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_pandas_or_pil_imports(path):
+    # the card's machine need not have them: metadata tables are read with
+    # json, PNGs are decoded by the C++ prep and written with zlib
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in ("pandas", "PIL"), f"{path}:{node.lineno} imports {name}"
