@@ -8,6 +8,8 @@
                                          # K1 and K2 (DIR/onda_torch, e.g. unpacked
                                          # from a parent commit with git archive)
                                          # against this tree's, in turns
+    python3 chip_smoke.py --aux-cost     # also time phase 8.2's step with the
+                                         # aux head computed and thrown away
 
 Phases:
  1. card name and power limit; the TF32 settings of each phase;
@@ -18,6 +20,7 @@ Phases:
     C = 1, C = 32 and P = 700 and 1 (not multiples of its 128-pixel tile);
  4. K2 (bn_stats_kernel) against a float64 reference at every distinct
     BatchNorm input shape of DeepLabv2-R50 at batch 4, 1024x512 and at
+    training_fog.yml's batch 4, 128x64 (phase 8.1's SEGMENT run), and at
     adversarial shapes (odd planes, one element, planes that start at an odd
     element), f32 and bf16, NCHW and channels_last, each call repeated to show
     that the result is the same bit for bit; the BatchNorm autograd.Function's
@@ -38,14 +41,28 @@ Phases:
     PNGs checked; frames/s from disk, per-step stage times, the device's busy
     share over two profiled steps and the host prep's own rate printed; then
     a resumed run (AUTO_RESUME) with a replay buffer that the steps insert
-    into.
+    into;
+ 8. the workflow on phase 7's files (a fog metadata table over the same
+    frames: visibilities 0, 75, 150, 375, 750), each run through
+    `onda_torch.train_ouda.main` with the shipped config cut only in its
+    data path, domain order, epochs, absent checkpoint files and snapshot
+    directory: training_fog.yml (SEGMENT at 128x64, multi-level, 4 epochs;
+    K2 53 per step, its weights the adaptation's start) → offline_fog.yml
+    (adaptation from that .pth at 1024x512, multi-level; K1 2 and K2 159 per
+    step, the step's host syncs, the aux head never run, the step timed) →
+    validation_offline_fog.yml (EVALUATION of the adaptation's snapshot, K1
+    one per validation batch, then OTHERS.EVAL_SWEEP over every checkpoint)
+    → validation.yml (PREDICTION_SAVE: one (4, 19, 65, 129) dump per target
+    batch, no kernel launched); then a SEGMENT step timed in memory at
+    1024x512, b4 (median ms, frames/s, peak memory).
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
 does not count, and each call finds a cold L2. Each timing line gives the
 share of the bound (bound ms / ms).
 
-Prints the card line and one JSON line of kernel results, then as the last line
+Prints the card line and one JSON line of kernel results (launch counts by
+path), then as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Writes the per-shape K2 table, the CLI runs' output and profile table (and
 the step profile, and the comparison) under --out-dir (default
@@ -55,9 +72,11 @@ build/chip_smoke/).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -122,6 +141,15 @@ def cuda_ms(torch, fn, iters=10, warmup=2):
             return sum(s.elapsed_time(e) for s, e in events) / iters
         cycles *= 4
     raise SmokeFailure("the device outran the host at every sleep: does the timed call sync?")
+
+
+def release(torch) -> int:
+    """Free what earlier phases left behind (an adapter and its built steps
+    refer to each other, so only the collector frees them); returns the bytes
+    still allocated on the card, the baseline of a peak-memory reading."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
 
 
 def share(bound, ms):
@@ -259,14 +287,26 @@ def check_k2_once(torch, K, x, tag):
     return result
 
 
+def segment_bn_shapes(torch):
+    """The BatchNorm input shapes of configs/training_fog.yml's SEGMENT step,
+    at its own batch and resolution (phase 8.1)."""
+    from onda_torch.config import cfg_from_file
+
+    cfg = cfg_from_file(os.path.join(HERE, "configs", "training_fog.yml"))
+    w, h = cfg.SCHEME.RESOLUTION
+    return bn_input_shapes(torch, batch=int(cfg.TRAINING.BATCH_SIZE), hw=(int(h), int(w)))
+
+
 def check_k2(torch, K, layers, out_dir):
     shapes = bn_input_shapes(torch)
     check(len(shapes) == 53, f"expected 53 BatchNorm calls in R50, got {len(shapes)}")
     distinct = sorted(set(shapes), key=lambda s: -math.prod(s))
+    # checked, not timed: phase 8.1's shapes
+    segment = sorted(set(segment_bn_shapes(torch)) - set(distinct), key=lambda s: -math.prod(s))
     g = torch.Generator(device="cuda").manual_seed(2)
     rows, max_err = [], 0.0
     per_shape = {}
-    for shape in distinct + K2_ODD_SHAPES:
+    for shape in distinct + segment + K2_ODD_SHAPES:
         c = shape[1]
         offset = torch.randn(1, c, 1, 1, device="cuda", generator=g)
         spread = 0.5 + torch.rand(1, c, 1, 1, device="cuda", generator=g)
@@ -293,7 +333,8 @@ def check_k2(torch, K, layers, out_dir):
             del x
         del base
     print(f"K2 checked at {len(rows)} shape/type pairs, 4 layouts each, against float64; "
-          f"every call repeated gave the same bits")
+          f"every call repeated gave the same bits; among them training_fog.yml's SEGMENT "
+          f"shapes {segment}")
     slower = [k for k, v in per_shape.items() if v[0] > v[2]]
     print(f"K2 slower than torch.var_mean at {len(slower)} of {len(per_shape)} shape/type "
           f"pairs: {slower}")
@@ -331,6 +372,7 @@ def check_k2(torch, K, layers, out_dir):
     return {"name": "bn_stats_kernel", "route": "cuda", "source": "onda_torch/csrc/bn_stats.cu",
             "replaces": "onda_tpu/ops/pallas_kernels.py:146",
             "shape": "the 53 BatchNorm inputs of one R50 forward, b4 1024x512 f32 NCHW (times summed)",
+            "checked_shapes": [list(s) for s in distinct + segment + K2_ODD_SHAPES],
             "max_abs_err": max_err, "ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[3],
             "bound_by": "bytes", "bound_share": share(tot[3], tot[0]), "library_ms": tot[2],
             "check": "pass"}
@@ -425,10 +467,25 @@ class StepLogger:
         self.entries.append((time.perf_counter(), values))
 
 
-def make_adapter(torch, device, hw, batch, layers=(3, 4, 6, 3), droprate=None, logger=None):
+def seeded_model(torch, cfg, device, layers, droprate, multi_level):
+    """(model, variables): the registry's seeded model of cfg or, given a
+    droprate, a seeded ProDA R50 cut to `layers`."""
+    from onda_torch import registry
+    from onda_torch.models import build_deeplab_v2
+
+    if droprate is None:
+        return registry.get_model(cfg, 19, device=device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_deeplab_v2(19, layers, "ProDA", multi_level=multi_level, droprate=droprate)
+    model = model.to(device)
+    return model, registry.variables_of(model)
+
+
+def make_adapter(torch, device, hw, batch, layers=(3, 4, 6, 3), droprate=None, logger=None,
+                 multi_level=False, bn_policy=None):
     from onda_torch import registry
     from onda_torch.config import Config, cfg_from_file
-    from onda_torch.models import build_deeplab_v2
 
     cfg = cfg_from_file(os.path.join(HERE, "configs", "hybrid_switch.yml"))
     cfg.SCHEME.RESOLUTION = [hw[1], hw[0]]
@@ -439,14 +496,9 @@ def make_adapter(torch, device, hw, batch, layers=(3, 4, 6, 3), droprate=None, l
     spec.LOAD_PROTO = Config()
     spec.EPOCHS = 1
     spec.set_ = "smoke"
-    if droprate is None:
-        model, variables = registry.get_model(cfg, 19, device=device)
-    else:
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(0)
-            model = build_deeplab_v2(19, layers, "ProDA", droprate=droprate)
-        model = model.to(device)
-        variables = registry.variables_of(model)
+    if bn_policy is not None:
+        spec.BN_POLICY = bn_policy
+    model, variables = seeded_model(torch, cfg, device, layers, droprate, multi_level)
     adapter = registry.get_adapt_method(cfg)(model, variables, cfg, spec, 19, logger=logger,
                                              device=device)
     return adapter
@@ -464,35 +516,98 @@ def make_batches(torch, n, batch, hw, seed):
 
 
 def small_input_check(torch):
-    """Bootstrap + one step of a tiny model on the card vs the CPU."""
+    """Bootstrap + one step of a tiny model on the card vs the CPU: BN_POLICY
+    freeze, double and keep, and a multi-level model; then one SEGMENT step."""
     hw, batch = (32, 64), 2
     src, trg = make_batches(torch, 1, batch, hw, 5), make_batches(torch, 1, batch, hw, 6)
+    for bn_policy, multi_level in (("freeze", False), ("double", False), ("keep", False),
+                                   ("freeze", True)):
+        results = {}
+        for device in ("cpu", "cuda"):
+            ad = make_adapter(torch, device, hw, batch, layers=(1, 1, 1, 1), droprate=0.0,
+                              multi_level=multi_level, bn_policy=bn_policy)
+            ad.calculate_prototypes(src)
+            step = ad.step_fn(True, 1, False)
+            dev = torch.device(device)
+            state, logs = step(ad.state, trg[0]["image"].to(dev), src[0]["image"][None].to(dev),
+                               src[0]["label_res"][None].to(dev), 1e-3)
+            stats = {k: v.cpu() for k, v in {**state.batch_stats, **{
+                f"alt.{k}": v for k, v in state.alt_batch_stats.items()}}.items()
+                if "running" in k}
+            results[device] = (dict(logs.items()), state.params["layer6.head.1.weight"].cpu(),
+                               state.proto.mean.cpu(), stats)
+        (l_cpu, k_cpu, m_cpu, s_cpu), (l_gpu, k_gpu, m_gpu, s_gpu) = results["cpu"], results["cuda"]
+        tag = f"small input (BN_POLICY {bn_policy}, multi_level {multi_level})"
+        # the card's f32 convolutions and sums run in another order than the CPU's
+        for key in ("ce_loss", "rce_loss", "regularization_loss", "buff_ce_loss",
+                    "Total target loss"):
+            check(math.isclose(l_cpu[key], l_gpu[key], rel_tol=1e-3, abs_tol=1e-5),
+                  f"{tag}: {key} cpu {l_cpu[key]} vs cuda {l_gpu[key]}")
+        check(abs(l_cpu["pseudolabel_pixel_num"] - l_gpu["pseudolabel_pixel_num"]) <= 2,
+              f"{tag}: pseudo-label counts differ")
+        check(torch.allclose(k_cpu, k_gpu, rtol=1e-3, atol=1e-6), f"{tag}: head kernels differ")
+        check(torch.allclose(m_cpu, m_gpu, rtol=1e-3, atol=1e-5), f"{tag}: prototypes differ")
+        for k, v in s_cpu.items():
+            check(torch.allclose(v, s_gpu[k], rtol=1e-3, atol=1e-5), f"{tag}: {k} differs")
+        print(f"{tag}, R50 cut to 1 block per stage, 32x64, b2: Total target loss cpu "
+              f"{l_cpu['Total target loss']:.6f} cuda {l_gpu['Total target loss']:.6f}; "
+              f"{len(s_cpu)} running-stat tensors; agree")
+
+    # one SEGMENT step (multi-level: CE of both heads)
     results = {}
     for device in ("cpu", "cuda"):
-        ad = make_adapter(torch, device, hw, batch, layers=(1, 1, 1, 1), droprate=0.0)
-        ad.calculate_prototypes(src)
-        step = ad.step_fn(True, 1, False)
+        trainer = make_trainer(torch, device, hw, layers=(1, 1, 1, 1), droprate=0.0)
         dev = torch.device(device)
-        state, logs = step(ad.state, trg[0]["image"].to(dev), src[0]["image"][None].to(dev),
-                           src[0]["label_res"][None].to(dev), 1e-3)
-        results[device] = (dict(logs.items()), state.params["layer6.head.1.weight"].cpu(),
-                           state.proto.mean.cpu())
-    (l_cpu, k_cpu, m_cpu), (l_gpu, k_gpu, m_gpu) = results["cpu"], results["cuda"]
-    # the card's f32 convolutions and sums run in another order than the CPU's
-    for key in ("ce_loss", "rce_loss", "regularization_loss", "buff_ce_loss", "Total target loss"):
-        check(math.isclose(l_cpu[key], l_gpu[key], rel_tol=1e-3, abs_tol=1e-5),
-              f"small input: {key} cpu {l_cpu[key]} vs cuda {l_gpu[key]}")
-    check(abs(l_cpu["pseudolabel_pixel_num"] - l_gpu["pseudolabel_pixel_num"]) <= 2,
-          "small input: pseudo-label counts differ")
-    check(torch.allclose(k_cpu, k_gpu, rtol=1e-3, atol=1e-6), "small input: head kernels differ")
-    check(torch.allclose(m_cpu, m_gpu, rtol=1e-3, atol=1e-5), "small input: prototypes differ")
-    print(f"small input (R50 cut to 1 block per stage, 32x64, b2): Total target loss "
-          f"cpu {l_cpu['Total target loss']:.6f} cuda {l_gpu['Total target loss']:.6f}; agree")
+        loss = trainer.step(src[0]["image"].to(dev), src[0]["label"].to(dev), 1e-2)
+        results[device] = (float(loss), {k: v.cpu() for k, v in trainer.params.items()},
+                           {k: v.cpu() for k, v in trainer.batch_stats.items()})
+    (loss_cpu, p_cpu, b_cpu), (loss_gpu, p_gpu, b_gpu) = results["cpu"], results["cuda"]
+    check(math.isclose(loss_cpu, loss_gpu, rel_tol=1e-3, abs_tol=1e-5),
+          f"small input SEGMENT step: loss cpu {loss_cpu} vs cuda {loss_gpu}")
+    for k in ("layer6.head.1.weight", "layer5.head.1.weight"):
+        check(torch.allclose(p_cpu[k], p_gpu[k], rtol=1e-3, atol=1e-6),
+              f"small input SEGMENT step: {k} differs")
+    for k, v in b_cpu.items():
+        check(torch.allclose(v.float(), b_gpu[k].float(), rtol=1e-3, atol=1e-5),
+              f"small input SEGMENT step: {k} differs")
+    print(f"small input SEGMENT step (multi-level, 32x64, b2): loss cpu {loss_cpu:.6f} "
+          f"cuda {loss_gpu:.6f}; both heads and {len(b_cpu)} buffers agree")
+
+
+def make_trainer(torch, device, hw, layers=(3, 4, 6, 3), droprate=None):
+    """A SegmentTrainer of configs/training_fog.yml (multi-level R50) at hw."""
+    from onda_torch.config import Config, cfg_from_file
+    from onda_torch.methods.segmentation import SegmentTrainer
+
+    cfg = cfg_from_file(os.path.join(HERE, "configs", "training_fog.yml"))
+    cfg.SCHEME.RESOLUTION = [hw[1], hw[0]]
+    cfg.MODEL.LOAD = Config()
+    cfg.OTHERS.SNAPSHOT_DIR = tempfile.mkdtemp(prefix="onda_smoke_")
+    check(bool(cfg.MODEL.MULTI_LEVEL), "training_fog.yml is no longer multi-level")
+    model, variables = seeded_model(torch, cfg, device, layers, droprate, multi_level=True)
+    return SegmentTrainer(model, variables, cfg, cfg.METHOD.PRETRAIN.SEGMENT, 19, device=device)
+
+
+def count_syncs(torch, fn):
+    """fn() under the CUDA sync debug mode; returns (result, host syncs)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return result, syncs
 
 
 def main_path(torch, K, profile: bool, out_dir: str):
     hw, batch, steps = (512, 1024), 4, MAIN_STEPS
     logger = StepLogger()
+    base = release(torch)
+    print(f"main path: {base / 2**30:.3f} GiB allocated on the card before it starts")
     t0 = time.perf_counter()
     ad = make_adapter(torch, "cuda", hw, batch, logger=logger)
     check(int(ad.cfg.TRAINING.BATCH_SIZE) == batch, "hybrid_switch.yml no longer has batch 4")
@@ -560,16 +675,7 @@ def main_path(torch, K, profile: bool, out_dir: str):
     step = ad.step_fn(True, 1, False)
     img = trg[0]["image"].cuda()
     s_img, s_lbl = src[0]["image"][None].cuda(), src[0]["label_res"][None].cuda()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            ad.state, logs = step(ad.state, img, s_img, s_lbl, 1e-5)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message).splitlines()[0] for w in caught
-             if "called a synchronizing CUDA operation" in str(w.message)]
+    (ad.state, logs), syncs = count_syncs(torch, lambda: step(ad.state, img, s_img, s_lbl, 1e-5))
     print(f"host syncs inside one step: {len(syncs)} {syncs}")
     check(len(syncs) == 1, f"expected one host sync (the dynamic-teacher gate), got {len(syncs)}")
     check(math.isfinite(logs["Total target loss"]), "extra step: non-finite loss")
@@ -687,29 +793,44 @@ def write_dataset(root, seed):
     return rows, sum(os.path.getsize(os.path.join(root, r["image_path"])) for r in rows)
 
 
-def cli_config(root, snap, path, domains, **others):
-    """configs/hybrid_switch.yml as shipped but for the cuts of phase 7."""
+def read_records(snap):
+    with open(os.path.join(snap, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def workflow_config(name, path, **cuts):
+    """configs/<name>.yml as shipped but for `cuts` ({"A.B.C": value})."""
     import yaml
 
-    with open(os.path.join(HERE, "configs", "hybrid_switch.yml")) as f:
+    with open(os.path.join(HERE, "configs", f"{name}.yml")) as f:
         cfg = yaml.safe_load(f)
-    cfg["SCHEME"].update(PATH=root, DOMAIN_ORDER=domains)
-    cfg["MODEL"].pop("LOAD")  # the pretrained .pth and prototype pickle are absent
-    spec = cfg["METHOD"]["ADAPTATION"][cfg["METHOD"]["ADAPTATION"]["NAME"]]
-    spec.pop("LOAD_PROTO")
-    spec["EPOCHS"] = 1
-    cfg["OTHERS"].update(SNAPSHOT_DIR=snap, SCHEDULE=True)
-    for key, value in others.items():
-        section, name = key.split(".")
-        cfg[section][name] = value
+    for key, value in cuts.items():
+        node = cfg
+        *parents, last = key.split(".")
+        for part in parents:
+            node = node[part]
+        if value is None:
+            node.pop(last, None)
+        else:
+            node[last] = value
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     return cfg
 
 
+def cli_config(root, snap, path, domains, **others):
+    """configs/hybrid_switch.yml as shipped but for the cuts of phase 7."""
+    cuts = {"SCHEME.PATH": root, "SCHEME.DOMAIN_ORDER": domains, "MODEL.LOAD": None,
+            "METHOD.ADAPTATION.PROTO_ONLINE_HYBRIDSWITCH.LOAD_PROTO": None,
+            "METHOD.ADAPTATION.PROTO_ONLINE_HYBRIDSWITCH.EPOCHS": 1,
+            "OTHERS.SNAPSHOT_DIR": snap, "OTHERS.SCHEDULE": True}
+    return workflow_config("hybrid_switch", path, **cuts, **others)
+
+
 def run_cli(torch, K, cfg_path, log_path):
     """onda_torch.train_ouda.main in this process, its output into log_path;
-    the launch and batch counts are reset just before and read just after."""
+    the launch and batch counts are reset just before and read just after.
+    Returns (launches, batches, seconds, output, what main returned)."""
     import contextlib
 
     from onda_torch import train_ouda
@@ -721,13 +842,13 @@ def run_cli(torch, K, cfg_path, log_path):
     with open(log_path, "w") as log:
         try:
             with contextlib.redirect_stdout(log):
-                train_ouda.main(["--cfg", cfg_path])
+                result = train_ouda.main(["--cfg", cfg_path])
         finally:
             torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     with open(log_path) as log:
         text = log.read()
-    return dict(K.launches), dict(loader.BATCHES), seconds, text
+    return dict(K.launches), dict(loader.BATCHES), seconds, text, result
 
 
 def step_stage_ms(records):
@@ -768,129 +889,390 @@ def prep_rate(root, rows, workers, batch=4, repeats=5):
     return {k: batch / statistics.median(v) for k, v in times.items()}
 
 
-def cli_path(torch, K, out_dir, in_memory_fps):
-    """Phase 7: the shipped config through `onda_torch.train_ouda.main` on a
-    seeded dataset of PNG files, then a resumed run that inserts into the
-    replay buffer. Returns the launch counts of both runs and the numbers."""
-    import shutil
+def cli_path(torch, K, out_dir, in_memory_fps, work, root, rows):
+    """Phase 7: the shipped config through `onda_torch.train_ouda.main` on the
+    seeded dataset of PNG files at `root`, then a resumed run that inserts
+    into the replay buffer. Returns the launch counts of both runs and the
+    numbers."""
+    snap = os.path.join(work, "snapshots")
+    cfg = cli_config(root, snap, os.path.join(work, "run1.yml"), [[25], [50]],
+                     **{"OTHERS.PROFILE": 2})
+    workers = int(cfg["OTHERS"]["NUM_WORKERS"])
+    batch = int(cfg["TRAINING"]["BATCH_SIZE"])
+    print("phase 7 run 1: configs/hybrid_switch.yml with the cuts SCHEME.PATH=<the dataset>, "
+          "DOMAIN_ORDER=[[25], [50]], EPOCHS=1, MODEL.LOAD and LOAD_PROTO unset, "
+          "SNAPSHOT_DIR=<temporary>, OTHERS.SCHEDULE=true, OTHERS.PROFILE=2; as shipped: "
+          f"b{batch}, {cfg['SCHEME']['RESOLUTION']}, REPLAY_BUFFER "
+          f"{cfg['TRAINING']['REPLAY_BUFFER']}, NUM_WORKERS {workers}, "
+          f"GENERATE_SAMPLES_EVERY {cfg['OTHERS']['GENERATE_SAMPLES_EVERY']}, "
+          f"VALIDATION {cfg['OTHERS']['VALIDATION']}")
+    rates = prep_rate(root, rows, workers)
+    print(f"host prep alone (C++ executor, {workers} threads, one batch of {batch}, files in "
+          f"the page cache): {rates['images']:.3f} images/s, {rates['labels']:.3f} labels/s")
 
-    import numpy as np
+    launches, batches, seconds, text, _ = run_cli(torch, K, os.path.join(work, "run1.yml"),
+                                                  os.path.join(out_dir, "cli_run1.log"))
+    records = read_records(snap)
+    n_run1 = len(records)
+    steps_per_domain = CLI_FRAMES["train"] // batch
+    steps = 2 * steps_per_domain
+    n_src = min(int(cfg["TRAINING"]["REPLAY_BUFFER"]), CLI_FRAMES["train"])
+    boot = n_src // batch  # the source loader drops the last partial batch
+    print(f"phase 7 run 1: {seconds:.3f} s; launches {launches}; batches made {batches}")
+    want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": 159 * steps + 53 * boot}
+    check(launches == want, f"CLI run launches {launches}, expected {want} "
+                            f"(K1 2/step, K2 159/step + 53 per bootstrap batch)")
+    check(batches.get("collate", 0) == 0 and batches.get("executor", 0) > 0,
+          f"every batch must come from the C++ executor, got {batches}")
+    step_records = [r for r in records if "Total target loss" in r]
+    check(len(step_records) == steps, f"{len(step_records)} step records, expected {steps}")
+    for r in step_records:
+        for key, value in r.items():
+            check("loss" not in key or math.isfinite(value), f"step {r['_step']}: {key} = {value}")
+        missing = [k for k in STEP_KEYS if k not in r]
+        check(not missing, f"step record {r['_step']} lacks {missing}")
+    keys = set().union(*records)
+    for prefix in ("Adaptation frames per second", "Val mIoU model of ", "Condition "):
+        check(any(k.startswith(prefix) for k in keys), f"metrics.jsonl has no {prefix!r} key")
+    files = os.listdir(snap)
+    samples = os.listdir(os.path.join(snap, "samples"))
+    n_val_sets = len(CLI_INTENSITIES)
+    check("adapt_state.pt" in files, "no adapt_state.pt")
+    check(any(f.startswith("proto_") and f.endswith(".pickle") for f in files), "no proto pickle")
+    check("model_train_[[0]]_after_src_training.pth" in files, f"no source .pth in {files}")
+    check(len(samples) == 2 * n_val_sets * CLI_FRAMES["val"],
+          f"{len(samples)} sample PNGs, expected {2 * n_val_sets * CLI_FRAMES['val']}")
 
-    work = tempfile.mkdtemp(prefix="onda_cli_")
-    try:
-        root, snap = os.path.join(work, "weather_cityscapes") + "/", os.path.join(work, "snapshots")
+    fps = [r["Adaptation frames per second"] for r in step_records
+           if "Adaptation frames per second" in r]
+    print("phase 7 CLI from disk: Adaptation frames per second per domain "
+          + ", ".join(f"{v:.3f}" for v in fps)
+          + f"; phase 6 in memory {in_memory_fps:.3f} frames/s")
+    stages = {}
+    for d in range(2):
+        per = step_stage_ms(step_records[d * steps_per_domain:(d + 1) * steps_per_domain])
+        for key, ms in per.items():
+            stages.setdefault(key, []).append(ms)
+        print(f"phase 7 domain {d}: per-step stage ms (steps 0..{steps_per_domain - 1}): "
+              + "; ".join(f"{k[5:]} " + ", ".join(f"{v:.3f}" for v in ms) for k, ms in per.items()))
+    # steps 1..4 of each domain: step 0 warms up, 5 and 6 are profiled (the
+    # trace starts in 5's Batch Fetch and is written in 6's Host Work), 7
+    # evaluates, renders samples and checkpoints
+    clean = slice(1, PROFILE_AT)
+    median = {k[5:]: statistics.median(x for ms in v for x in ms[clean]) for k, v in stages.items()}
+    step_ms = statistics.median(sum(col) for v in zip(*stages.values())
+                                for col in zip(*(ms[clean] for ms in v)))
+    print("phase 7 median stage ms over steps 1..4 of both domains: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in median.items())
+          + f"; their sum {step_ms:.3f} ms per step, {batch / (step_ms / 1e3):.3f} frames/s")
+    with open(os.path.join(snap, "profile", "summary.json")) as f:
+        prof = json.load(f)
+    print(f"phase 7 profiled steps 5-6 of domain 1 (torch.profiler): wall {prof['wall_ms']:.3f} ms, "
+          f"kernels {prof['kernel_ms']:.3f} ms ({100 * prof['kernel_share']:.1f}% busy, "
+          f"{100 * (1 - prof['kernel_share']):.1f}% idle), copies {prof['copy_ms']:.3f} ms")
+    shutil.copy(os.path.join(snap, "profile", "profile.txt"),
+                os.path.join(out_dir, "cli_profile.txt"))
+
+    cli_config(root, snap, os.path.join(work, "run2.yml"), [[25]], **{
+        "OTHERS.AUTO_RESUME": True, "TRAINING.BUFFER_DYNAMIC": True,
+        "TRAINING.PERC_FILL_PER_DOMAIN": 1.0})
+    launches2, _, seconds2, text2, _ = run_cli(torch, K, os.path.join(work, "run2.yml"),
+                                               os.path.join(out_dir, "cli_run2.log"))
+    records2 = read_records(snap)[n_run1:]
+    inserted = sum(r.get("Total buffer updates", 0) for r in records2)
+    resumed = [line for line in text2.splitlines() if line.startswith("AUTO_RESUME: restoring")]
+    buffer_line = [line for line in text2.splitlines() if line.startswith("Buffer size:")]
+    fps2 = [r["Adaptation frames per second"] for r in records2 if "Adaptation frames per second" in r]
+    print(f"phase 7 run 2 (run 1's cuts but no PROFILE; AUTO_RESUME, BUFFER_DYNAMIC, "
+          f"PERC_FILL_PER_DOMAIN 1.0, DOMAIN_ORDER [[25]]): {seconds2:.3f} s; {resumed[:1]} "
+          f"{buffer_line[:1]}; launches {launches2}; buffer insertions {inserted}; "
+          f"Adaptation frames per second {', '.join(f'{v:.3f}' for v in fps2)}")
+    check(resumed, "the second run did not resume")
+    want2 = {"pseudo_labels_kernel": 2 * steps_per_domain, "bn_stats_kernel": 159 * steps_per_domain}
+    check(launches2 == want2, f"resumed run launches {launches2}, expected {want2} (no bootstrap)")
+    check(inserted > 0, "the resumed run inserted nothing into the replay buffer")
+    summary = {"cli_frames_per_s": fps, "cli_resumed_frames_per_s": fps2,
+               "in_memory_frames_per_s": in_memory_fps, "stage_ms_median": median,
+               "steady_step_ms": step_ms, "steady_frames_per_s": batch / (step_ms / 1e3),
+               "prep_images_per_s": rates["images"], "prep_labels_per_s": rates["labels"],
+               "profile": prof, "buffer_insertions": inserted}
+    return [launches, launches2], summary
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the workflow (SEGMENT pretraining, adaptation, EVALUATION)
+# ---------------------------------------------------------------------------
+
+# phase 7's frames under fog visibilities: 0 is the clear frame, 75 and 375
+# the 25 mm ones, 150 and 750 the 50 mm ones (no new image is written)
+FOG_OF_RAIN = {0: (0,), 25: (75, 375), 50: (150, 750)}
+SEGMENT_EPOCHS = 4          # 8 steps an epoch: 32 SEGMENT steps at 128x64
+SEGMENT_TIMED_STEPS = 8     # phase 8.5, after 2 warm-up steps
+MAIN_HW = (512, 1024)       # the adaptation's input size, (H, W)
+
+
+def write_fog_metadata(root, rows):
+    """metadata_fog.json beside phase 7's metadata.json, over the same files."""
+    from onda_torch.data.metadata import Table
+
+    fog = [dict(r, intensity=v) for r in rows for v in FOG_OF_RAIN[r["intensity"]]]
+    Table(fog, ["image_path", "label_path", "set", "intensity"]).to_json(
+        os.path.join(root, "metadata_fog.json"))
+
+
+def timed_ms(torch, fn, warmup, n):
+    """Host wall ms of each of n calls of fn (each ends in a device sync), after warmup."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
         t = time.perf_counter()
-        rows, img_bytes = write_dataset(root, seed=7)
-        n_img = len(rows)
-        print(f"phase 7 dataset: {n_img} frames of {FRAME_HW[1]}x{FRAME_HW[0]} (intensities "
-              f"{CLI_INTENSITIES}, {CLI_FRAMES} per intensity), mean image PNG "
-              f"{img_bytes / n_img / 1e6:.3f} MB, written in {time.perf_counter() - t:.3f} s")
-        cfg = cli_config(root, snap, os.path.join(work, "run1.yml"), [[25], [50]],
-                         **{"OTHERS.PROFILE": 2})
-        workers = int(cfg["OTHERS"]["NUM_WORKERS"])
-        batch = int(cfg["TRAINING"]["BATCH_SIZE"])
-        print("phase 7 run 1: configs/hybrid_switch.yml with the cuts SCHEME.PATH=<the dataset>, "
-              "DOMAIN_ORDER=[[25], [50]], EPOCHS=1, MODEL.LOAD and LOAD_PROTO unset, "
-              "SNAPSHOT_DIR=<temporary>, OTHERS.SCHEDULE=true, OTHERS.PROFILE=2; as shipped: "
-              f"b{batch}, {cfg['SCHEME']['RESOLUTION']}, REPLAY_BUFFER "
-              f"{cfg['TRAINING']['REPLAY_BUFFER']}, NUM_WORKERS {workers}, "
-              f"GENERATE_SAMPLES_EVERY {cfg['OTHERS']['GENERATE_SAMPLES_EVERY']}, "
-              f"VALIDATION {cfg['OTHERS']['VALIDATION']}")
-        rates = prep_rate(root, rows, workers)
-        print(f"host prep alone (C++ executor, {workers} threads, one batch of {batch}, files in "
-              f"the page cache): {rates['images']:.3f} images/s, {rates['labels']:.3f} labels/s")
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return times
 
-        launches, batches, seconds, text = run_cli(torch, K, os.path.join(work, "run1.yml"),
-                                                   os.path.join(out_dir, "cli_run1.log"))
-        with open(os.path.join(snap, "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
-        n_run1 = len(records)
-        steps_per_domain = CLI_FRAMES["train"] // batch
-        steps = 2 * steps_per_domain
-        n_src = min(int(cfg["TRAINING"]["REPLAY_BUFFER"]), CLI_FRAMES["train"])
-        boot = n_src // batch  # the source loader drops the last partial batch
-        print(f"phase 7 run 1: {seconds:.3f} s; launches {launches}; batches made {batches}")
-        want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": 159 * steps + 53 * boot}
-        check(launches == want, f"CLI run launches {launches}, expected {want} "
-                                f"(K1 2/step, K2 159/step + 53 per bootstrap batch)")
-        check(batches.get("collate", 0) == 0 and batches.get("executor", 0) > 0,
-              f"every batch must come from the C++ executor, got {batches}")
-        step_records = [r for r in records if "Total target loss" in r]
-        check(len(step_records) == steps, f"{len(step_records)} step records, expected {steps}")
-        for r in step_records:
-            for key, value in r.items():
-                check("loss" not in key or math.isfinite(value), f"step {r['_step']}: {key} = {value}")
-            missing = [k for k in STEP_KEYS if k not in r]
-            check(not missing, f"step record {r['_step']} lacks {missing}")
-        keys = set().union(*records)
-        for prefix in ("Adaptation frames per second", "Val mIoU model of ", "Condition "):
-            check(any(k.startswith(prefix) for k in keys), f"metrics.jsonl has no {prefix!r} key")
-        files = os.listdir(snap)
-        samples = os.listdir(os.path.join(snap, "samples"))
-        n_val_sets = len(CLI_INTENSITIES)
-        check("adapt_state.pt" in files, "no adapt_state.pt")
-        check(any(f.startswith("proto_") and f.endswith(".pickle") for f in files), "no proto pickle")
-        check("model_train_[[0]]_after_src_training.pth" in files, f"no source .pth in {files}")
-        check(len(samples) == 2 * n_val_sets * CLI_FRAMES["val"],
-              f"{len(samples)} sample PNGs, expected {2 * n_val_sets * CLI_FRAMES['val']}")
 
-        fps = [r["Adaptation frames per second"] for r in step_records
-               if "Adaptation frames per second" in r]
-        print("phase 7 CLI from disk: Adaptation frames per second per domain "
-              + ", ".join(f"{v:.3f}" for v in fps)
-              + f"; phase 6 in memory {in_memory_fps:.3f} frames/s")
-        stages = {}
-        for d in range(2):
-            per = step_stage_ms(step_records[d * steps_per_domain:(d + 1) * steps_per_domain])
-            for key, ms in per.items():
-                stages.setdefault(key, []).append(ms)
-            print(f"phase 7 domain {d}: per-step stage ms (steps 0..{steps_per_domain - 1}): "
-                  + "; ".join(f"{k[5:]} " + ", ".join(f"{v:.3f}" for v in ms) for k, ms in per.items()))
-        # steps 1..4 of each domain: step 0 warms up, 5 and 6 are profiled (the
-        # trace starts in 5's Batch Fetch and is written in 6's Host Work), 7
-        # evaluates, renders samples and checkpoints
-        clean = slice(1, PROFILE_AT)
-        median = {k[5:]: statistics.median(x for ms in v for x in ms[clean]) for k, v in stages.items()}
-        step_ms = statistics.median(sum(col) for v in zip(*stages.values())
-                                    for col in zip(*(ms[clean] for ms in v)))
-        print("phase 7 median stage ms over steps 1..4 of both domains: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in median.items())
-              + f"; their sum {step_ms:.3f} ms per step, {batch / (step_ms / 1e3):.3f} frames/s")
-        with open(os.path.join(snap, "profile", "summary.json")) as f:
-            prof = json.load(f)
-        print(f"phase 7 profiled steps 5-6 of domain 1 (torch.profiler): wall {prof['wall_ms']:.3f} ms, "
-              f"kernels {prof['kernel_ms']:.3f} ms ({100 * prof['kernel_share']:.1f}% busy, "
-              f"{100 * (1 - prof['kernel_share']):.1f}% idle), copies {prof['copy_ms']:.3f} ms")
-        shutil.copy(os.path.join(snap, "profile", "profile.txt"),
-                    os.path.join(out_dir, "cli_profile.txt"))
-
-        cli_config(root, snap, os.path.join(work, "run2.yml"), [[25]], **{
-            "OTHERS.AUTO_RESUME": True, "TRAINING.BUFFER_DYNAMIC": True,
-            "TRAINING.PERC_FILL_PER_DOMAIN": 1.0})
-        launches2, _, seconds2, text2 = run_cli(torch, K, os.path.join(work, "run2.yml"),
-                                                os.path.join(out_dir, "cli_run2.log"))
-        with open(os.path.join(snap, "metrics.jsonl")) as f:
-            records2 = [json.loads(line) for line in f][n_run1:]
-        inserted = sum(r.get("Total buffer updates", 0) for r in records2)
-        resumed = [line for line in text2.splitlines() if line.startswith("AUTO_RESUME: restoring")]
-        buffer_line = [line for line in text2.splitlines() if line.startswith("Buffer size:")]
-        fps2 = [r["Adaptation frames per second"] for r in records2 if "Adaptation frames per second" in r]
-        print(f"phase 7 run 2 (run 1's cuts but no PROFILE; AUTO_RESUME, BUFFER_DYNAMIC, "
-              f"PERC_FILL_PER_DOMAIN 1.0, DOMAIN_ORDER [[25]]): {seconds2:.3f} s; {resumed[:1]} "
-              f"{buffer_line[:1]}; launches {launches2}; buffer insertions {inserted}; "
-              f"Adaptation frames per second {', '.join(f'{v:.3f}' for v in fps2)}")
-        check(resumed, "the second run did not resume")
-        want2 = {"pseudo_labels_kernel": 2 * steps_per_domain, "bn_stats_kernel": 159 * steps_per_domain}
-        check(launches2 == want2, f"resumed run launches {launches2}, expected {want2} (no bootstrap)")
-        check(inserted > 0, "the resumed run inserted nothing into the replay buffer")
-        summary = {"cli_frames_per_s": fps, "cli_resumed_frames_per_s": fps2,
-                   "in_memory_frames_per_s": in_memory_fps, "stage_ms_median": median,
-                   "steady_step_ms": step_ms, "steady_frames_per_s": batch / (step_ms / 1e3),
-                   "prep_images_per_s": rates["images"], "prep_labels_per_s": rates["labels"],
-                   "profile": prof, "buffer_insertions": inserted}
-        return [launches, launches2], summary
+def aux_head_cost(torch, adapter, one_step):
+    """--aux-cost: the offline_fog step as it is (aux head skipped) and with the
+    head computed in every forward and thrown away, timed in turns (skipped,
+    computed, computed, skipped); returns the median ms of each."""
+    forward = adapter.model.forward
+    turns = {"skipped": [], "computed": []}
+    try:
+        for mode in ("skipped", "computed", "computed", "skipped"):
+            adapter.model.forward = (forward if mode == "skipped" else
+                                     lambda x, **kw: forward(x, **{**kw, "with_aux": True}))
+            turns[mode] += timed_ms(torch, lambda: one_step()["Total target loss"], warmup=1, n=3)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        adapter.model.forward = forward
+    aux_ms = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"phase 8.2 the same step with the aux head computed and discarded, in turns: "
+          f"median {aux_ms['computed']:.3f} ms against {aux_ms['skipped']:.3f} ms skipped "
+          f"({aux_ms['computed'] - aux_ms['skipped']:+.3f} ms)")
+    return aux_ms
+
+
+def workflow_path(torch, K, out_dir, work, root, rows, aux_cost=False):
+    """Phase 8: training_fog.yml (SEGMENT) → offline_fog.yml (adaptation from
+    its .pth) → validation_offline_fog.yml (EVALUATION of the adaptation's
+    snapshot, then OTHERS.EVAL_SWEEP) → validation.yml (PREDICTION_SAVE),
+    each through `onda_torch.train_ouda.main` on phase 7's PNG files, then a
+    SEGMENT step timed in memory at 1024x512. Returns launch counts by path
+    and the numbers."""
+    from onda_torch.utils.checkpoint import checkpoints_by_mtime
+
+    write_fog_metadata(root, rows)
+    n_train, n_val = CLI_FRAMES["train"], CLI_FRAMES["val"]
+    paths, summary = {}, {}
+
+    def cli(name):
+        return run_cli(torch, K, os.path.join(work, f"{name}.yml"),
+                       os.path.join(out_dir, f"workflow_{name}.log"))
+
+    # 8.1 training_fog.yml: SEGMENT at its own 128x64, multi-level
+    snap1 = os.path.join(work, "fog_source_model")
+    cfg = workflow_config("training_fog", os.path.join(work, "segment.yml"), **{
+        "SCHEME.PATH": root, "SCHEME.DOMAIN_ORDER": [[750]], "MODEL.LOAD": None,
+        "METHOD.PRETRAIN.SEGMENT.EPOCHS": SEGMENT_EPOCHS, "OTHERS.SNAPSHOT_DIR": snap1,
+        "METHOD.ADAPTATION.PROTO_ONLINE_HYBRIDSWITCH.LOAD_PROTO": None})
+    batch = int(cfg["TRAINING"]["BATCH_SIZE"])
+    check(cfg["MODEL"]["MULTI_LEVEL"] and cfg["SCHEME"]["RESOLUTION"] == [128, 64],
+          "training_fog.yml is no longer multi-level at 128x64")
+    launches, batches, seconds, text, adapter = cli("segment")
+    seg_steps = SEGMENT_EPOCHS * (n_train // batch)
+    boot = min(int(cfg["TRAINING"]["REPLAY_BUFFER"]), n_train) // batch
+    check(int(cfg["METHOD"]["ADAPTATION"]["PROTO_ONLINE_HYBRIDSWITCH"]["EPOCHS"]) == 0,
+          "training_fog.yml's adaptation no longer has EPOCHS 0")
+    want = {"pseudo_labels_kernel": 0, "bn_stats_kernel": 53 * (seg_steps + boot)}
+    print(f"phase 8.1 training_fog.yml (SEGMENT, {SEGMENT_EPOCHS} epochs of {n_train // batch} "
+          f"steps, b{batch} 128x64, multi-level; then the adaptation's bootstrap of {boot} batches "
+          f"and evaluation, EPOCHS 0 as shipped): {seconds:.3f} s; launches {launches}; "
+          f"batches {batches}")
+    check(launches == want, f"SEGMENT run launches {launches}, expected {want} "
+                            f"(K2 53 per SEGMENT step and per bootstrap batch, K1 0)")
+    check(batches.get("collate", 0) == 0, f"every batch must come from the C++ executor: {batches}")
+    records = read_records(snap1)
+    seg = [r["Segmentation loss"] for r in records if "Segmentation loss" in r]
+    check(len(seg) == -(-seg_steps // 10) and all(math.isfinite(v) for v in seg),
+          f"Segmentation loss records {seg}")
+    epochs = [r for r in records if "epoch" in r]
+    val_sets = ["(0,)", "(750,)"]
+    want_keys = {f"{k} of {v}" for v in val_sets for k in ("Val mIoU", "Val std IoU", "val entropy")}
+    check(len(epochs) == SEGMENT_EPOCHS and all(want_keys <= set(r) for r in epochs),
+          f"epoch records lack {want_keys - set(epochs[-1]) if epochs else want_keys}")
+    check(all(math.isfinite(r[k]) for r in epochs for k in want_keys), "non-finite epoch metrics")
+    trained = torch.load(os.path.join(snap1, "model_train_[[0]].pth"))
+    after_path = os.path.join(snap1, "model_train_[[0]]_after_src_training.pth")
+    after = torch.load(after_path)
+    start = {**adapter.state.static_params, **adapter.state.static_batch_stats}
+    for k, v in after.items():
+        check(torch.equal(trained[k], v), f"{k}: model_train_[[0]].pth != _after_src_training.pth")
+        check(torch.equal(start[k].cpu(), v), f"{k}: the adaptation did not start from the .pth")
+    print(f"phase 8.1: Segmentation loss {', '.join(f'{v:.4f}' for v in seg)}; last epoch "
+          + ", ".join(f"{k} {epochs[-1][k]:.4f}" for k in sorted(want_keys))
+          + "; model_train_[[0]].pth = _after_src_training.pth = the adaptation's start")
+    paths["segment_cli"] = launches
+    summary["segment_cli_seconds"] = seconds
+    del adapter, trained, start
+
+    # 8.2 offline_fog.yml: adaptation from 8.1's .pth at 1024x512, multi-level
+    snap2 = os.path.join(work, "offline_fog")
+    cfg = workflow_config("offline_fog", os.path.join(work, "offline.yml"), **{
+        "SCHEME.PATH": root, "SCHEME.DOMAIN_ORDER": [[750]], "MODEL.LOAD": after_path,
+        "METHOD.ADAPTATION.PROTO_ONLINE.EPOCHS": 1, "OTHERS.SNAPSHOT_DIR": snap2,
+        "OTHERS.SCHEDULE": True})
+    spec = cfg["METHOD"]["ADAPTATION"]["PROTO_ONLINE"]
+    check(cfg["MODEL"]["MULTI_LEVEL"] and not spec["SKIP_PROTO_EVAL"], "offline_fog.yml changed")
+    launches, batches, seconds, text, adapter = cli("offline")
+    steps = n_train // batch
+    boot = n_train // batch  # REPLAY_BUFFER 1.0: every source row
+    val_batches = len(val_sets) * -(-n_val // batch)
+    evals = 2  # before the epoch (SKIP_CALC false) and after it
+    want = {"pseudo_labels_kernel": 2 * steps + evals * val_batches,
+            "bn_stats_kernel": 159 * steps + 53 * boot}
+    print(f"phase 8.2 offline_fog.yml (PROTO_ONLINE, multi-level, b{batch} "
+          f"{'x'.join(map(str, cfg['SCHEME']['RESOLUTION']))}, MODEL.LOAD = 8.1's .pth, "
+          f"{steps} steps): {seconds:.3f} s; launches {launches}")
+    check(launches == want, f"offline_fog run launches {launches}, expected {want} (K1 2/step + "
+                            f"1 per validation batch, K2 159/step + 53 per bootstrap batch)")
+    records = read_records(snap2)
+    step_records = [r for r in records if "Total target loss" in r]
+    check(len(step_records) == steps, f"{len(step_records)} step records for {steps} steps")
+    for r in step_records:
+        for key, value in r.items():
+            check("loss" not in key or math.isfinite(value), f"offline_fog {key} = {value}")
+    stage = step_stage_ms(step_records)
+    # one step of the adapter the CLI returned, on device tensors: its host
+    # syncs (the dynamic teacher's gate, absent at DYNAMIC_LAMBDA 0) and
+    # whether the aux head ran
+    aux_calls = []
+    hook = adapter.model.layer5.register_forward_pre_hook(lambda m, a: aux_calls.append(1))
+    src = make_batches(torch, 1, batch, MAIN_HW, 20)[0]
+    trg = make_batches(torch, 1, batch, MAIN_HW, 21)[0]
+    img, s_img, s_lbl = (trg["image"].cuda(), src["image"][None].cuda(),
+                         src["label_res"][None].cuda())
+    step = adapter.step_fn(True, 1, False)
+
+    def one_step():
+        adapter.state, logs = step(adapter.state, img, s_img, s_lbl, 1e-5)
+        return logs
+
+    K.reset_launches()
+    logs, syncs = count_syncs(torch, one_step)
+    one = dict(K.launches)
+    want_syncs = 1 if float(spec["DYNAMIC_LAMBDA"]) > 0 else 0
+    print(f"phase 8.2 one step: launches {one}, host syncs {len(syncs)} {syncs}, aux head "
+          f"forwards {len(aux_calls)}")
+    check(one == {"pseudo_labels_kernel": 2, "bn_stats_kernel": 159}, f"one step launched {one}")
+    check(len(syncs) == want_syncs, f"expected {want_syncs} host syncs per step (the dynamic "
+                                    f"teacher's gate; DYNAMIC_LAMBDA {spec['DYNAMIC_LAMBDA']})")
+    check(math.isfinite(logs["Total target loss"]), "offline_fog extra step: non-finite loss")
+    with torch.no_grad():
+        aux, _ = adapter.model(img[:1, :, :64, :128])
+    check(not aux_calls[:-1] and len(aux_calls) == 1 and aux is not None,
+          f"the step ran the aux head ({len(aux_calls) - 1} times) or a plain forward skipped it")
+    hook.remove()
+    times = timed_ms(torch, lambda: one_step()["Total target loss"], warmup=1, n=5)
+    step_ms = statistics.median(times)
+    if aux_cost:
+        summary["offline_fog_aux_turns_ms"] = aux_head_cost(torch, adapter, one_step)
+    print(f"phase 8.2 offline_fog step in memory (static teacher, no dynamic one, multi-level "
+          f"model, aux head skipped): {', '.join(f'{t:.3f}' for t in times)} ms; median "
+          f"{step_ms:.3f} ms, {batch / (step_ms / 1e3):.3f} frames/s; CLI steady stages "
+          + "; ".join(f"{k[5:]} {statistics.median(v[1:-1]):.3f} ms" for k, v in stage.items()))
+    paths["multi_level_cli"] = launches
+    summary.update(offline_fog_step_ms=step_ms, offline_fog_frames_per_s=batch / (step_ms / 1e3),
+                   offline_fog_cli_seconds=seconds)
+    del adapter, img, s_img, s_lbl, step
+
+    # 8.3 validation_offline_fog.yml on 8.2's snapshots, then EVAL_SWEEP
+    workflow_config("validation_offline_fog", os.path.join(work, "evaluation.yml"), **{
+        "SCHEME.PATH": root, "MODEL.LOAD": None, "OTHERS.SNAPSHOT_DIR": snap2})
+    n_records = len(read_records(snap2))
+    launches, _, seconds, text, runner = cli("evaluation")
+    eval_sets = 1 + 4  # the source and DOMAIN_ORDER's four visibilities, one batch each
+    loaded = [line for line in text.splitlines() if line.endswith("is being loaded")]
+    print(f"phase 8.3 validation_offline_fog.yml: {seconds:.3f} s; {loaded}; launches {launches}")
+    check(loaded == [f"Model {os.path.join(snap2, 'adapt_state.pt')} is being loaded"],
+          f"EVALUATION loaded {loaded}, not 8.2's adapt_state.pt")
+    check(launches == {"pseudo_labels_kernel": eval_sets, "bn_stats_kernel": 0},
+          f"EVALUATION launches {launches}, expected K1 one per validation batch ({eval_sets}), K2 0")
+    result = read_records(snap2)[n_records:]
+    miou = {k: v for r in result for k, v in r.items() if k.startswith("Val mIoU")}
+    check(len(miou) == 2 * eval_sets and all(math.isfinite(v) for v in miou.values()),
+          f"EVALUATION mIoU keys {miou}")
+    print(f"phase 8.3 mIoU: {json.dumps(miou)}")
+    paths["evaluation_cli"] = launches
+    del runner
+
+    workflow_config("validation_offline_fog", os.path.join(work, "sweep.yml"), **{
+        "SCHEME.PATH": root, "MODEL.LOAD": None, "OTHERS.SNAPSHOT_DIR": snap2, "OTHERS.EVAL_SWEEP": True})
+    files = [p.name for p in checkpoints_by_mtime(snap2)]
+    launches, _, seconds, text, runner = cli("sweep")
+    swept = [line.split()[1] for line in text.splitlines() if line.startswith("sweep: ")]
+    best = [line for line in text.splitlines() if line.startswith("best: ")]
+    print(f"phase 8.3 EVAL_SWEEP over {files}: {seconds:.3f} s; swept {swept}; {best}; "
+          f"launches {launches}")
+    check(swept == files and best, f"the sweep evaluated {swept}, the directory holds {files}")
+    check(launches == {"pseudo_labels_kernel": eval_sets * len(files), "bn_stats_kernel": 0},
+          f"EVAL_SWEEP launches {launches}")
+    paths["sweep_cli"] = launches
+    del runner
+
+    # 8.4 validation.yml: PREDICTION_SAVE of every target batch
+    preds = os.path.join(work, "predictions")
+    cfg = workflow_config("validation", os.path.join(work, "predictions.yml"), **{
+        "SCHEME.PATH": root, "MODEL.LOAD": None, "OTHERS.SNAPSHOT_DIR": snap2,
+        "METHOD.PRETRAIN.EVALUATION.PREDICTION_SAVE": preds})
+    launches, _, seconds, text, runner = cli("predictions")
+    domains = cfg["SCHEME"]["DOMAIN_ORDER"]
+    dumped = {str(tuple(d)): sorted(os.listdir(os.path.join(preds, "_".join(str(tuple(d))))))
+              for d in domains}
+    per_domain = -(-n_train // batch)
+    w, h = cfg["SCHEME"]["RESOLUTION"]
+    out_shape = (batch, 19, h // 8 + 1, w // 8 + 1)
+    print(f"phase 8.4 validation.yml (PREDICTION_SAVE, {len(domains)} target domains): "
+          f"{seconds:.3f} s; launches {launches}; files per domain "
+          f"{ {k: len(v) for k, v in dumped.items()} } of shape {out_shape}")
+    check(launches == {"pseudo_labels_kernel": 0, "bn_stats_kernel": 0},
+          f"PREDICTION_SAVE launched kernels {launches}")
+    for d, names in dumped.items():
+        check(names == sorted(f"batch-{i}.pt" for i in range(per_domain)), f"{d}: files {names}")
+        for name in names:
+            logits = torch.load(os.path.join(preds, "_".join(d), name))
+            check(tuple(logits.shape) == out_shape and bool(torch.isfinite(logits).all()),
+                  f"{d}/{name}: shape {tuple(logits.shape)} or non-finite values")
+    paths["predictions_cli"] = launches
+    del runner
+
+    # 8.5 one SEGMENT step at the adaptation's 1024x512, b4, in memory
+    base = release(torch)
+    trainer = make_trainer(torch, "cuda", MAIN_HW)
+    data = make_batches(torch, 1, batch, MAIN_HW, 22)[0]
+    img, lbl = data["image"].cuda(), data["label"].cuda()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    times = timed_ms(torch, lambda: float(trainer.step(img, lbl, 2.5e-4)), warmup=2,
+                     n=SEGMENT_TIMED_STEPS)
+    launches = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = 2 + SEGMENT_TIMED_STEPS
+    check(launches == {"pseudo_labels_kernel": 0, "bn_stats_kernel": 53 * n_steps},
+          f"SEGMENT steps launched {launches}, expected K2 53 per step")
+    seg_ms = statistics.median(times)
+    print(f"phase 8.5 SEGMENT step in memory (training_fog.yml's multi-level R50, b{batch} "
+          f"{MAIN_HW[1]}x{MAIN_HW[0]}, both heads' CE): {', '.join(f'{t:.3f}' for t in times)} ms; median "
+          f"{seg_ms:.3f} ms, {batch / (seg_ms / 1e3):.3f} frames/s, peak memory "
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated; {base / 2**30:.3f} GiB were allocated "
+          f"before the trainer was made); launches {launches}")
+    paths["segment_in_memory"] = launches
+    summary.update(segment_step_ms=seg_ms, segment_frames_per_s=batch / (seg_ms / 1e3),
+                   segment_peak_gib=peak / 2**30)
+    del trainer, img, lbl
+    release(torch)
+    return paths, summary
 
 
 def main() -> int:
@@ -899,6 +1281,8 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--compare", metavar="DIR",
                         help="time the K1 and K2 of the onda_torch package in DIR against this tree's")
+    parser.add_argument("--aux-cost", action="store_true",
+                        help="also time phase 8.2's step with the aux head computed, in turns")
     parser.add_argument("--out-dir", default=os.path.join(HERE, "build", "chip_smoke"),
                         help="where the per-shape K2 table, the profile and the comparison go")
     args = parser.parse_args()
@@ -944,8 +1328,22 @@ def main() -> int:
         print("main path: cudnn.allow_tf32=True (PyTorch's default: convolutions in TF32), "
               "cuda.matmul.allow_tf32=False")
         paths["in_memory"], summary = main_path(torch, K, args.profile, args.out_dir)
-        (paths["cli"], paths["cli_resumed"]), summary["cli"] = cli_path(
-            torch, K, args.out_dir, summary["frames_per_s"])
+        work = tempfile.mkdtemp(prefix="onda_cli_")
+        try:
+            root = os.path.join(work, "weather_cityscapes") + "/"
+            t = time.perf_counter()
+            rows, img_bytes = write_dataset(root, seed=7)
+            print(f"phase 7 dataset: {len(rows)} frames of {FRAME_HW[1]}x{FRAME_HW[0]} "
+                  f"(intensities {CLI_INTENSITIES}, {CLI_FRAMES} per intensity), mean image "
+                  f"PNG {img_bytes / len(rows) / 1e6:.3f} MB, written in "
+                  f"{time.perf_counter() - t:.3f} s")
+            (paths["cli"], paths["cli_resumed"]), summary["cli"] = cli_path(
+                torch, K, args.out_dir, summary["frames_per_s"], work, root, rows)
+            workflow, summary["workflow"] = workflow_path(torch, K, args.out_dir, work, root, rows,
+                                                          aux_cost=args.aux_cost)
+            paths.update(workflow)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     for k in (k1, k2):
         k["launches_by_path"] = {p: c.get(k["name"], 0) for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

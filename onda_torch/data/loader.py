@@ -192,6 +192,16 @@ def host_tensor(x) -> torch.Tensor:
     return x if x.is_pinned() else x.pin_memory()
 
 
+def to_device(x, device) -> torch.Tensor:
+    """x as a tensor on `device`. A copy to a card starts from page-locked
+    memory, so it neither waits for the device nor lets the host memory go
+    before the copy has read it."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return host_tensor(x).to(device, non_blocking=True)
+    return torch.as_tensor(x)
+
+
 class DeviceFeeder:
     """Batches of `iterator` with their `keys` on `device`.
 

@@ -9,7 +9,9 @@ framework/dataset/segmentation_db.py:16-99), byte-exact with PIL:
   reference normalizes the BGR image with RGB-ordered ImageNet statistics,
   and its checkpoints bake that in);
 * label: nearest resize to the input size, LUT-remapped 34 → 19 + 255;
-* label_res: nearest resize to the model's 1/8+1 output grid.
+* label_res: nearest resize to the model's 1/8+1 output grid;
+* label_raw (with `original_label`): the label map at the file's own size
+  through the LUT, for SEGMENT training's full-image evaluation.
 
 Batches come out as planar CHW float32 images, (N, 3, H, W), the layout the
 model takes, and int32 label maps. Every batch is made by the executor; a
@@ -57,11 +59,7 @@ class SegmentationDataset:
         self.image_size = list(image_size_wh)
         self.labels_size = list(labels_size_wh or image_size_wh)
         self.map = class_map if isinstance(class_map, LabelMapper) else LabelMapper(class_map)
-        if original_label:
-            # label_raw (labels at the files' own size) feeds only SEGMENT
-            # training's evaluation
-            raise NotImplementedError("SCHEME.ORIGINAL_RES: label_raw waits for SEGMENT training "
-                                      "(ROADMAP M12)")
+        self.original_label = original_label
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
         self.executor = executor or native.BatchExecutor(max(1, (os.cpu_count() or 2) - 1))
@@ -77,8 +75,10 @@ class SegmentationDataset:
     def prepare_batch(self, indices, alloc=np.empty) -> dict:
         """The collated batch of rows `indices`: image (N, 3, H, W) f32 and,
         when the rows have labels, label (N, H, W) and label_res (N, h8, w8)
-        int32, plus the file paths. `alloc(shape, dtype)` gives the arrays the
-        executor writes into (pinned host memory on the way to a card)."""
+        int32, plus the file paths; with `original_label` also label_raw
+        (N, H0, W0) int32 at the files' own size, which all rows of a batch
+        must share. `alloc(shape, dtype)` gives the arrays the executor
+        writes into (pinned host memory on the way to a card)."""
         rows = [self.metadata[int(i)] for i in indices]
         image_paths = [os.path.join(self.root, r["image_path"]) for r in rows]
         labeled = [isinstance(r.get("label_path"), str) for r in rows]
@@ -97,6 +97,8 @@ class SegmentationDataset:
             jobs.append((self.executor.submit_labels(label_paths, (lh, lw), (rh, rw), self.map.lut,
                                                      full, res), label_paths))
             batch.update(label_path=label_paths, label=full, label_res=res)
+            if self.original_label:
+                batch["label_raw"] = self._raw_labels(label_paths, alloc)
         errors = []
         for job, paths in jobs:  # wait for every job before the buffers can go
             try:
@@ -107,6 +109,22 @@ class SegmentationDataset:
             raise errors[0]
         batch["image"] = images
         return batch
+
+    def _raw_labels(self, paths, alloc) -> np.ndarray:
+        """The label maps at their own size, decoded by the C++ prep and
+        remapped through the LUT (reference segmentation_db.py:80-87)."""
+        sizes = [native.png_size(p) for p in paths]
+        if len(set(sizes)) > 1:
+            raise ValueError(f"label_raw: the label maps of a batch differ in size: "
+                             f"{dict(zip(paths, sizes))}")
+        out = alloc((len(paths), *sizes[0]), np.int32)
+        lut = self.map.lut
+        for i, path in enumerate(paths):
+            ids = native.decode_png(path, rgb=False)
+            if ids.max(initial=0) >= len(lut):
+                raise RuntimeError(f"{path}: {native.ERRORS[-4]}")
+            out[i] = lut[ids]
+        return out
 
     def __getitem__(self, index: int) -> dict:
         """One sample: the batch of one row, without the batch axis."""

@@ -59,6 +59,17 @@ def lr_poly(base_lr: float, step, total_steps: int, power: float) -> float:
     return base_lr * (1.0 - step / total_steps) ** power
 
 
+def grads(loss: torch.Tensor, live: dict, names: list, unused=()) -> dict:
+    """d loss / d live[name] for each name. The names in `unused` are those no
+    loss reaches by design (the multi-level aux head where its forward is
+    skipped): they get a zero gradient, as `jax.grad` gives, so SGD still
+    decays them and runs their momentum. Any other parameter that no loss
+    reaches is an error."""
+    used = [k for k in names if k not in unused]
+    got = dict(zip(used, torch.autograd.grad(loss, [live[k] for k in used])))
+    return {k: got[k] if k in got else torch.zeros_like(live[k]) for k in names}
+
+
 @torch.no_grad()
 def update(params: dict, grads: dict, momentum_buf: dict, labels: dict, lr_backbone: float,
            lr_head: float, momentum: float, weight_decay: float):

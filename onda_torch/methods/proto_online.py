@@ -17,13 +17,18 @@ device only once, for the dynamic teacher's gate (see `prior_policy`); the
 scalar logs leave the device as one packed tensor, read when the caller first
 looks at them.
 
+BN_POLICY decides what the source-replay slices do to the BatchNorm running
+statistics: `freeze` drops their updates, `double` runs them on the second
+set (`alt_batch_stats`) and keeps its update, `keep` runs them on the main set
+before the target slice, which then starts from their update.
+
 Around the step, `train` feeds batches through `DeviceFeeder`s (the next
 batch's copy overlaps the step), inserts pseudo-labeled target frames into a
-replay buffer, evaluates, renders samples and checkpoints once per epoch.
+replay buffer, refreshes the dynamic teacher under AUTO_DYNAMIC, dumps the
+raw target logits under PREDICTION_SAVE, evaluates, renders samples and
+checkpoints once per epoch.
 
-Not ported yet (they raise): BN_POLICY double and keep, AUTO_DYNAMIC and
-PREDICTION_SAVE (ROADMAP M13), OTHERS.ASYNC_SAVE, and more than one device
-(M17).
+Not ported yet (they raise): OTHERS.ASYNC_SAVE and more than one device (M17).
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..config import unset, value_or
-from ..data.loader import DeviceFeeder, cycle, host_tensor
+from ..data.loader import DeviceFeeder, cycle, to_device
 from ..ops import kernels as K
 from ..ops import losses as L
 from ..ops import metrics as M
@@ -66,6 +71,14 @@ MONITOR_KEYS = (
 )
 
 NUM_FEATURES = 256  # ProDA classifier feature width (reference deeplabv2.py:205)
+
+
+def dump_logits_batch(base: str, index: int, logits_nchw: torch.Tensor) -> None:
+    """Write one prediction batch as the reference's consumers read it: an
+    NCHW f32 tensor at `<base>/batch-{index}.pt` (reference
+    adaptation_model.py:218-232)."""
+    torch.save(logits_nchw.detach().float().to("cpu", copy=True).contiguous(),
+               os.path.join(base, f"batch-{index}.pt"))
 
 
 def _softmax(x):
@@ -201,6 +214,8 @@ class ProtoOnlineAdapter:
                                       seed=int(cfg.TRAINING.RANDOM_SEED), device=self.device)
         self.param_labels = optim.label_params(self.state.params, aux_grad=bool(model.multi_level))
         self.lr_ratios = self._lr_ratios()
+        self.dynamic_update_counter = 0
+        self.prediction_counter = {}
         self._step_cache = {}
         self._applied_spec = self._step_relevant_spec(cfg_spec)
         self.conf_reg_thresh = (
@@ -249,26 +264,24 @@ class ProtoOnlineAdapter:
         return int(h), int(w)
 
     def _forward(self, params, stats, images, train, update_stats=False):
-        """Model forward with the given parameter and buffer dicts; returns `main`."""
+        """Model forward with the given parameter and buffer dicts; returns
+        `main`. The multi-level aux head is not run: nothing here reads it."""
         _, main = functional_call(
             self.model, (params, stats), (images,),
-            {"train": train, "update_stats": update_stats,
+            {"train": train, "update_stats": update_stats, "with_aux": False,
              "generator": self.state.generator if train else None})
         return main
 
     def _to_device(self, x, dtype=None):
-        """x on the adapter's device, converted there to dtype. A copy to a card
-        starts from page-locked memory, so it neither waits for the device nor
-        lets the host memory go before the copy has read it."""
-        if self.device.type == "cuda":
-            x = host_tensor(x).to(self.device, non_blocking=True)
-        x = torch.as_tensor(x)
+        """x on the adapter's device (`loader.to_device`), converted there to dtype."""
+        x = to_device(x, self.device)
         return x if dtype is None else x.to(dtype)
 
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
-    def _build_step(self, have_src: bool, source_repeat: int, want_soft: bool):
+    def _build_step(self, have_src: bool, source_repeat: int, want_soft: bool,
+                    want_pred: bool = False):
         spec = self.cfg_spec
         monitor, policy, C = self.monitor, self.policy, self.num_classes
         metric = spec.DISTANCE_MEASURE
@@ -281,14 +294,13 @@ class ProtoOnlineAdapter:
         model_reg = float(value_or(spec.MODEL_REGULARIZATION, 0.0))
         buff_ce_w, buff_rce_w = float(spec.BUFF_CE), float(spec.BUFF_RCE)
         bn_policy = spec.BN_POLICY if spec.BN_POLICY in ("freeze", "double", "keep") else "freeze"
-        if have_src and bn_policy != "freeze":
-            raise NotImplementedError(f"BN_POLICY {bn_policy!r} is not ported yet (ROADMAP M13)")
         momentum, weight_decay = float(spec.MOMENTUM), float(spec.WEIGHT_DECAY)
         ema_update = float(spec.EMA_UPDATE)
         static_on = float(spec.STATIC_LAMBDA) > 0
         conf_reg_thresh = self.conf_reg_thresh
         labels = self.param_labels
         trainable = [k for k, lab in labels.items() if lab != optim.FROZEN]
+        aux_head = {k for k in trainable if k.startswith("layer5.")}  # its forward is skipped
         r0, r1 = self.lr_ratios
         fwd = self._forward
 
@@ -352,10 +364,14 @@ class ProtoOnlineAdapter:
             trg_target = soft_nchw if soft_labels else pseudolabels
             buff_ce = buff_ce_last = buff_rce = buff_rce_last = zero
             if have_src:
+                # freeze: the source slices' stat updates are discarded, which
+                # is running them with update_stats=False; double: they start
+                # from the alt set and their updates become it; keep: they
+                # update the main set, which the target slice then starts from
+                src_stats = state.alt_batch_stats if bn_policy == "double" else state.batch_stats
                 for s in range(source_repeat):
-                    # under `freeze` the source slice's stat updates are
-                    # discarded: running it with update_stats=False is the same
-                    out_s = fwd(live, state.batch_stats, src_images[s], train=True)["out"].float()
+                    out_s = fwd(live, src_stats, src_images[s], train=True,
+                                update_stats=bn_policy != "freeze")["out"].float()
                     if buff_ce_w > 0:
                         buff_ce_last = L.cross_entropy_2d(out_s, src_labels[s])
                         buff_ce = buff_ce + buff_ce_last
@@ -372,7 +388,7 @@ class ProtoOnlineAdapter:
             mreg = L.ewc_loss(model_reg, state.static_params, live) if model_reg > 0 else zero
             total_t = sym + reg_weight * reg + js_d * js + mreg
             total = total_t + buff_ce_w * buff_ce + buff_rce_w * buff_rce
-            grads = dict(zip(trainable, torch.autograd.grad(total, [live[k] for k in trainable])))
+            grads = optim.grads(total, live, trainable, unused=aux_head)
             del live
 
             # ---- SGD + EMA ----------------------------------------------
@@ -405,16 +421,19 @@ class ProtoOnlineAdapter:
                 logs["dev avg prior static"] = monitor.dev_avg(mon, "prior static")
                 if want_soft:
                     logs["soft_predictions"] = soft_nchw
+                if want_pred:  # PREDICTION_SAVE: the raw target logits
+                    logs["target_logits"] = out_t
             new_state = dataclasses.replace(state, proto=proto, monitor=mon, switch=switch,
                                             step=state.step + 1)
             return new_state, LazyLogs(logs)
 
         return step
 
-    def step_fn(self, have_src: bool, source_repeat: int, want_soft: bool):
-        key = (have_src, source_repeat, want_soft)
+    def step_fn(self, have_src: bool, source_repeat: int, want_soft: bool,
+                want_pred: bool = False):
+        key = (have_src, source_repeat, want_soft, want_pred)
         if key not in self._step_cache:
-            self._step_cache[key] = self._build_step(have_src, source_repeat, want_soft)
+            self._step_cache[key] = self._build_step(*key)
         return self._step_cache[key]
 
     # ------------------------------------------------------------------
@@ -565,16 +584,41 @@ class ProtoOnlineAdapter:
         self.state.dynamic_params = clone_tree(self.state.params)
         self.state.dynamic_batch_stats = clone_tree(self.state.batch_stats)
 
+    def _maybe_update_dynamic(self, dev_fn) -> bool:
+        """AUTO_DYNAMIC: refresh the dynamic teacher from the student when the
+        static confidence's derivative moves, at most once per patience
+        (reference evaluate_update_dynamic, prototypes.py:396-405). The counter
+        counts every step, the derivative is read only strictly past the
+        patience, |dev| must strictly exceed DEV_THRESH, and only a refresh
+        resets the counter. `dev_fn` defers the read of the packed logs (one
+        device-to-host copy) to the steps past the patience."""
+        spec = self.cfg_spec
+        patience = int(value_or(spec.AUTO_DYNAMIC_PATIENCE, 500))
+        self.dynamic_update_counter += 1
+        if self.dynamic_update_counter > patience and abs(float(dev_fn())) > float(spec.DEV_THRESH):
+            self._copy_dynamic()
+            self.dynamic_update_counter = 0
+            return True
+        return False
+
+    def _save_prediction(self, logits_nchw) -> None:
+        """Dump one step's raw target logits under PREDICTION_SAVE/<set>, one
+        counter per domain (reference adaptation_model.py:218-232)."""
+        set_ = self.cfg_spec.set_
+        base = os.path.join(str(self.cfg_spec.PREDICTION_SAVE), "_".join(str(set_)))
+        counter = self.prediction_counter.setdefault(set_, 0)
+        os.makedirs(base, exist_ok=True)
+        dump_logits_batch(base, counter, logits_nchw)
+        self.prediction_counter[set_] = counter + 1
+
     # ------------------------------------------------------------------
     # train loop (reference prototypes.py:466-520)
     # ------------------------------------------------------------------
     def train(self, trainloader, targetloader, validation_loaders) -> None:
         spec = self.cfg_spec
-        if value_or(spec.AUTO_DYNAMIC, False):
-            raise NotImplementedError("AUTO_DYNAMIC is not ported yet (ROADMAP M13)")
-        if not unset(spec.PREDICTION_SAVE):
-            raise NotImplementedError("PREDICTION_SAVE is not ported yet (ROADMAP M13)")
-        self._copy_dynamic()
+        auto_dynamic = bool(value_or(spec.AUTO_DYNAMIC, False))
+        if not auto_dynamic:  # AUTO_DYNAMIC refreshes the dynamic teacher itself
+            self._copy_dynamic()
         if not spec.SKIP_CALC:
             if not self.skip_proto:
                 print("Computing Prototypes")
@@ -592,7 +636,9 @@ class ProtoOnlineAdapter:
         if steps:
             update_prob = (perc_fill * float(self.cfg.TRAINING.REPLAY_BUFFER)
                            / float(self.cfg.TRAINING.BATCH_SIZE) / steps)
-        step = self.step_fn(have_src, source_repeat, update_prob > 0)
+        # per-step raw prediction dumps (reference prototypes.py:286-287)
+        want_pred = not unset(spec.PREDICTION_SAVE)
+        step = self.step_fn(have_src, source_repeat, update_prob > 0, want_pred)
         # (OTHERS.AOT_CACHE, a cache of the JAX package's compiled step, has no
         # counterpart: the port compiles no step)
 
@@ -644,6 +690,10 @@ class ProtoOnlineAdapter:
             meter.mark("Batch Fetch")
             self.state, logs = step(self.state, trg_batch["image"], src_images, src_labels, lr)
             meter.mark("Step Dispatch")
+            if want_pred:
+                self._save_prediction(logs.pop("target_logits"))
+            if auto_dynamic:
+                self._maybe_update_dynamic(lambda: logs["dev avg prior static"])
             host_logs = {"Total buffer updates": self._buffer_update(
                 trg_batch, logs.pop("soft_predictions", None), update_prob, trainloader, rng)}
             if profiler is not None and i_iter + 1 == profile_at + profile_steps:
@@ -774,6 +824,20 @@ class ProtoOnlineAdapter:
         payload["generator"] = s.generator.get_state()
         save_atomic(payload, os.path.join(root, "adapt_state.pt"))
         P.save(s.proto, self._proto_path(self.cfg_spec.set_ or "current"))
+
+    def load_newest(self, candidates, skip: str):
+        """Load the newest of `candidates` (paths, oldest first) that loads,
+        printing `<skip> skip: <name> (...)` for each newer one that does not
+        (a crash while writing can leave one behind); returns its path, or
+        None when none loads."""
+        for cand in reversed(candidates):
+            try:
+                self.load_model(str(cand))
+            except Exception as exc:  # noqa: BLE001 - an unloadable file: try the next older
+                print(f"{skip} skip: {cand.name} (unloadable: {type(exc).__name__}: {exc})")
+                continue
+            return cand
+        return None
 
     def load_model(self, path: str) -> None:
         """`adapt_state.pt` restores the full state (exact resume); any other

@@ -129,10 +129,13 @@ class ProDAClassifier(nn.Module):
 class DeepLabV2(nn.Module):
     """The full model (reference ResNetMulti, deeplabv2.py:260-395).
 
-    forward(x, train, update_stats, generator) → (aux_or_None, main) where main
-    is {"feat","out"} for the ProDA classifier or raw logits for the classic one.
-    The `layer5` aux head is structural: it always exists (reference
-    checkpoints carry it) and runs only when `multi_level` is set."""
+    forward(x, train, update_stats, generator, with_aux) → (aux_or_None, main)
+    where main is {"feat","out"} for the ProDA classifier or raw logits for the
+    classic one. The `layer5` aux head is structural: it always exists
+    (reference checkpoints carry it) and runs only when `multi_level` is set
+    and the caller does not pass `with_aux=False`. Callers that never read
+    `aux` pass it; the compiled JAX step likewise never runs the unused head
+    (XLA drops it)."""
 
     def __init__(self, num_classes=19, layers: Sequence[int] = (3, 4, 23, 3),
                  classifier="ProDA", multi_level=False, bn_momentum=0.1, droprate=0.1):
@@ -152,13 +155,13 @@ class DeepLabV2(nn.Module):
         self.layer5 = make(1024)
         self.layer6 = make(2048)
 
-    def forward(self, x, train=False, update_stats=True, generator=None):
+    def forward(self, x, train=False, update_stats=True, generator=None, with_aux=True):
         x = F.relu(self.bn1(self.conv1(x), train, update_stats))
         x = max_pool_ceil(x, window=3, stride=2, padding=1)
         x = self.layer1(x, train, update_stats)
         x = self.layer2(x, train, update_stats)
         x = self.layer3(x, train, update_stats)
-        aux = self.layer5(x, train, generator) if self.multi_level else None
+        aux = self.layer5(x, train, generator) if self.multi_level and with_aux else None
         x = self.layer4(x, train, update_stats)
         return aux, self.layer6(x, train, generator)
 

@@ -1,4 +1,5 @@
-"""Evaluation metrics: confusion histogram, IoU, streaming ECE (`onda_tpu/ops/metrics.py`).
+"""Evaluation metrics: confusion histogram, IoU, mean entropy, streaming ECE
+(`onda_tpu/ops/metrics.py`).
 
 Histograms and ECE accumulators stay on the device until the final
 per-class reduction (reference framework/utils/func.py:77-85,
@@ -33,6 +34,15 @@ def per_class_iu(hist) -> np.ndarray:
 
 def miou(hist) -> float:
     return float(np.nanmean(per_class_iu(hist)))
+
+
+def mean_entropy(probs: torch.Tensor) -> torch.Tensor:
+    """Mean of the reference's weighted self-information map of (N, C, H, W)
+    probabilities: `prob_2_entropy` normalizes by log2(C) (reference
+    utils/func.py:71-74) and its consumer means over all axes, channels
+    included (reference eval_UDA.py:48-51), so uniform predictions give 1/C."""
+    c = probs.shape[1]
+    return (-(probs * torch.log2(probs + 1e-30)) / np.log2(float(c))).mean()
 
 
 def ece_init(bins: int, device="cpu") -> torch.Tensor:

@@ -88,7 +88,7 @@ def get_model(cfg, n_classes: int, device="cuda"):
     multi_level = bool(cfg.MODEL.MULTI_LEVEL)
     layers = {"DeepLabv2-Resnet50": (3, 4, 6, 3), "DeepLabv2-Resnet101": (3, 4, 23, 3)}.get(name)
     if layers is None:
-        raise NotImplementedError(f"{name} is not ported yet")
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP M16)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = build_deeplab_v2(n_classes, layers, classifier, multi_level)
@@ -136,7 +136,8 @@ def get_adapt_method(cfg):
     if name not in ADAPTATION_METHOD_NAMES:
         raise ValueError(f"cfg.METHOD.ADAPTATION.NAME not in {ADAPTATION_METHOD_NAMES}: {name!r}")
     if name in ("ADVENT", "PROTO_ADVENT"):
-        raise NotImplementedError(f"{name} is not ported yet")
+        item = "M14" if name == "ADVENT" else "M15"
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
     from .methods.proto_online import ProtoOnlineAdapter
 
     return ProtoOnlineAdapter

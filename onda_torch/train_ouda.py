@@ -1,8 +1,15 @@
 """Online domain adaptation CLI: `python -m onda_torch.train_ouda --cfg <yaml>`
 (the port of `train_ouda.py`; reference train_ouda.py:60-261).
 
-* SEGMENT source pretraining with `EPOCHS: 0` (every shipped config) saves
-  the source model as `model_train_{SOURCE}_after_src_training.pth`;
+* EVALUATION mode (METHOD.PRETRAIN.NAME: EVALUATION): the runner loads the
+  newest checkpoint of SNAPSHOT_DIR, then dumps the logits of every target
+  domain (PREDICTION_SAVE), sweeps every checkpoint (OTHERS.EVAL_SWEEP) or
+  evaluates every validation set; its spec is the ADAPTATION block overlaid
+  by the EVALUATION block;
+* SEGMENT source pretraining trains the student for EPOCHS on the source
+  (none with `EPOCHS: 0`, as every shipped adaptation config has), then
+  saves it as `model_train_{SOURCE}_after_src_training.pth` and adaptation
+  starts from it;
 * the replay buffer is drawn from the source train rows (a float
   REPLAY_BUFFER is a fraction, an int a count);
 * AUTO_RESUME restores the newest whole `adapt_state*.pt`;
@@ -12,8 +19,7 @@
   model, teachers, prototypes and monitors carry over between domains.
 
 It runs on the card (`--device cuda`, the default) unless asked for the CPU;
-without a card it stops. Not ported yet (they raise): EVALUATION mode (ROADMAP
-M11) and SEGMENT training with EPOCHS > 0 (M12).
+without a card it stops.
 """
 
 from __future__ import annotations
@@ -39,13 +45,14 @@ def getf(x):
 
 
 def main(argv=None):
-    """Run the CLI; returns the adapter after the last domain."""
+    """Run the CLI; returns the adapter after the last domain (the runner in
+    EVALUATION mode)."""
     args = get_arguments(argv)
     from .config import cfg_from_file, default_config, unset
     from .data import Loader, ReplayBuffer, SegmentationDataset, Table
     from .native import BatchExecutor
     from .registry import get_adapt_method, get_db, get_model
-    from .utils.checkpoint import checkpoints_by_mtime, save_atomic
+    from .utils.checkpoint import checkpoints_by_mtime
     from .utils.logging_ import Logger
 
     device = torch.device(args.device)
@@ -56,11 +63,6 @@ def main(argv=None):
     print("Using config:")
     pprint(cfg.to_dict())
     np.random.seed(int(cfg.TRAINING.RANDOM_SEED))
-
-    if cfg.METHOD.PRETRAIN.NAME == "EVALUATION":
-        raise NotImplementedError("EVALUATION mode is not ported yet (ROADMAP M11)")
-    if cfg.METHOD.PRETRAIN.NAME == "SEGMENT" and int(cfg.METHOD.PRETRAIN.SEGMENT.EPOCHS) > 0:
-        raise NotImplementedError("SEGMENT training with EPOCHS > 0 is not ported yet (ROADMAP M12)")
 
     datasets = get_db(cfg)
     info = datasets["db_info"]
@@ -83,33 +85,54 @@ def main(argv=None):
     workers = max(int(cfg.OTHERS.NUM_WORKERS), 1)
     executor = BatchExecutor(workers)
 
-    def ds(frame):
+    def ds(frame, raw_labels=False):
         return SegmentationDataset(str(cfg.SCHEME.PATH), frame, label2train, cfg.SCHEME.RESOLUTION,
                                    mean=np.asarray(db_mean), std=np.asarray(db_std),
-                                   original_label=original, executor=executor)
+                                   original_label=original and raw_labels, executor=executor)
 
-    def dl(frame, shuffle, train=True):
-        return Loader(ds(frame), batch_size=int(cfg.TRAINING.BATCH_SIZE), shuffle=shuffle,
-                      seed=int(cfg.TRAINING.RANDOM_SEED), drop_last=train, pad_last=not train,
-                      num_threads=workers, pin_memory=device.type == "cuda")
+    def dl(frame, shuffle, train=True, raw_labels=False):
+        return Loader(ds(frame, raw_labels), batch_size=int(cfg.TRAINING.BATCH_SIZE),
+                      shuffle=shuffle, seed=int(cfg.TRAINING.RANDOM_SEED), drop_last=train,
+                      pad_last=not train, num_threads=workers, pin_memory=device.type == "cuda")
+
+    def val_dl(frame):
+        # under ORIGINAL_RES only validation batches carry label_raw: SEGMENT's
+        # evaluation is its one reader
+        return dl(frame, False, train=False, raw_labels=True)
 
     src_train = Table.concat(getf(db["train"].values()) for db in datasets["domains_src"])
+    source_dataloader = {"src": dl(src_train, bool(cfg.TRAINING.SHUFFLE))}
     validation_sets = {}
     if datasets["domains_src"] and datasets["domains_src"][0]["val"]:
         for dom in datasets["domains_src"]:
-            validation_sets[getf(dom["val"].keys())] = dl(getf(dom["val"].values()), False, train=False)
+            validation_sets[getf(dom["val"].keys())] = val_dl(getf(dom["val"].values()))
         for trg_domain in datasets["domains_trg"]:
             if trg_domain["val"]:
-                validation_sets[getf(trg_domain["train"].keys())] = dl(
-                    getf(trg_domain["val"].values()), False, train=False)
+                validation_sets[getf(trg_domain["train"].keys())] = val_dl(
+                    getf(trg_domain["val"].values()))
+
+    if cfg.METHOD.PRETRAIN.NAME == "EVALUATION":
+        from .methods.evaluation import EvaluationRunner
+
+        cfg_spec = cfg.METHOD.PRETRAIN["EVALUATION"]
+        runner = EvaluationRunner(model, variables, cfg, _with_adapt_defaults(cfg, cfg_spec),
+                                  num_classes, logger, device=device)
+        if "PREDICTION_SAVE" in cfg_spec:
+            for trg_domain in datasets["domains_trg"]:
+                runner.cfg_spec.set_ = getf(trg_domain["train"].keys())
+                runner.run_predictions(dl(getf(trg_domain["train"].values()), False, train=False))
+        elif isinstance(cfg.OTHERS.EVAL_SWEEP, (bool, int, float)) and cfg.OTHERS.EVAL_SWEEP:
+            # a number keeps polling for new checkpoints for that many quiet seconds
+            wait = 0.0 if cfg.OTHERS.EVAL_SWEEP is True else float(cfg.OTHERS.EVAL_SWEEP)
+            runner.sweep_checkpoints(validation_sets, wait_seconds=wait)
+        else:
+            logger.log(runner.evaluate_all(validation_sets))
+        logger.close()
+        return runner
 
     if cfg.METHOD.PRETRAIN.NAME == "SEGMENT":
-        # after SEGMENT, even a 0-epoch one, the source model is saved as the
-        # student's state_dict in the reference's key layout (reference
-        # train_ouda.py:185-197)
-        pth = os.path.join(str(cfg.OTHERS.SNAPSHOT_DIR),
-                           f"model_train_{cfg.SCHEME.SOURCE}_after_src_training.pth")
-        save_atomic({k: v.detach().cpu() for k, v in model.state_dict().items()}, pth)
+        variables = _segment_pretraining(cfg, model, variables, num_classes, logger, device,
+                                         source_dataloader, validation_sets)
 
     seed = int(cfg.TRAINING.RANDOM_SEED)
     buff_size = cfg.TRAINING.REPLAY_BUFFER
@@ -134,15 +157,10 @@ def main(argv=None):
     snap_dir = str(cfg.OTHERS.SNAPSHOT_DIR)
     auto_resume = cfg.OTHERS.AUTO_RESUME
     if isinstance(auto_resume, bool) and auto_resume and os.path.isdir(snap_dir):
-        for cand in checkpoints_by_mtime(snap_dir)[::-1]:
-            try:
-                adapter.load_model(str(cand))
-            except Exception as exc:  # noqa: BLE001 - an unreadable snapshot: try the next older
-                print(f"AUTO_RESUME skip: {cand.name} (unloadable: {type(exc).__name__}: {exc})")
-                continue
+        cand = adapter.load_newest(checkpoints_by_mtime(snap_dir, allow_pth=False), "AUTO_RESUME")
+        if cand is not None:
             print(f"AUTO_RESUME: restoring {cand}")
             adapter.skip_proto = True
-            break
 
     f_domain = False
     for order, trg_domain in enumerate(datasets["domains_trg"]):
@@ -153,7 +171,7 @@ def main(argv=None):
         if validation_method == "all":
             val_set = validation_sets
         elif validation_method == "single":
-            val_set = {set_: dl(getf(trg_domain["val"].values()), False, train=False)}
+            val_set = {set_: val_dl(getf(trg_domain["val"].values()))}
         elif validation_method == "none":
             val_set = {}
         else:
@@ -173,6 +191,44 @@ def main(argv=None):
         adapter.train(src_loader, trg_loader, val_set)
     logger.close()
     return adapter
+
+
+def _segment_pretraining(cfg, model, variables, num_classes, logger, device, source_dataloader,
+                         validation_sets):
+    """SEGMENT: train the student on the source for EPOCHS (none with
+    `EPOCHS: 0`), then save it; returns the variables adaptation starts from.
+    The trainer, its momentum on the card with it, ends with the call."""
+    from .utils.checkpoint import save_atomic
+
+    if int(cfg.METHOD.PRETRAIN.SEGMENT.EPOCHS) > 0:
+        from .methods.segmentation import SegmentTrainer
+
+        trainer = SegmentTrainer(model, variables, cfg, cfg.METHOD.PRETRAIN.SEGMENT,
+                                 num_classes, logger, device=device)
+        # pretraining is evaluated on the source and every target val set
+        # (the reference's validation dict aliases both, train_ouda.py:146-156)
+        trainer.train(source_dataloader, validation_sets)
+        variables = {"params": trainer.params, "batch_stats": trainer.batch_stats}
+        source_model = trainer.state_dict()
+    else:
+        source_model = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    # after SEGMENT, even a 0-epoch one, the source model is saved as the
+    # student's state_dict in the reference's key layout (reference
+    # train_ouda.py:185-197); adaptation starts from it
+    pth = os.path.join(str(cfg.OTHERS.SNAPSHOT_DIR),
+                       f"model_train_{cfg.SCHEME.SOURCE}_after_src_training.pth")
+    save_atomic(source_model, pth)
+    return variables
+
+
+def _with_adapt_defaults(cfg, eval_spec):
+    """The EVALUATION spec: the adaptation block overlaid by the evaluation
+    block (reference train_ouda.py:307-313)."""
+    if cfg.METHOD.ADAPTATION.NAME:
+        merged = cfg.METHOD.ADAPTATION[cfg.METHOD.ADAPTATION.NAME].copy()
+        merged.update(eval_spec)
+        return merged
+    return eval_spec
 
 
 if __name__ == "__main__":

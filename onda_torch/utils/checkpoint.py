@@ -1,5 +1,5 @@
 """Checkpoint files (`onda_tpu/utils/checkpoint.py` and the snapshot listing
-of `onda_tpu/methods/evaluation.py`).
+of `onda_tpu/methods/evaluation.py::_checkpoints_by_mtime`).
 
 A checkpoint is written under a hidden temporary name in its directory and
 renamed over the target, so a crash while writing leaves the previous
@@ -30,8 +30,17 @@ def save_atomic(obj, path: str) -> str:
     return path
 
 
-def checkpoints_by_mtime(dirpath: str, prefix: str = "adapt_state") -> list[Path]:
-    """The full-state snapshots `<prefix>*.pt` in `dirpath`, oldest to newest
-    by mtime. Hidden files (checkpoints still being written) never count."""
-    return sorted((p for p in Path(dirpath).glob(f"{prefix}*.pt") if p.is_file()),
+def checkpoints_by_mtime(dirpath: str, allow_pth: bool = True) -> list[Path]:
+    """The checkpoints in `dirpath` the port can load, oldest to newest by
+    mtime: full-state snapshots `adapt_state*.pt` and, with `allow_pth`,
+    student-only `*.pth` files (SEGMENT's `model_train_*.pth` among them).
+    AUTO_RESUME, an exact resume, lists the snapshots only. Hidden files
+    (checkpoints still being written) never count."""
+    def compatible(p: Path) -> bool:
+        if p.name.startswith(".") or not p.is_file():
+            return False
+        return (p.name.startswith("adapt_state") and p.suffix == ".pt") or (
+            allow_pth and p.suffix == ".pth")
+
+    return sorted((p for p in Path(dirpath).iterdir() if compatible(p)),
                   key=lambda p: p.stat().st_mtime)

@@ -466,8 +466,11 @@ def test_checkpoints_are_atomic_and_listed_newest_last(tmp_path):
         os.utime(tmp_path / name, (100 - i, 100 - i))
     (tmp_path / ".adapt_state.pt.abc.tmp").write_bytes(b"partial")
     (tmp_path / "proto_current.pickle").write_bytes(b"")
-    assert [p.name for p in checkpoints_by_mtime(str(tmp_path))] == ["adapt_state_old.pt",
-                                                                     "adapt_state.pt"]
+    # AUTO_RESUME lists the full-state snapshots only, EVALUATION the .pth too
+    assert [p.name for p in checkpoints_by_mtime(str(tmp_path), allow_pth=False)] == [
+        "adapt_state_old.pt", "adapt_state.pt"]
+    assert [p.name for p in checkpoints_by_mtime(str(tmp_path))] == [
+        "adapt_state_old.pt", "model_train_[[0]]_after_src_training.pth", "adapt_state.pt"]
     assert torch.load(tmp_path / "adapt_state.pt")["i"] == 0
 
 

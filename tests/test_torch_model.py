@@ -62,6 +62,29 @@ def test_forward_matches_jax(pair, rng, train):
     np.testing.assert_allclose(tmain["feat"].numpy(), _nchw(main["feat"]), **TOL)
 
 
+@pytest.mark.parametrize("train", [False, True])
+def test_aux_head_matches_jax(pair, rng, train):
+    """multi_level: the aux head `layer5` on layer3's features, against the
+    JAX model's; `with_aux=False` skips it and leaves the main output alone."""
+    _, variables, _ = pair
+    jmodel = jax_build(num_classes=C, layers=(1, 1, 1, 1), droprate=0.0, multi_level=True)
+    tmodel = build_deeplab_v2(C, (1, 1, 1, 1), "ProDA", multi_level=True, droprate=0.0)
+    tmodel.load_state_dict(flax_to_state_dict(variables), strict=True)
+    x = rng.normal(size=(B, H, W, 3)).astype(np.float32)
+    aux, main = jax.jit(lambda v, xx: jmodel.apply(v, xx, train=train, update_stats=False))(
+        variables, jnp.asarray(x))
+    with torch.no_grad():
+        taux, tmain = tmodel(torch.tensor(_nchw(x)), train=train, update_stats=False)
+        skipped, tmain2 = tmodel(torch.tensor(_nchw(x)), train=train, update_stats=False,
+                                 with_aux=False)
+    assert taux["out"].shape == (B, C, H // 8 + 1, W // 8 + 1)
+    for key in ("out", "feat"):
+        np.testing.assert_allclose(taux[key].numpy(), _nchw(aux[key]), err_msg=key, **TOL)
+        np.testing.assert_allclose(tmain[key].numpy(), _nchw(main[key]), err_msg=key, **TOL)
+    assert skipped is None
+    torch.testing.assert_close(tmain2["out"], tmain["out"], rtol=0, atol=0)
+
+
 def test_running_stat_updates_match_jax(pair, rng):
     jmodel, variables, tmodel = pair
     x = rng.normal(size=(B, H, W, 3)).astype(np.float32)
