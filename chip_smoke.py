@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                # every phase; needs one CUDA card
     python3 chip_smoke.py --skip-main    # kernel phases only (1-5)
-    python3 chip_smoke.py --profile      # also write a profiler table of one step
+    python3 chip_smoke.py --profile      # also write a profiler table of one step of
+                                         # phase 6 and of each of phase 9.4
     python3 chip_smoke.py --compare DIR  # also time an earlier onda_torch package's
                                          # K1 and K2 (DIR/onda_torch, e.g. unpacked
                                          # from a parent commit with git archive)
@@ -26,7 +27,9 @@ Phases:
     that the result is the same bit for bit; the BatchNorm autograd.Function's
     gradients against autograd of the plain version;
  5. a small-input check: one bootstrap and one adaptation step of a tiny model
-    on the card against the same on the CPU (plain versions of both kernels);
+    on the card against the same on the CPU (plain versions of both kernels),
+    and one step each of ADVENT (multi-level) and PROTO_ADVENT, the
+    discriminators and their Adam states included;
  6. the main path at full size: configs/hybrid_switch.yml (R50 ProDA head,
     batch 4, 1024x512, f32) with seeded random weights and in-memory seeded
     data: calculate_prototypes, train() for one epoch, evaluate_all; launch
@@ -54,7 +57,17 @@ Phases:
     one per validation batch, then OTHERS.EVAL_SWEEP over every checkpoint)
     → validation.yml (PREDICTION_SAVE: one (4, 19, 65, 129) dump per target
     batch, no kernel launched); then a SEGMENT step timed in memory at
-    1024x512, b4 (median ms, frames/s, peak memory).
+    1024x512, b4 (median ms, frames/s, peak memory);
+ 9. the adversarial family on phase 7's rain files, each run through
+    `onda_torch.train_ouda.main` with the shipped config cut only in its data
+    path, domain order, epochs, absent files and snapshot directory:
+    advent.yml (ADVENT, multi-level, one mixed domain [[25, 50]], from 8.1's
+    `.pth`; K2 106 per step, three finite losses a step, both discriminators
+    and their Adam states in `advent_state.pt`) → validation_offline_advent.yml
+    on its snapshot (it must load `advent_state.pt`; K1 one per validation
+    batch) → proto_advent.yml (two domains, seeded weights, bootstrapped
+    prototypes; K1 2 and K2 159 per step); then one step of each method timed
+    in memory at 1024x512, b4 (median of 5 after 1, peak memory, host syncs).
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
@@ -483,13 +496,17 @@ def seeded_model(torch, cfg, device, layers, droprate, multi_level):
 
 
 def make_adapter(torch, device, hw, batch, layers=(3, 4, 6, 3), droprate=None, logger=None,
-                 multi_level=False, bn_policy=None):
+                 multi_level=None, bn_policy=None, config="hybrid_switch"):
+    """The adapter of configs/<config>.yml at hw with seeded weights; the
+    model multi-level as the config says unless `multi_level` is given."""
     from onda_torch import registry
     from onda_torch.config import Config, cfg_from_file
 
-    cfg = cfg_from_file(os.path.join(HERE, "configs", "hybrid_switch.yml"))
+    cfg = cfg_from_file(os.path.join(HERE, "configs", f"{config}.yml"))
     cfg.SCHEME.RESOLUTION = [hw[1], hw[0]]
     cfg.MODEL.LOAD = Config()
+    if multi_level is not None:
+        cfg.MODEL.MULTI_LEVEL = multi_level
     cfg.OTHERS.GENERATE_SAMPLES_EVERY = 0
     cfg.OTHERS.SNAPSHOT_DIR = tempfile.mkdtemp(prefix="onda_smoke_")
     spec = cfg.METHOD.ADAPTATION[cfg.METHOD.ADAPTATION.NAME]
@@ -498,7 +515,8 @@ def make_adapter(torch, device, hw, batch, layers=(3, 4, 6, 3), droprate=None, l
     spec.set_ = "smoke"
     if bn_policy is not None:
         spec.BN_POLICY = bn_policy
-    model, variables = seeded_model(torch, cfg, device, layers, droprate, multi_level)
+    model, variables = seeded_model(torch, cfg, device, layers, droprate,
+                                    bool(cfg.MODEL.MULTI_LEVEL))
     adapter = registry.get_adapt_method(cfg)(model, variables, cfg, spec, 19, logger=logger,
                                              device=device)
     return adapter
@@ -572,6 +590,99 @@ def small_input_check(torch):
               f"small input SEGMENT step: {k} differs")
     print(f"small input SEGMENT step (multi-level, 32x64, b2): loss cpu {loss_cpu:.6f} "
           f"cuda {loss_gpu:.6f}; both heads and {len(b_cpu)} buffers agree")
+    small_adversarial_check(torch, src[0], trg[0])
+
+
+LR_D = 1e-4  # the discriminators' Adam rate in the small-input check
+
+
+def check_discriminators(torch, tag, cpu, gpu):
+    """Discriminator states ({"main", "main_opt", "aux", "aux_opt"}) of the
+    CPU and card runs of one step. Adam's first moment (0.1 x the gradient)
+    and second agree at rtol 1e-3 and the counts exactly. Its first step moves
+    every weight by lr_d·g/(|g| + eps), ±lr_d unless g is within rounding of
+    0, where the card and the CPU may move it differently: every weight
+    agrees within 2·lr_d and at least 99.9% of them at rtol 1e-3, atol 1e-7."""
+    for name in ("main", "aux"):
+        opt_c, opt_g = cpu[f"{name}_opt"], gpu[f"{name}_opt"]
+        check(opt_c["count"] == opt_g["count"], f"{tag}: d_{name} Adam counts differ")
+        for moment, atol in (("mu", 1e-9), ("nu", 1e-12)):
+            for k, v in opt_c[moment].items():
+                check(torch.allclose(v, opt_g[moment][k].cpu(), rtol=1e-3, atol=atol),
+                      f"{tag}: d_{name} Adam {moment} {k} differs")
+        for k, v in cpu[name].items():
+            w = gpu[name][k].cpu()
+            close = torch.isclose(v, w, rtol=1e-3, atol=1e-7).float().mean().item()
+            check((v - w).abs().max().item() <= 2 * LR_D and close >= 0.999,
+                  f"{tag}: d_{name} {k} differs ({close:.6f} of the weights agree)")
+
+
+def small_adversarial_check(torch, src, trg):
+    """One multi-level ADVENT step and one PROTO_ADVENT step of a tiny model
+    (R50 cut to one block a stage, Dropout2d off, 32x64, b2) on the card
+    against the same on the CPU, from the same seeded start."""
+    t = time.perf_counter()
+    hw, batch = (32, 64), 2
+    results = {}
+    for device in ("cpu", "cuda"):
+        dev = torch.device(device)
+        ad = make_adapter(torch, device, hw, batch, layers=(1, 1, 1, 1), droprate=0.0,
+                          multi_level=True, config="advent")
+        state, logs = ad.build_step()(ad.state, src["image"].to(dev), src["label"].to(dev),
+                                      trg["image"].to(dev), 1e-3, LR_D)
+        d_state = {"main": state.d_main, "main_opt": state.d_main_opt, "aux": state.d_aux,
+                   "aux_opt": state.d_aux_opt}
+        results[device] = (dict(logs.items()), {k: v.cpu() for k, v in state.params.items()},
+                           {k: v.cpu() for k, v in state.batch_stats.items()}, d_state)
+    (l_cpu, p_cpu, b_cpu, d_cpu), (l_gpu, p_gpu, b_gpu, d_gpu) = results["cpu"], results["cuda"]
+    tag = "small input ADVENT step (multi-level)"
+    for key in ("Segmentation loss", "Adversarial loss", "Discriminator loss"):
+        check(math.isclose(l_cpu[key], l_gpu[key], rel_tol=1e-3, abs_tol=1e-6),
+              f"{tag}: {key} cpu {l_cpu[key]} vs cuda {l_gpu[key]}")
+    for k in ("layer6.head.1.weight", "layer5.head.1.weight"):
+        check(torch.allclose(p_cpu[k], p_gpu[k], rtol=1e-3, atol=1e-6), f"{tag}: {k} differs")
+    for k, v in b_cpu.items():
+        check(torch.allclose(v.float(), b_gpu[k].float(), rtol=1e-3, atol=1e-5), f"{tag}: {k} differs")
+    check_discriminators(torch, tag, d_cpu, d_gpu)
+    check(d_gpu["aux_opt"]["count"] == d_gpu["main_opt"]["count"] == 1,
+          f"{tag}: the discriminators took {d_gpu['main_opt']['count']} and "
+          f"{d_gpu['aux_opt']['count']} Adam steps")
+    print(f"{tag}, 32x64, b2: losses cpu/cuda " + ", ".join(
+        f"{k} {l_cpu[k]:.6f}/{l_gpu[k]:.6f}" for k in sorted(l_cpu))
+        + f"; both heads, {len(b_cpu)} buffers and both discriminators agree")
+
+    results = {}
+    for device in ("cpu", "cuda"):
+        dev = torch.device(device)
+        ad = make_adapter(torch, device, hw, batch, layers=(1, 1, 1, 1), droprate=0.0,
+                          config="proto_advent")
+        ad.calculate_prototypes([src])
+        state, d_state, logs = ad.pa_step_fn()(
+            ad.state, ad.d_state, src["image"].to(dev), src["label"].to(dev),
+            trg["image"].to(dev), 1e-5, LR_D)
+        stats = {k: v.cpu() for k, v in {**state.batch_stats, **{
+            f"alt.{k}": v for k, v in state.alt_batch_stats.items()}}.items() if "running" in k}
+        results[device] = (dict(logs.items()), state.params["layer6.head.1.weight"].cpu(),
+                           state.proto.mean.cpu(), stats, d_state)
+    (l_cpu, k_cpu, m_cpu, s_cpu, d_cpu), (l_gpu, k_gpu, m_gpu, s_gpu, d_gpu) = (
+        results["cpu"], results["cuda"])
+    tag = "small input PROTO_ADVENT step"
+    for key in ("Segmentation loss", "Adversarial loss", "Discriminator loss", "ce_loss",
+                "rce_loss", "regularization_loss", "Total target loss"):
+        check(math.isclose(l_cpu[key], l_gpu[key], rel_tol=1e-3, abs_tol=1e-5),
+              f"{tag}: {key} cpu {l_cpu[key]} vs cuda {l_gpu[key]}")
+    check(abs(l_cpu["pseudolabel_pixel_num"] - l_gpu["pseudolabel_pixel_num"]) <= 2,
+          f"{tag}: pseudo-label counts differ")
+    check(torch.allclose(k_cpu, k_gpu, rtol=1e-3, atol=1e-6), f"{tag}: head kernels differ")
+    check(torch.allclose(m_cpu, m_gpu, rtol=1e-3, atol=1e-5), f"{tag}: prototypes differ")
+    for k, v in s_cpu.items():
+        check(torch.allclose(v, s_gpu[k], rtol=1e-3, atol=1e-5), f"{tag}: {k} differs")
+    check_discriminators(torch, tag, d_cpu, d_gpu)
+    print(f"{tag}, 32x64, b2: Total target loss cpu {l_cpu['Total target loss']:.6f} cuda "
+          f"{l_gpu['Total target loss']:.6f}, Adversarial loss cpu "
+          f"{l_cpu['Adversarial loss']:.6g} cuda {l_gpu['Adversarial loss']:.6g}; the head, "
+          f"prototypes, {len(s_cpu)} running-stat tensors (main and alt) and the discriminators "
+          f"agree; both adversarial checks {time.perf_counter() - t:.3f} s")
 
 
 def make_trainer(torch, device, hw, layers=(3, 4, 6, 3), droprate=None):
@@ -601,6 +712,46 @@ def count_syncs(torch, fn):
     syncs = [str(w.message).splitlines()[0] for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
     return result, syncs
+
+
+def profile_step(torch, fn, path, tag) -> int:
+    """One call of fn (which ends at a host read) under torch.profiler: prints
+    its wall time, the device's busy time (the kernel rows only: operator rows
+    repeat their kernels' time) and K1's and K2's share, writes the table by
+    operator to path; returns K2's device launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t_prof = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t_prof
+    events = p.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    names = {"pseudo_labels_kernel": ("pseudo_labels_kernel",),
+             "bn_stats_kernel": ("bn_stats_cluster_kernel", "stats_cl_kernel", "finalize_kernel")}
+    ours = {name: [e for e in kernels if any(k in e.key for k in keys)]
+            for name, keys in names.items()}
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    print(f"{tag}: wall {1e3 * t_prof:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / (1e3 * t_prof):.1f}%); " +
+          ", ".join(f"{k} {sum(dev_us(e) for e in v) / 1e3:.3f} ms in "
+                    f"{sum(e.count for e in v)} device launches" for k, v in ours.items())
+          + "; the longest kernels: " + "; ".join(
+              f"{e.key[:70]} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in top))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(events.table(sort_by="cuda_time_total", row_limit=80))
+    print(f"{tag}: profile written to {path}")
+    return sum(e.count for e in ours["bn_stats_kernel"])
 
 
 def main_path(torch, K, profile: bool, out_dir: str):
@@ -681,41 +832,14 @@ def main_path(torch, K, profile: bool, out_dir: str):
     check(math.isfinite(logs["Total target loss"]), "extra step: non-finite loss")
 
     if profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as prof
-
-        torch.cuda.synchronize()
-        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            t_prof = time.perf_counter()
+        def one_step():
             ad.state, logs = step(ad.state, img, s_img, s_lbl, 1e-5)
-            logs["Total target loss"]
-            torch.cuda.synchronize()
-            t_prof = time.perf_counter() - t_prof
-        events = p.key_averages()
-        # device time: the kernel rows only (operator rows repeat their kernels' time)
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)]
+            return logs["Total target loss"]
 
-        def dev_us(e):
-            return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-        busy = sum(dev_us(e) for e in kernels) / 1e3
-        names = {"pseudo_labels_kernel": ("pseudo_labels_kernel",),
-                 "bn_stats_kernel": ("bn_stats_cluster_kernel", "stats_cl_kernel",
-                                     "finalize_kernel")}
-        ours = {name: [e for e in kernels if any(k in e.key for k in keys)]
-                for name, keys in names.items()}
-        print(f"profiled step: wall {1e3 * t_prof:.3f} ms, device busy {busy:.3f} ms "
-              f"({100 * busy / (1e3 * t_prof):.1f}%); " +
-              ", ".join(f"{k} {sum(dev_us(e) for e in v) / 1e3:.3f} ms in "
-                        f"{sum(e.count for e in v)} device launches" for k, v in ours.items()))
-        k2_launches = sum(e.count for e in ours["bn_stats_kernel"])
+        k2_launches = profile_step(torch, one_step, os.path.join(out_dir, "profile_step.txt"),
+                                   "profiled step")
         check(k2_launches == 159, f"K2 took {k2_launches} device launches in the profiled step, "
                                   f"expected one per call (159)")
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "profile_step.txt"), "w") as f:
-            f.write(events.table(sort_by="cuda_time_total", row_limit=80))
-        print(f"profile of one step written to {out_dir}/profile_step.txt")
     return counts, {"step_ms": step_ms, "frames_per_s": batch / (step_ms / 1e3),
                     "peak_gib": peak / 2**30}
 
@@ -1059,8 +1183,8 @@ def workflow_path(torch, K, out_dir, work, root, rows, aux_cost=False):
     its .pth) → validation_offline_fog.yml (EVALUATION of the adaptation's
     snapshot, then OTHERS.EVAL_SWEEP) → validation.yml (PREDICTION_SAVE),
     each through `onda_torch.train_ouda.main` on phase 7's PNG files, then a
-    SEGMENT step timed in memory at 1024x512. Returns launch counts by path
-    and the numbers."""
+    SEGMENT step timed in memory at 1024x512. Returns launch counts by path,
+    the numbers and 8.1's `.pth`."""
     from onda_torch.utils.checkpoint import checkpoints_by_mtime
 
     write_fog_metadata(root, rows)
@@ -1272,6 +1396,229 @@ def workflow_path(torch, K, out_dir, work, root, rows, aux_cost=False):
                    segment_peak_gib=peak / 2**30)
     del trainer, img, lbl
     release(torch)
+    return paths, summary, after_path
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the adversarial family (ADVENT, its EVALUATION, PROTO_ADVENT)
+# ---------------------------------------------------------------------------
+
+ADVERSARIAL_TIMED_STEPS = 5  # phase 9.4, after 1 warm-up step
+
+
+def discriminator_cost(torch, ad, batch):
+    """Device ms of one discriminator's share of a step at the input size:
+    the student's adversarial BCE forward and its backward to the entropy map
+    (`fool_loss`), and the discriminator's own loss, two forwards and the
+    weights' backward (`discriminator_loss`). ADVENT (multi-level) runs each
+    twice a step, PROTO_ADVENT once."""
+    from onda_torch.methods.advent import discriminator_loss, fool_loss
+
+    g = torch.Generator(device=ad.device).manual_seed(32)
+    h, w = MAIN_HW
+    ent = torch.rand(batch, 19, h, w, device=ad.device, generator=g).requires_grad_(True)
+    d = ad.state.d_main
+
+    def fool():
+        torch.autograd.grad(fool_loss(ad.disc, d, ent), [ent])
+
+    def events_ms(fn, n=10):
+        # CUDA events around n back-to-back calls after two warm-up calls
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    def d_loss():
+        discriminator_loss(ad.disc, d, ent, ent)
+
+    # events around back-to-back calls read the host's queueing too where a
+    # call syncs, so the syncs are counted beside the times
+    cost = {"fool_fwd_bwd": events_ms(fool), "discriminator_loss": events_ms(d_loss),
+            "host_syncs": len(count_syncs(torch, fool)[1]) + len(count_syncs(torch, d_loss)[1])}
+    print(f"phase 9.4 one discriminator at b{batch} {w}x{h}: adversarial BCE forward and backward "
+          f"to the map {cost['fool_fwd_bwd']:.3f} ms, discriminator loss (two forwards, weight "
+          f"backward) {cost['discriminator_loss']:.3f} ms (CUDA events around 10 back-to-back "
+          f"calls); host syncs in one call of each {cost['host_syncs']}")
+    return cost
+
+
+def adversarial_path(torch, K, out_dir, work, root, pth, profile=False):
+    """Phase 9: advent.yml (from phase 8.1's multi-level `.pth`) →
+    validation_offline_advent.yml on its snapshot → proto_advent.yml, each
+    through `onda_torch.train_ouda.main` on phase 7's rain files, then one
+    step of each method timed in memory at 1024x512, b4 (with `profile`, one
+    more step of each under torch.profiler). Returns launch counts by path
+    and the numbers."""
+    t_phase = time.perf_counter()
+    paths, summary = {}, {}
+    n_train, n_val = CLI_FRAMES["train"], CLI_FRAMES["val"]
+
+    def cli(name):
+        return run_cli(torch, K, os.path.join(work, f"{name}.yml"),
+                       os.path.join(out_dir, f"adversarial_{name}.log"))
+
+    # 9.1 advent.yml: one mixed domain, multi-level, from 8.1's .pth
+    snap = os.path.join(work, "advent")
+    cfg = workflow_config("advent", os.path.join(work, "advent.yml"), **{
+        "SCHEME.PATH": root, "SCHEME.DOMAIN_ORDER": [[25, 50]], "MODEL.LOAD": pth,
+        "METHOD.ADAPTATION.ADVENT.EPOCHS": 1, "OTHERS.SNAPSHOT_DIR": snap})
+    batch = int(cfg["TRAINING"]["BATCH_SIZE"])
+    check(cfg["MODEL"]["MULTI_LEVEL"] and cfg["SCHEME"]["RESOLUTION"] == [1024, 512]
+          and batch == 4, "advent.yml is no longer multi-level at b4 1024x512")
+    launches, batches, seconds, text, adapter = cli("advent")
+    steps = 2 * n_train // batch  # both intensities' train frames, one epoch
+    want = {"pseudo_labels_kernel": 0, "bn_stats_kernel": 106 * steps}
+    print(f"phase 9.1 advent.yml (ADVENT, multi-level, b{batch} 1024x512, DOMAIN_ORDER "
+          f"[[25, 50]], MODEL.LOAD = 8.1's .pth, REPLAY_BUFFER "
+          f"{cfg['TRAINING']['REPLAY_BUFFER']}, {steps} steps): {seconds:.3f} s; launches "
+          f"{launches}; batches {batches}")
+    check(launches == want, f"advent.yml launches {launches}, expected {want} (K2 106 per step)")
+    check(batches.get("collate", 0) == 0, f"every batch must come from the C++ executor: {batches}")
+    records = read_records(snap)
+    step_records = [r for r in records if "Adversarial loss" in r]
+    check(len(step_records) == steps, f"{len(step_records)} ADVENT step records for {steps} steps")
+    losses = ("Segmentation loss", "Adversarial loss", "Discriminator loss")
+    for r in step_records:
+        for key in losses:
+            check(math.isfinite(r[key]), f"advent.yml step {r['_step']}: {key} = {r[key]}")
+    print("phase 9.1 losses per step (Segmentation / Adversarial / Discriminator): " + "; ".join(
+        "/".join(f"{r[k]:.5g}" for k in losses) for r in step_records))
+    state = torch.load(os.path.join(snap, "advent_state.pt"), map_location="cpu", weights_only=False)
+    counts = {k: state[k]["count"] for k in ("d_main_opt", "d_aux_opt")}
+    print(f"phase 9.1 advent_state.pt keys {sorted(state)}; Adam counts {counts}; step "
+          f"{state['step']}")
+    check({"params", "batch_stats", "opt_momentum", "d_aux", "d_aux_opt", "d_main", "d_main_opt",
+           "generator", "step"} <= set(state), f"advent_state.pt holds {sorted(state)}")
+    check(counts == {"d_main_opt": steps, "d_aux_opt": steps} and state["step"] == steps,
+          f"advent_state.pt: Adam counts {counts}, step {state['step']}, expected {steps}")
+    paths["advent_cli"] = launches
+    summary["advent_cli_seconds"] = seconds
+    del adapter, state
+
+    # 9.2 validation_offline_advent.yml on 9.1's snapshot directory
+    cfg = workflow_config("validation_offline_advent", os.path.join(work, "advent_eval.yml"), **{
+        "SCHEME.PATH": root, "SCHEME.DOMAIN_ORDER": [[25], [50]], "MODEL.LOAD": None,
+        "OTHERS.SNAPSHOT_DIR": snap})
+    check(not cfg["METHOD"]["ADAPTATION"]["PROTO_ONLINE"]["SKIP_PROTO_EVAL"],
+          "validation_offline_advent.yml no longer evaluates the prototypes")
+    n_records = len(read_records(snap))
+    launches, _, seconds, text, runner = cli("advent_eval")
+    val_batches = 3 * -(-n_val // batch)  # the source and the two target sets
+    loaded = [line for line in text.splitlines() if line.endswith("is being loaded")]
+    result = read_records(snap)[n_records:]
+    miou = {k: v for r in result for k, v in r.items() if k.startswith("Val mIoU")}
+    print(f"phase 9.2 validation_offline_advent.yml: {seconds:.3f} s; {loaded}; launches "
+          f"{launches} ({launches['pseudo_labels_kernel'] / val_batches:g} K1 per validation "
+          f"batch); mIoU keys {sorted(miou)}")
+    check(loaded == [f"Model {os.path.join(snap, 'advent_state.pt')} is being loaded"],
+          f"EVALUATION loaded {loaded}, not 9.1's advent_state.pt")
+    check(launches == {"pseudo_labels_kernel": val_batches, "bn_stats_kernel": 0},
+          f"EVALUATION launches {launches}, expected K1 one per validation batch ({val_batches})")
+    check(len(miou) == 2 * 3 and all(math.isfinite(v) for v in miou.values()),
+          f"EVALUATION mIoU {miou}")
+    paths["advent_evaluation_cli"] = launches
+    summary["advent_evaluation_seconds"] = seconds
+    del runner
+
+    # 9.3 proto_advent.yml: two domains, seeded weights, bootstrapped prototypes
+    snap = os.path.join(work, "proto_advent")
+    cfg = workflow_config("proto_advent", os.path.join(work, "proto_advent.yml"), **{
+        "SCHEME.PATH": root, "SCHEME.DOMAIN_ORDER": [[25], [50]], "MODEL.LOAD": None,
+        "METHOD.ADAPTATION.PROTO_ADVENT.LOAD_PROTO": None,
+        "METHOD.ADAPTATION.PROTO_ADVENT.EPOCHS": 1, "OTHERS.SNAPSHOT_DIR": snap})
+    launches, _, seconds, text, adapter = cli("proto_advent")
+    steps = 2 * (n_train // batch)
+    boot = min(int(cfg["TRAINING"]["REPLAY_BUFFER"]), n_train) // batch
+    want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": 159 * steps + 53 * boot}
+    records = read_records(snap)
+    step_records = [r for r in records if "Adversarial loss" in r]
+    keys = sorted(set().union(*step_records))
+    print(f"phase 9.3 proto_advent.yml (PROTO_ADVENT, b{batch} 1024x512, DOMAIN_ORDER [[25], "
+          f"[50]], {steps} steps, {boot} bootstrap batches): {seconds:.3f} s; launches "
+          f"{launches}; step keys {keys}")
+    check(launches == want, f"proto_advent.yml launches {launches}, expected {want} (K1 2 and "
+                            f"K2 159 per step, K2 53 per bootstrap batch)")
+    check(len(step_records) == steps, f"{len(step_records)} PROTO_ADVENT step records")
+    for r in step_records:
+        for key, value in r.items():
+            check("loss" not in key or math.isfinite(value), f"proto_advent.yml {key} = {value}")
+    check(adapter.d_state["main_opt"]["count"] == steps, "the discriminator missed steps")
+    check("adapt_state.pt" in os.listdir(snap), "proto_advent.yml wrote no adapt_state.pt")
+    paths["proto_advent_cli"] = launches
+    summary["proto_advent_cli_seconds"] = seconds
+    del adapter
+
+    # 9.4 one step of each, in memory at 1024x512 b4
+    for config in ("advent", "proto_advent"):
+        base = release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        ad = make_adapter(torch, "cuda", MAIN_HW, batch, config=config)
+        src = make_batches(torch, 1, batch, MAIN_HW, 30)[0]
+        trg = make_batches(torch, 1, batch, MAIN_HW, 31)[0]
+        s_img, s_lbl, t_img = src["image"].cuda(), src["label"].cuda(), trg["image"].cuda()
+        lr_d = float(ad.cfg_spec.LEARNING_RATE_D)
+        if config == "advent":
+            step = ad.build_step()
+
+            def one_step():
+                ad.state, logs = step(ad.state, s_img, s_lbl, t_img, 1e-5, lr_d)
+                return logs
+            per_step, want_syncs = {"pseudo_labels_kernel": 0, "bn_stats_kernel": 106}, 0
+        else:
+            K.reset_launches()
+            ad.calculate_prototypes([src])
+            check(dict(K.launches) == {"pseudo_labels_kernel": 0, "bn_stats_kernel": 53},
+                  f"PROTO_ADVENT bootstrap launches {dict(K.launches)}")
+            step = ad.pa_step_fn()
+
+            def one_step():
+                ad.state, ad.d_state, logs = step(ad.state, ad.d_state, s_img, s_lbl, t_img,
+                                                  1e-5, lr_d)
+                return logs
+            per_step, want_syncs = {"pseudo_labels_kernel": 2, "bn_stats_kernel": 159}, 1
+        K.reset_launches()
+        times = timed_ms(torch, lambda: one_step()["Adversarial loss"], warmup=1,
+                         n=ADVERSARIAL_TIMED_STEPS)
+        launches = dict(K.launches)
+        peak = torch.cuda.max_memory_allocated()
+        logs, syncs = count_syncs(torch, one_step)
+        check(math.isfinite(logs["Adversarial loss"]), f"{config} in memory: non-finite loss")
+        n_steps = 1 + ADVERSARIAL_TIMED_STEPS
+        check(launches == {k: v * n_steps for k, v in per_step.items()},
+              f"{config} steps in memory launched {launches}, expected {per_step} per step")
+        check(len(syncs) == want_syncs, f"{config}: {len(syncs)} host syncs in a step, expected "
+                                        f"{want_syncs}: {syncs}")
+        ms = statistics.median(times)
+        print(f"phase 9.4 {config}.yml step in memory (b{batch} {MAIN_HW[1]}x{MAIN_HW[0]}, "
+              f"seeded weights): {', '.join(f'{t:.3f}' for t in times)} ms; median {ms:.3f} ms, "
+              f"{batch / (ms / 1e3):.3f} frames/s; peak memory {peak / 2**30:.3f} GiB "
+              f"(max_memory_allocated; {base / 2**30:.3f} GiB allocated before); host syncs "
+              f"{len(syncs)} {syncs}; launches per step {per_step}")
+        if profile:
+            # the wrapper's count above is the check; the trace's own count is
+            # printed beside it (one of an ADVENT step's 106 K2 launches was
+            # missing from a trace once)
+            k2 = profile_step(torch, lambda: one_step()["Adversarial loss"],
+                              os.path.join(out_dir, f"profile_{config}_step.txt"),
+                              f"phase 9.4 {config}.yml profiled step")
+            print(f"phase 9.4 {config}.yml: the trace holds {k2} K2 launches of the step's "
+                  f"{per_step['bn_stats_kernel']} calls")
+        if config == "advent":
+            summary["discriminator_ms"] = discriminator_cost(torch, ad, batch)
+        paths[f"{config}_in_memory"] = launches
+        summary.update({f"{config}_step_ms": ms, f"{config}_frames_per_s": batch / (ms / 1e3),
+                        f"{config}_peak_gib": peak / 2**30})
+        del ad, step, one_step, s_img, s_lbl, t_img
+    release(torch)
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 9: {summary['phase_seconds']:.3f} s")
     return paths, summary
 
 
@@ -1339,9 +1686,12 @@ def main() -> int:
                   f"{time.perf_counter() - t:.3f} s")
             (paths["cli"], paths["cli_resumed"]), summary["cli"] = cli_path(
                 torch, K, args.out_dir, summary["frames_per_s"], work, root, rows)
-            workflow, summary["workflow"] = workflow_path(torch, K, args.out_dir, work, root, rows,
-                                                          aux_cost=args.aux_cost)
+            workflow, summary["workflow"], pth = workflow_path(
+                torch, K, args.out_dir, work, root, rows, aux_cost=args.aux_cost)
             paths.update(workflow)
+            adversarial, summary["adversarial"] = adversarial_path(torch, K, args.out_dir, work,
+                                                                   root, pth, args.profile)
+            paths.update(adversarial)
         finally:
             shutil.rmtree(work, ignore_errors=True)
     for k in (k1, k2):

@@ -1,5 +1,5 @@
-"""SGD with torch semantics, two LR groups and a frozen-parameter mask
-(`onda_tpu/methods/optim.py`).
+"""SGD with torch semantics, two LR groups and a frozen-parameter mask, and
+Adam for the discriminators (`onda_tpu/methods/optim.py`).
 
 The reference trains with `optim.SGD(model.optim_parameters(lr), momentum, wd)`:
 the backbone (minus frozen BN affine params) and the classifier heads form two
@@ -16,6 +16,7 @@ are keyed by state_dict name; the update works in place on the tensors.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 FROZEN, HEAD = -1, 0
@@ -84,3 +85,29 @@ def update(params: dict, grads: dict, momentum_buf: dict, labels: dict, lr_backb
             b.mul_(momentum).add_(g + weight_decay * p)
             p.sub_(lr * b)
     return params, momentum_buf
+
+
+# --- Adam, for the ADVENT discriminators (reference advent_da.py:55-60) -------
+
+
+def adam_init(params: dict) -> dict:
+    return {"mu": init(params), "nu": init(params), "count": 0}
+
+
+@torch.no_grad()
+def adam_update(params: dict, grads: dict, opt_state: dict, lr: float, b1: float = 0.9,
+                b2: float = 0.99, eps: float = 1e-8):
+    """One torch.optim.Adam step in place (betas (0.9, 0.99) as the reference
+    sets them); returns (params, opt_state). eps is added to sqrt(v̂); the
+    bias corrections come from the optimizer's own step `count`, in f32 as
+    the JAX update computes them."""
+    count = opt_state["count"] + 1
+    c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+    c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+    for name, p in params.items():
+        m, v, g = opt_state["mu"][name], opt_state["nu"][name], grads[name]
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        p.sub_(lr * (m / c1) / ((v / c2).sqrt() + eps))
+    opt_state["count"] = count
+    return params, opt_state

@@ -96,6 +96,16 @@ def _flat(x):
     return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
 
 
+def refuse_unported(cfg) -> None:
+    """Raise for the options the port does not run yet."""
+    if value_or(cfg.OTHERS.ASYNC_SAVE, False):
+        raise NotImplementedError("OTHERS.ASYNC_SAVE is not ported yet")
+    for key in ("DATA_PARALLEL", "TENSOR_PARALLEL"):
+        if value_or(cfg.OTHERS[key], False):
+            raise NotImplementedError(f"OTHERS.{key}: the port runs on one device "
+                                      "(multi-GPU is ROADMAP M17)")
+
+
 def _union_ms(intervals) -> float:
     """Total length, in ms, of the union of (start, end) intervals in µs."""
     total, reach = 0.0, float("-inf")
@@ -181,12 +191,7 @@ class ProtoOnlineAdapter:
 
     def __init__(self, model, variables, cfg, cfg_spec, num_classes: int, logger=None,
                  device="cuda"):
-        if value_or(cfg.OTHERS.ASYNC_SAVE, False):
-            raise NotImplementedError("OTHERS.ASYNC_SAVE is not ported yet")
-        for key in ("DATA_PARALLEL", "TENSOR_PARALLEL"):
-            if value_or(cfg.OTHERS[key], False):
-                raise NotImplementedError(f"OTHERS.{key}: the port runs on one device "
-                                          "(multi-GPU is ROADMAP M17)")
+        refuse_unported(cfg)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -280,13 +285,76 @@ class ProtoOnlineAdapter:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
-    def _build_step(self, have_src: bool, source_repeat: int, want_soft: bool,
-                    want_pred: bool = False):
+    def _build_teachers(self):
+        """The step's no-grad part as a function of (state, target images):
+        EMA-teacher forward (train-mode BN on the student's buffers, no stat
+        update) → static-teacher forward → switch policy, gating the dynamic
+        teacher → K1 pseudo-labels (hard at the old τ, soft at the drifted τ)
+        → prototype EMA. Returns (monitor, switch, dynamic fired, hard labels
+        (N, h, w), soft labels NCHW, prototypes)."""
         spec = self.cfg_spec
         monitor, policy, C = self.monitor, self.policy, self.num_classes
         metric = spec.DISTANCE_MEASURE
         ma_lambda = float(spec.MA_LAMBDA)
         pseudo_thresh = float(spec.PSEUDO_THRESH)
+        static_on = float(spec.STATIC_LAMBDA) > 0
+        conf_reg_thresh = self.conf_reg_thresh
+        fwd = self._forward
+
+        @torch.no_grad()
+        def teachers(state: AdaptState, trg_images):
+            mon = state.monitor
+            ema_main = fwd(state.ema_params, state.batch_stats, trg_images, train=True)
+            prior_ema = _softmax(ema_main["out"])
+            mon = monitor.add(mon, "prior EMA", _conf(prior_ema))
+            prior_static = None
+            if static_on:
+                static_main = fwd(state.static_params, state.static_batch_stats, trg_images,
+                                  train=False)
+                prior_static = _softmax(static_main["out"])
+                mon = monitor.add(mon, "prior static", _conf(prior_static))
+
+            def dyn_forward():
+                main = fwd(state.dynamic_params, state.dynamic_batch_stats, trg_images,
+                           train=False)
+                return _softmax(main["out"])
+
+            prior, dyn_p, calc_dyn, switch, plogs = compute_prior(
+                policy, spec, monitor, mon, state.switch, prior_ema, prior_static,
+                dyn_forward, frozen=False)
+            if "percentage_static" in plogs:
+                mon = monitor.add(mon, "percentage_static", plogs["percentage_static"])
+            mon = monitor.add(mon, "prior dynamic", _conf(dyn_p), enable=calc_dyn)
+            mon = monitor.add(mon, "prior", _conf(prior))
+
+            # ---- K1 pseudo-labels: hard at the old τ, soft at the new τ
+            b, _, hh, ww = prior_ema.shape
+            feat = _flat(ema_main["feat"]).float().contiguous()
+            prior_flat = _flat(prior).contiguous()
+            scale = P.inv_std(state.proto, metric)
+            _, hard, prop_max = K.pseudo_labels(
+                feat, state.proto.mean, prior_flat, state.proto.tau, pseudo_thresh, scale)
+            mon = monitor.add(mon, "prototypes", prop_max.mean())
+            tau_bump = monitor.avg(mon, "prototypes") > conf_reg_thresh
+            new_tau = state.proto.tau + 0.001 * tau_bump.float()
+            mon = monitor.add(mon, "tau", new_tau, enable=tau_bump)
+            soft, _, _ = K.pseudo_labels(
+                feat, state.proto.mean, prior_flat, new_tau, pseudo_thresh, scale)
+            mon = monitor.add(mon, "pseudolabel confidence", _conf(soft, dim=-1))
+
+            # ---- prototype EMA -------------------------------------------
+            onehot = P.onehot_assign(_flat(ema_main["out"]).float())
+            vect, sq, sums = P.class_moments(feat, onehot)
+            proto = P.ma(state.proto.replace(tau=new_tau), vect, sq, sums, ma_lambda)
+            return (mon, switch, calc_dyn, hard.view(b, hh, ww),
+                    soft.view(b, hh, ww, C).permute(0, 3, 1, 2), proto)
+
+        return teachers
+
+    def _build_step(self, have_src: bool, source_repeat: int, want_soft: bool,
+                    want_pred: bool = False):
+        spec = self.cfg_spec
+        monitor = self.monitor
         soft_labels = bool(value_or(spec.SOFT_LABELS, False))
         rce_alpha, rce_beta = float(spec.RCE_ALPHA), float(spec.RCE_BETA)
         reg_weight, regularizer = float(spec.REGULARIZER_WEIGHT), spec.REGULARIZER
@@ -296,66 +364,17 @@ class ProtoOnlineAdapter:
         bn_policy = spec.BN_POLICY if spec.BN_POLICY in ("freeze", "double", "keep") else "freeze"
         momentum, weight_decay = float(spec.MOMENTUM), float(spec.WEIGHT_DECAY)
         ema_update = float(spec.EMA_UPDATE)
-        static_on = float(spec.STATIC_LAMBDA) > 0
-        conf_reg_thresh = self.conf_reg_thresh
         labels = self.param_labels
         trainable = [k for k, lab in labels.items() if lab != optim.FROZEN]
         aux_head = {k for k in trainable if k.startswith("layer5.")}  # its forward is skipped
         r0, r1 = self.lr_ratios
         fwd = self._forward
+        teachers = self._build_teachers()
 
         def step(state: AdaptState, trg_images, src_images, src_labels, lr_base: float):
-            mon = state.monitor
             dev = trg_images.device
             zero = torch.zeros((), device=dev)
-
-            # ---- teachers (no grad) -------------------------------------
-            with torch.no_grad():
-                ema_main = fwd(state.ema_params, state.batch_stats, trg_images, train=True)
-                prior_ema = _softmax(ema_main["out"])
-                mon = monitor.add(mon, "prior EMA", _conf(prior_ema))
-                prior_static = None
-                if static_on:
-                    static_main = fwd(state.static_params, state.static_batch_stats, trg_images,
-                                      train=False)
-                    prior_static = _softmax(static_main["out"])
-                    mon = monitor.add(mon, "prior static", _conf(prior_static))
-
-                def dyn_forward():
-                    main = fwd(state.dynamic_params, state.dynamic_batch_stats, trg_images,
-                               train=False)
-                    return _softmax(main["out"])
-
-                prior, dyn_p, calc_dyn, switch, plogs = compute_prior(
-                    policy, spec, monitor, mon, state.switch, prior_ema, prior_static,
-                    dyn_forward, frozen=False)
-                if "percentage_static" in plogs:
-                    mon = monitor.add(mon, "percentage_static", plogs["percentage_static"])
-                mon = monitor.add(mon, "prior dynamic", _conf(dyn_p), enable=calc_dyn)
-                mon = monitor.add(mon, "prior", _conf(prior))
-
-                # ---- K1 pseudo-labels: hard at the old τ, soft at the new τ
-                b, _, hh, ww = prior_ema.shape
-                feat = _flat(ema_main["feat"]).float().contiguous()
-                prior_flat = _flat(prior).contiguous()
-                scale = P.inv_std(state.proto, metric)
-                _, hard, prop_max = K.pseudo_labels(
-                    feat, state.proto.mean, prior_flat, state.proto.tau, pseudo_thresh, scale)
-                mon = monitor.add(mon, "prototypes", prop_max.mean())
-                tau_bump = monitor.avg(mon, "prototypes") > conf_reg_thresh
-                new_tau = state.proto.tau + 0.001 * tau_bump.float()
-                mon = monitor.add(mon, "tau", new_tau, enable=tau_bump)
-                soft, _, _ = K.pseudo_labels(
-                    feat, state.proto.mean, prior_flat, new_tau, pseudo_thresh, scale)
-                mon = monitor.add(mon, "pseudolabel confidence", _conf(soft, dim=-1))
-                pseudolabels = hard.view(b, hh, ww)
-                soft_nchw = soft.view(b, hh, ww, C).permute(0, 3, 1, 2)
-
-                # ---- prototype EMA ---------------------------------------
-                onehot = P.onehot_assign(_flat(ema_main["out"]).float())
-                vect, sq, sums = P.class_moments(feat, onehot)
-                proto = P.ma(state.proto.replace(tau=new_tau), vect, sq, sums, ma_lambda)
-                del ema_main, feat, prior_flat, onehot
+            mon, switch, calc_dyn, pseudolabels, soft_nchw, proto = teachers(state, trg_images)
 
             # ---- student: source slices (BN stats frozen) + target slice --
             live = dict(state.params)
@@ -504,8 +523,12 @@ class ProtoOnlineAdapter:
             if self.ece_record:
                 eces[key] = M.ece_record(eces[key], probs, labels, valid_mask[:, None, None])
 
+    def _proto_eval(self) -> bool:
+        """Whether evaluation also scores the prototype predictions."""
+        return not bool(value_or(self.cfg_spec.SKIP_PROTO_EVAL, False))
+
     def evaluate(self, loader) -> dict:
-        with_proto = not bool(value_or(self.cfg_spec.SKIP_PROTO_EVAL, False))
+        with_proto = self._proto_eval()
         keys = ["model"] + (["proto"] if with_proto else [])
         C = self.num_classes
         bins = 1000 if unset(self.cfg.OTHERS.BINS) else int(self.cfg.OTHERS.BINS)
@@ -840,8 +863,10 @@ class ProtoOnlineAdapter:
         return None
 
     def load_model(self, path: str) -> None:
-        """`adapt_state.pt` restores the full state (exact resume); any other
-        file is a model state_dict and restores the student only."""
+        """`adapt_state.pt` restores the full state (exact resume); an ADVENT
+        run's `advent_state.pt` lends the student (params and BN buffers, as
+        the JAX runner lifts them); any other file is a model state_dict and
+        restores the student only."""
         payload = torch.load(path, map_location=self.device, weights_only=False)
         s = self.state
         if "params" in payload and "proto" in payload:
@@ -852,6 +877,8 @@ class ProtoOnlineAdapter:
                 switch=type(s.switch)(**switch))
             self.state.generator.set_state(gen_state.cpu() if hasattr(gen_state, "cpu") else gen_state)
             return
+        if "params" in payload and "d_main" in payload:
+            payload = {**payload["params"], **payload["batch_stats"]}
         missing = (set(s.params) | set(s.batch_stats)) - set(payload)
         if missing:
             raise KeyError(f"state_dict is missing {sorted(missing)[:8]}")

@@ -1,4 +1,5 @@
-"""Carry weights of the JAX package across: Flax variables → this port's state_dict.
+"""Carry weights of the JAX package across: Flax variables → this port's state_dict
+(the DeepLab model's here; the discriminators' in `flax_disc_to_state_dict`).
 
 The input is the JAX model's variables as a nested dict of numpy arrays
 (`{"params": ..., "batch_stats": ...}`); the output is a state_dict of the
@@ -71,6 +72,26 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         if path[-1] == "kernel":
             value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
         out[key] = torch.from_numpy(np.ascontiguousarray(value))
+    return _with_bn_counters(out)
+
+
+def _with_bn_counters(out: dict) -> dict:
+    """`out` with a `num_batches_tracked` counter (0) beside every BatchNorm."""
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def flax_disc_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """State_dict of the port's `FCDiscriminator` / `DCGANDiscriminator` from
+    the JAX discriminator's variables: `conv{i}/kernel` HWIO → `conv{i}.weight`
+    OIHW, `bias` as is, and for DCGAN `bn{i}/scale` → `bn{i}.weight` with its
+    running buffers and a `num_batches_tracked` counter (0)."""
+    out = {}
+    for (_, *scope, leaf), value in _flatten(variables):
+        value = np.array(value, np.float32)
+        if leaf == "kernel":
+            value = value.transpose(3, 2, 0, 1)
+        key = ".".join(scope + [{**_BN_LEAF, "kernel": "weight"}[leaf]])
+        out[key] = torch.from_numpy(np.ascontiguousarray(value))
+    return _with_bn_counters(out)

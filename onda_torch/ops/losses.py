@@ -91,7 +91,40 @@ def regular_loss(regularizer: str, logits):
     return logits.new_zeros(())
 
 
-def ewc_loss(lamda: float, anchor_params: dict, current_params: dict):
-    """EWC-style weight anchoring with unit Fisher (reference ewc.py:47-54)."""
-    total = sum(((anchor_params[k] - current_params[k]) ** 2).sum() for k in current_params)
+def prob_2_entropy(probs):
+    """Weighted self-information maps −p·log2(p)/log2(C) of (N, C, H, W)
+    probabilities (reference func.py:71-74)."""
+    return -probs * torch.log2(probs + 1e-30) / math.log2(probs.shape[1])
+
+
+def bce_with_logits(logits, label: float):
+    """Mean BCE-with-logits against a constant label map (reference func.py:28-32)."""
+    return (logits.clamp(min=0) - logits * label + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+def ewc_loss(lamda: float, anchor_params: dict, current_params: dict, fishers: dict | None = None):
+    """EWC-style weight anchoring (reference ewc.py:47-54): unit Fisher, as the
+    live path uses it, or the diagonal Fisher of `compute_fisher`."""
+    if fishers is None:
+        total = sum(((anchor_params[k] - current_params[k]) ** 2).sum() for k in current_params)
+    else:
+        total = sum((fishers[k] * (anchor_params[k] - current_params[k]) ** 2).sum()
+                    for k in current_params)
     return lamda / 2.0 * total
+
+
+def compute_fisher(logit_fn, params: dict, images, labels) -> dict:
+    """Diagonal Fisher information: the squared gradient of the mean
+    log-likelihood of `labels` (reference ewc.py:15-41, its "mean of
+    loglikelihoods" variant). `logit_fn(params, images)` gives (N, C, ...)
+    logits, `labels` the (N, ...) class ids; 255 is ignored. A parameter the
+    logits do not depend on gets a zero Fisher."""
+    live = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    logp = F.log_softmax(logit_fn(live, images).float(), dim=1)
+    labels = labels.long()
+    picked = logp.gather(1, labels.clamp(0, logp.shape[1] - 1)[:, None])[:, 0]
+    valid = (labels != IGNORE).float()
+    mean_loglik = (picked * valid).sum() / valid.sum().clamp(min=1.0)
+    grads = torch.autograd.grad(mean_loglik, list(live.values()), allow_unused=True)
+    return {k: torch.zeros_like(v) if g is None else g.detach() ** 2
+            for (k, v), g in zip(live.items(), grads)}

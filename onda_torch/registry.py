@@ -135,9 +135,14 @@ def get_adapt_method(cfg):
     name = cfg.METHOD.ADAPTATION.NAME
     if name not in ADAPTATION_METHOD_NAMES:
         raise ValueError(f"cfg.METHOD.ADAPTATION.NAME not in {ADAPTATION_METHOD_NAMES}: {name!r}")
-    if name in ("ADVENT", "PROTO_ADVENT"):
-        item = "M14" if name == "ADVENT" else "M15"
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
+    if name == "ADVENT":
+        from .methods.advent import AdventAdapter
+
+        return AdventAdapter
+    if name == "PROTO_ADVENT":
+        from .methods.proto_advent import ProtoAdventAdapter
+
+        return ProtoAdventAdapter
     from .methods.proto_online import ProtoOnlineAdapter
 
     return ProtoOnlineAdapter

@@ -12,7 +12,8 @@
   starts from it;
 * the replay buffer is drawn from the source train rows (a float
   REPLAY_BUFFER is a fraction, an int a count);
-* AUTO_RESUME restores the newest whole `adapt_state*.pt`;
+* AUTO_RESUME restores the newest whole snapshot of the method's own
+  state (`advent_state*.pt` for ADVENT, `adapt_state*.pt` otherwise);
 * the ordered target-domain loop applies the per-domain overrides
   (DOMAIN_OPTIONS / ORDER_OPTIONS) and `SKIP_CALC |= f_domain`, so that
   only the first domain bootstraps prototypes and evaluates before adapting;
@@ -52,7 +53,6 @@ def main(argv=None):
     from .data import Loader, ReplayBuffer, SegmentationDataset, Table
     from .native import BatchExecutor
     from .registry import get_adapt_method, get_db, get_model
-    from .utils.checkpoint import checkpoints_by_mtime
     from .utils.logging_ import Logger
 
     device = torch.device(args.device)
@@ -152,15 +152,9 @@ def main(argv=None):
     cfg_spec = cfg.METHOD.ADAPTATION[cfg.METHOD.ADAPTATION.NAME]
     adapter = get_adapt_method(cfg)(model, variables, cfg, cfg_spec, num_classes, logger,
                                     device=device)
-    # crash recovery: the newest whole full-state snapshot (model, teachers,
-    # optimizer, prototypes, monitors: an exact resume)
-    snap_dir = str(cfg.OTHERS.SNAPSHOT_DIR)
     auto_resume = cfg.OTHERS.AUTO_RESUME
-    if isinstance(auto_resume, bool) and auto_resume and os.path.isdir(snap_dir):
-        cand = adapter.load_newest(checkpoints_by_mtime(snap_dir, allow_pth=False), "AUTO_RESUME")
-        if cand is not None:
-            print(f"AUTO_RESUME: restoring {cand}")
-            adapter.skip_proto = True
+    if isinstance(auto_resume, bool) and auto_resume:
+        resume(adapter, cfg)
 
     f_domain = False
     for order, trg_domain in enumerate(datasets["domains_trg"]):
@@ -191,6 +185,26 @@ def main(argv=None):
         adapter.train(src_loader, trg_loader, val_set)
     logger.close()
     return adapter
+
+
+def resume(adapter, cfg):
+    """AUTO_RESUME, crash recovery: restore the newest whole snapshot of
+    SNAPSHOT_DIR that the adapter's own state tree holds (an exact resume:
+    `advent_state*.pt` for ADVENT, `adapt_state*.pt` otherwise); returns its
+    path, or None. An adapter with prototypes then skips their bootstrap."""
+    from .utils.checkpoint import checkpoints_by_mtime
+
+    snap_dir = str(cfg.OTHERS.SNAPSHOT_DIR)
+    if not os.path.isdir(snap_dir):
+        return None
+    prefixes = ("advent_state",) if cfg.METHOD.ADAPTATION.NAME == "ADVENT" else ("adapt_state",)
+    cand = adapter.load_newest(checkpoints_by_mtime(snap_dir, prefixes, allow_pth=False),
+                               "AUTO_RESUME")
+    if cand is not None:
+        print(f"AUTO_RESUME: restoring {cand}")
+        if hasattr(adapter, "skip_proto"):
+            adapter.skip_proto = True
+    return cand
 
 
 def _segment_pretraining(cfg, model, variables, num_classes, logger, device, source_dataloader,

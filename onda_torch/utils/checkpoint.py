@@ -30,16 +30,23 @@ def save_atomic(obj, path: str) -> str:
     return path
 
 
-def checkpoints_by_mtime(dirpath: str, allow_pth: bool = True) -> list[Path]:
+EVALUATION_PREFIXES = ("adapt_state", "model_train", "advent_state")
+
+
+def checkpoints_by_mtime(dirpath: str, prefixes: tuple = EVALUATION_PREFIXES,
+                         allow_pth: bool = True) -> list[Path]:
     """The checkpoints in `dirpath` the port can load, oldest to newest by
-    mtime: full-state snapshots `adapt_state*.pt` and, with `allow_pth`,
-    student-only `*.pth` files (SEGMENT's `model_train_*.pth` among them).
-    AUTO_RESUME, an exact resume, lists the snapshots only. Hidden files
-    (checkpoints still being written) never count."""
+    mtime: `.pt` files whose name starts with one of `prefixes` (by default
+    every snapshot a prototype runner loads: full-state `adapt_state*`,
+    `model_train*` and ADVENT's `advent_state*`, whose student it lifts) and,
+    with `allow_pth`, student-only `*.pth` files (SEGMENT's
+    `model_train_*.pth` among them). AUTO_RESUME, an exact resume, lists the
+    adapter's own snapshots only. Hidden files (checkpoints still being
+    written) never count."""
     def compatible(p: Path) -> bool:
         if p.name.startswith(".") or not p.is_file():
             return False
-        return (p.name.startswith("adapt_state") and p.suffix == ".pt") or (
+        return (p.name.startswith(tuple(prefixes)) and p.suffix == ".pt") or (
             allow_pth and p.suffix == ".pth")
 
     return sorted((p for p in Path(dirpath).iterdir() if compatible(p)),

@@ -1,7 +1,8 @@
 """The port's CLI, `python -m onda_torch.train_ouda`, end to end on the CPU: the
 flagship config on a 64x32 synthetic dataset (`tests/synthetic.py`) with two
 target domains, the second with a DOMAIN_OPTIONS override, then an
-AUTO_RESUME rerun with a dynamic replay buffer."""
+AUTO_RESUME rerun with a dynamic replay buffer; and the adversarial configs,
+advent.yml and proto_advent.yml."""
 
 import contextlib
 import io
@@ -147,15 +148,78 @@ def test_cuda_device_without_a_card_stops(tmp_path, monkeypatch):
         train_ouda.main(["--cfg", "configs/hybrid_switch.yml"])
 
 
-@pytest.mark.parametrize("name,item", [("ADVENT", "M14"), ("PROTO_ADVENT", "M15")])
-def test_unported_modes_raise(tmp_path, name, item):
-    root = str(tmp_path / "ds")
-    make_synthetic_dataset(root, intensities=(0, 25), per_domain=2, size_wh=(64, 32))
-    path = _write_cfg(tmp_path / "cfg.yml", root, str(tmp_path / "snaps"),
-                      **{"METHOD.ADAPTATION": {"NAME": name}, "SCHEME.DOMAIN_ORDER": [[25]]})
-    with pytest.raises(NotImplementedError, match=f"{name} is not ported yet \\(ROADMAP {item}\\)"):
-        train_ouda.main(["--cfg", path, "--device", "cpu"])
-    shutil.rmtree(tmp_path, ignore_errors=True)  # the source .pth it saved first
+ADVERSARIAL = {"advent": "ADVENT", "proto_advent": "PROTO_ADVENT"}
+ADVERSARIAL_SETS = ("(0,)", "(25,)", "(50,)")
+
+
+def _adversarial_cfg(path, name, root, snap):
+    """configs/<name>.yml cut to the synthetic dataset: 64x32, b2, two target
+    domains, one epoch each, no checkpoint or prototype files."""
+    with open(f"configs/{name}.yml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["SCHEME"].update(PATH=root + "/", RESOLUTION=[64, 32], DOMAIN_ORDER=[[25], [50]])
+    cfg["TRAINING"].update(BATCH_SIZE=BATCH, REPLAY_BUFFER=PER_DOMAIN)
+    cfg["OTHERS"].update(SNAPSHOT_DIR=snap, NUM_WORKERS=2)
+    cfg["MODEL"]["LOAD"] = None
+    cfg["METHOD"]["ADAPTATION"][ADVERSARIAL[name]].update(EPOCHS=1, LOAD_PROTO=None,
+                                                          PSEUDO_THRESH=0.06)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return str(path)
+
+
+def adversarial_keys(name):
+    """The metrics.jsonl keys the JAX CLI writes for the cut config: each
+    step's logs (advent.py:240-244, proto_advent.py:255-263), the student's
+    evaluation of every validation set and its samples, the logger's own."""
+    step = {"Discriminator loss", "Segmentation loss", "Adversarial loss"}
+    if name == "proto_advent":
+        from onda_torch.methods.proto_online import MONITOR_KEYS
+
+        step |= {"ce_loss", "rce_loss", "sym_loss", "regularization_loss", "JS Divergance loss",
+                 "Total target loss", "pseudolabel_pixel_num", "mean_prototype_intensity_values",
+                 "dev avg prior static"} | {f"{k} confidence ma" for k in MONITOR_KEYS}
+    sets = {f"{k} model of {s}" for s in ADVERSARIAL_SETS for k in ("Val mIoU", "Val std IoU")}
+    samples = {f"Condition {s} sample {i}" for s in ADVERSARIAL_SETS for i in range(PER_DOMAIN)}
+    return step | sets | samples | {"_step", "_t"}
+
+
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+def test_adversarial_config_runs_through_the_cli(tmp_path, name):
+    """advent.yml (multi-level) and proto_advent.yml through the CLI: finite
+    losses every step, the JAX CLI's metrics keys, the files written; ADVENT
+    checkpoints both discriminators and their Adam states, PROTO_ADVENT only
+    its AdaptState."""
+    root, snap = str(tmp_path / "ds"), str(tmp_path / "snaps")
+    make_synthetic_dataset(root, intensities=(0, 25, 50), per_domain=PER_DOMAIN, size_wh=(64, 32))
+    adapter, out = _main(_adversarial_cfg(tmp_path / "cfg.yml", name, root, snap))
+    records = _records(snap)
+    steps = [r for r in records if "Adversarial loss" in r]
+    assert len(steps) == 2 * STEPS
+    for r in steps:
+        for key, value in r.items():
+            assert "loss" not in key or math.isfinite(value), (r["_step"], key)
+    assert set().union(*records) == adversarial_keys(name)
+    files = set(os.listdir(snap))
+    assert not [f for f in files if f.startswith(".")]
+    assert {"metrics.jsonl", "model_train_[[0]]_after_src_training.pth", "samples"} <= files
+    if name == "advent":
+        assert adapter.cfg.MODEL.MULTI_LEVEL
+        assert files == {"advent_state.pt", "metrics.jsonl", "samples",
+                         "model_train_[[0]]_after_src_training.pth"}
+        state = torch.load(os.path.join(snap, "advent_state.pt"), weights_only=False)
+        assert {"params", "batch_stats", "opt_momentum", "d_aux", "d_main", "generator",
+                "step"} <= set(state)
+        assert state["step"] == 2 * STEPS
+        assert state["d_main_opt"]["count"] == state["d_aux_opt"]["count"] == 2 * STEPS
+    else:
+        assert out.count("Computing Prototypes") == 1
+        assert {"adapt_state.pt", "proto_current.pickle", "proto_(25,).pickle",
+                "proto_(50,).pickle"} <= files
+        assert "d_main" not in torch.load(os.path.join(snap, "adapt_state.pt"), weights_only=False)
+        assert adapter.d_state["main_opt"]["count"] == 2 * STEPS
+        assert all(r["pseudolabel_pixel_num"] > 0 for r in steps)
+    shutil.rmtree(tmp_path, ignore_errors=True)  # the checkpoints: about 1 GB
 
 
 def test_update_cfg_spec_drops_built_steps_only_when_the_step_changes(tmp_path):
@@ -221,4 +285,24 @@ def test_cli_step0_matches_the_jax_cli(tmp_path, monkeypatch):
         np.testing.assert_allclose(tsteps[0][key], jsteps[0][key], rtol=1e-4, err_msg=key)
     assert jsteps[0]["pseudolabel_pixel_num"] > 0
     assert set().union(*records["torch"]) == set().union(*records["jax"])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+def test_adversarial_cli_keys_are_the_jax_clis(tmp_path, monkeypatch, name):
+    """The JAX CLI on the cut adversarial configs writes exactly the keys
+    `adversarial_keys` lists (the fast test holds the port's CLI to them).
+    Slow: XLA:CPU compiles the JAX steps."""
+    import sys
+
+    root, snap = str(tmp_path / "ds"), str(tmp_path / "snaps")
+    make_synthetic_dataset(root, intensities=(0, 25, 50), per_domain=PER_DOMAIN, size_wh=(64, 32))
+    cfg = _adversarial_cfg(tmp_path / "cfg.yml", name, root, snap)
+    sys.path.insert(0, os.getcwd())
+    import train_ouda as jax_cli
+
+    monkeypatch.setattr(sys, "argv", ["train_ouda.py", f"--cfg={cfg}"])
+    jax_cli.main()
+    assert set().union(*_records(snap)) == adversarial_keys(name)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 

@@ -147,5 +147,4 @@ def test_registry_builds_seeded_r50():
     with pytest.raises(ValueError):
         registry.get_model(cfg, C, device="cpu")
     cfg.METHOD.ADAPTATION.NAME = "ADVENT"
-    with pytest.raises(NotImplementedError):
-        registry.get_adapt_method(cfg)
+    assert registry.get_adapt_method(cfg).__name__ == "AdventAdapter"
