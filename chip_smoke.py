@@ -4,7 +4,8 @@
     python3 chip_smoke.py                # every phase; needs one CUDA card
     python3 chip_smoke.py --skip-main    # kernel phases only (1-5)
     python3 chip_smoke.py --profile      # also write a profiler table of one step of
-                                         # phase 6 and of each of phase 9.4
+                                         # phase 6, of each of phase 9.4 and of the
+                                         # bf16 and f32 b4 steps of phase 10
     python3 chip_smoke.py --compare DIR  # also time an earlier onda_torch package's
                                          # K1 and K2 (DIR/onda_torch, e.g. unpacked
                                          # from a parent commit with git archive)
@@ -28,8 +29,9 @@ Phases:
     gradients against autograd of the plain version;
  5. a small-input check: one bootstrap and one adaptation step of a tiny model
     on the card against the same on the CPU (plain versions of both kernels),
-    and one step each of ADVENT (multi-level) and PROTO_ADVENT, the
-    discriminators and their Adam states included;
+    the same in bf16 (OTHERS.PRECISION's model), and one step each of ADVENT
+    (multi-level) and PROTO_ADVENT, the discriminators and their Adam states
+    included;
  6. the main path at full size: configs/hybrid_switch.yml (R50 ProDA head,
     batch 4, 1024x512, f32) with seeded random weights and in-memory seeded
     data: calculate_prototypes, train() for one epoch, evaluate_all; launch
@@ -68,6 +70,16 @@ Phases:
     batch) → proto_advent.yml (two domains, seeded weights, bootstrapped
     prototypes; K1 2 and K2 159 per step); then one step of each method timed
     in memory at 1024x512, b4 (median of 5 after 1, peak memory, host syncs).
+ 10. every option of get_model, each on hybrid_switch.yml in memory at
+    1024x512 with seeded weights (median of 4 steps after 1, peak memory,
+    launch counts, one host sync a step): OTHERS.PRECISION bf16 (bf16 logits
+    at the head, f32 parameters; K1 2, K2 159); OTHERS.REMAT at b4 and b8,
+    each beside the same batch without it (K2 159 + 2 x 52: the backward
+    recomputes the student's bottlenecks; running statistics after a step
+    equal to 1e-6); DeepLabv2-Resnet101 (K2 312); DeepLabv2-Resnet101-ProDA
+    from a `.pth` the script writes in ProDA's container with bn_pretrain
+    (bn_clr detected, K2 315, layer5 and bn_pretrain trained);
+    DeepLabv2-Resnet50-GN (K2 0, K1 2).
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
@@ -188,8 +200,10 @@ def k1_inputs(torch, n_pix, n_feat, n_cls, seed):
 def check_k1(torch, K, P):
     main = (4 * 65 * 129, 256, 19)
     thresh, tau = 0.3, torch.tensor(1.0, device="cuda")
-    # the main path's shape, then C = 1 and 32 and P off the 128-pixel tile
-    cases = [main, (main[0], 256, 1), (main[0], 256, 32), (700, 256, 19), (1, 256, 19)]
+    # the main path's shape, phase 10.2's batch of 8, then C = 1 and 32 and P
+    # off the 128-pixel tile
+    cases = [main, (8 * 65 * 129, 256, 19), (main[0], 256, 1), (main[0], 256, 32),
+             (700, 256, 19), (1, 256, 19)]
     max_err = 0.0
     for n_pix, n_feat, n_cls in cases:
         feat, protos, prior, scale = k1_inputs(torch, n_pix, n_feat, n_cls, 1)
@@ -314,12 +328,13 @@ def check_k2(torch, K, layers, out_dir):
     shapes = bn_input_shapes(torch)
     check(len(shapes) == 53, f"expected 53 BatchNorm calls in R50, got {len(shapes)}")
     distinct = sorted(set(shapes), key=lambda s: -math.prod(s))
-    # checked, not timed: phase 8.1's shapes
-    segment = sorted(set(segment_bn_shapes(torch)) - set(distinct), key=lambda s: -math.prod(s))
+    # checked, not timed: phase 8.1's shapes and phase 10.2's batch of 8
+    extra = set(segment_bn_shapes(torch)) | set(bn_input_shapes(torch, batch=8))
+    others = sorted(extra - set(distinct), key=lambda s: -math.prod(s))
     g = torch.Generator(device="cuda").manual_seed(2)
     rows, max_err = [], 0.0
     per_shape = {}
-    for shape in distinct + segment + K2_ODD_SHAPES:
+    for shape in distinct + others + K2_ODD_SHAPES:
         c = shape[1]
         offset = torch.randn(1, c, 1, 1, device="cuda", generator=g)
         spread = 0.5 + torch.rand(1, c, 1, 1, device="cuda", generator=g)
@@ -347,7 +362,7 @@ def check_k2(torch, K, layers, out_dir):
         del base
     print(f"K2 checked at {len(rows)} shape/type pairs, 4 layouts each, against float64; "
           f"every call repeated gave the same bits; among them training_fog.yml's SEGMENT "
-          f"shapes {segment}")
+          f"shapes and the batch-8 shapes {others}")
     slower = [k for k, v in per_shape.items() if v[0] > v[2]]
     print(f"K2 slower than torch.var_mean at {len(slower)} of {len(per_shape)} shape/type "
           f"pairs: {slower}")
@@ -385,7 +400,7 @@ def check_k2(torch, K, layers, out_dir):
     return {"name": "bn_stats_kernel", "route": "cuda", "source": "onda_torch/csrc/bn_stats.cu",
             "replaces": "onda_tpu/ops/pallas_kernels.py:146",
             "shape": "the 53 BatchNorm inputs of one R50 forward, b4 1024x512 f32 NCHW (times summed)",
-            "checked_shapes": [list(s) for s in distinct + segment + K2_ODD_SHAPES],
+            "checked_shapes": [list(s) for s in distinct + others + K2_ODD_SHAPES],
             "max_abs_err": max_err, "ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[3],
             "bound_by": "bytes", "bound_share": share(tot[3], tot[0]), "library_ms": tot[2],
             "check": "pass"}
@@ -480,9 +495,9 @@ class StepLogger:
         self.entries.append((time.perf_counter(), values))
 
 
-def seeded_model(torch, cfg, device, layers, droprate, multi_level):
+def seeded_model(torch, cfg, device, layers, droprate, multi_level, **options):
     """(model, variables): the registry's seeded model of cfg or, given a
-    droprate, a seeded ProDA R50 cut to `layers`."""
+    droprate, a seeded ProDA R50 cut to `layers` with the build `options`."""
     from onda_torch import registry
     from onda_torch.models import build_deeplab_v2
 
@@ -490,21 +505,30 @@ def seeded_model(torch, cfg, device, layers, droprate, multi_level):
         return registry.get_model(cfg, 19, device=device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        model = build_deeplab_v2(19, layers, "ProDA", multi_level=multi_level, droprate=droprate)
+        model = build_deeplab_v2(19, layers, "ProDA", multi_level=multi_level, droprate=droprate,
+                                 **options)
     model = model.to(device)
     return model, registry.variables_of(model)
 
 
 def make_adapter(torch, device, hw, batch, layers=(3, 4, 6, 3), droprate=None, logger=None,
-                 multi_level=None, bn_policy=None, config="hybrid_switch"):
+                 multi_level=None, bn_policy=None, config="hybrid_switch", model=None,
+                 others=None, load=None, **options):
     """The adapter of configs/<config>.yml at hw with seeded weights; the
-    model multi-level as the config says unless `multi_level` is given."""
+    model multi-level as the config says unless `multi_level` is given;
+    `model` a MODEL.NAME, `others` OTHERS overrides (PRECISION, REMAT) and
+    `load` a MODEL.LOAD for the registry's model; `options` the build options
+    of a cut model (droprate given)."""
     from onda_torch import registry
     from onda_torch.config import Config, cfg_from_file
 
     cfg = cfg_from_file(os.path.join(HERE, "configs", f"{config}.yml"))
     cfg.SCHEME.RESOLUTION = [hw[1], hw[0]]
-    cfg.MODEL.LOAD = Config()
+    cfg.MODEL.LOAD = Config() if load is None else load
+    if model is not None:
+        cfg.MODEL.NAME = model
+    for key, value in (others or {}).items():
+        cfg.OTHERS[key] = value
     if multi_level is not None:
         cfg.MODEL.MULTI_LEVEL = multi_level
     cfg.OTHERS.GENERATE_SAMPLES_EVERY = 0
@@ -516,7 +540,7 @@ def make_adapter(torch, device, hw, batch, layers=(3, 4, 6, 3), droprate=None, l
     if bn_policy is not None:
         spec.BN_POLICY = bn_policy
     model, variables = seeded_model(torch, cfg, device, layers, droprate,
-                                    bool(cfg.MODEL.MULTI_LEVEL))
+                                    bool(cfg.MODEL.MULTI_LEVEL), **options)
     adapter = registry.get_adapt_method(cfg)(model, variables, cfg, spec, 19, logger=logger,
                                              device=device)
     return adapter
@@ -571,6 +595,8 @@ def small_input_check(torch):
               f"{l_cpu['Total target loss']:.6f} cuda {l_gpu['Total target loss']:.6f}; "
               f"{len(s_cpu)} running-stat tensors; agree")
 
+    small_bf16_check(torch, src[0], trg[0])
+
     # one SEGMENT step (multi-level: CE of both heads)
     results = {}
     for device in ("cpu", "cuda"):
@@ -591,6 +617,60 @@ def small_input_check(torch):
     print(f"small input SEGMENT step (multi-level, 32x64, b2): loss cpu {loss_cpu:.6f} "
           f"cuda {loss_gpu:.6f}; both heads and {len(b_cpu)} buffers agree")
     small_adversarial_check(torch, src[0], trg[0])
+
+
+# bounds of small_bf16_check: about 3x what an H100 measured against the CPU
+# (PERF.md, phase 5's bf16 row), tighter than bf16's own rounding of the values
+BF16_BOUNDS = {"loss_rel": 7e-3, "pl_count": 2, "update_max": 3e-4, "update_mean": 2.5e-5,
+               "proto_max": 0.15, "stats_max": 9e-4}
+
+
+def small_bf16_check(torch, src, trg):
+    """Bootstrap and one hybrid step of the tiny model in bf16 (compute dtype
+    bf16 over f32 parameters, OTHERS.PRECISION's model) on the card against
+    the CPU. cuDNN's and oneDNN's bf16 convolutions both round the f32 sum,
+    but single-ulp flips compound through the backbone (the CPU tests measure
+    the same drift between the JAX package and the port), so the two differ
+    by more than in f32; each gap is held to `BF16_BOUNDS`."""
+    results = {}
+    for device in ("cpu", "cuda"):
+        dev = torch.device(device)
+        ad = make_adapter(torch, device, (32, 64), 2, layers=(1, 1, 1, 1), droprate=0.0,
+                          dtype=torch.bfloat16)
+        ad.calculate_prototypes([src])
+        before = ad.state.params["layer6.head.1.weight"].clone()
+        dtypes = []
+        hook = ad.model.layer6.register_forward_hook(lambda m, a, o: dtypes.append(o["out"].dtype))
+        state, logs = ad.step_fn(True, 1, False)(
+            ad.state, trg["image"].to(dev), src["image"][None].to(dev),
+            src["label_res"][None].to(dev), 1e-3)
+        hook.remove()
+        check(set(dtypes) == {torch.bfloat16}, f"bf16 small input on {device}: logits {dtypes}")
+        check(all(v.dtype == torch.float32 for v in state.params.values()),
+              f"bf16 small input on {device}: a parameter is not f32")
+        stats = {k: v.cpu() for k, v in state.batch_stats.items() if "running" in k}
+        results[device] = ({k: float(v) for k, v in logs.items()},
+                           (state.params["layer6.head.1.weight"] - before).cpu(),
+                           state.proto.mean.cpu(), stats)
+    (l_cpu, d_cpu, m_cpu, s_cpu), (l_gpu, d_gpu, m_gpu, s_gpu) = results["cpu"], results["cuda"]
+    upd = (d_cpu - d_gpu).abs()
+    gaps = {
+        "loss_rel": max(abs(l_cpu[k] - l_gpu[k]) / max(abs(l_cpu[k]), 1e-3)
+                        for k in ("ce_loss", "rce_loss", "regularization_loss", "buff_ce_loss",
+                                  "Total target loss")),
+        "pl_count": abs(l_cpu["pseudolabel_pixel_num"] - l_gpu["pseudolabel_pixel_num"]),
+        "update_max": upd.max().item(), "update_mean": upd.mean().item(),
+        "proto_max": (m_cpu - m_gpu).abs().max().item(),
+        "stats_max": max((v - s_gpu[k]).abs().max().item() for k, v in s_cpu.items())}
+    tag = "small input bf16 (OTHERS.PRECISION bf16)"
+    print(f"{tag}, R50 cut to 1 block per stage, 32x64, b2: logits bf16, parameters f32 on both; "
+          f"Total target loss cpu {l_cpu['Total target loss']:.6f} cuda "
+          f"{l_gpu['Total target loss']:.6f}; card-vs-CPU gaps {json.dumps(gaps)} (bounds "
+          f"{json.dumps(BF16_BOUNDS)}); the head's update reaches {d_cpu.abs().max().item():.3e}, "
+          f"|prototypes| {m_cpu.abs().max().item():.3e}, |running stats| "
+          f"{max(v.abs().max().item() for v in s_cpu.values()):.3e}")
+    for key, gap in gaps.items():
+        check(gap <= BF16_BOUNDS[key], f"{tag}: {key} gap {gap} over its bound {BF16_BOUNDS[key]}")
 
 
 LR_D = 1e-4  # the discriminators' Adam rate in the small-input check
@@ -1622,6 +1702,197 @@ def adversarial_path(torch, K, out_dir, work, root, pth, profile=False):
     return paths, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 10: every get_model option (bf16, REMAT, R101, ProDA-R101, GN-R50)
+# ---------------------------------------------------------------------------
+
+OPTION_TIMED_STEPS = 4  # phase 10, after 1 warm-up step
+
+
+def block_bns(torch) -> int:
+    """The BatchNorms inside R50's bottlenecks (all but the stem's): those a
+    REMAT backward runs again when it recomputes the blocks."""
+    from onda_torch.models import build_deeplab_v2
+    from onda_torch.models.layers import TorchBatchNorm
+
+    with torch.device("meta"):
+        model = build_deeplab_v2(19, (3, 4, 6, 3), "ProDA")
+    return sum(isinstance(m, TorchBatchNorm) for stage in (model.layer1, model.layer2,
+                                                           model.layer3, model.layer4)
+               for m in stage.modules())
+
+
+def write_proda_checkpoint(torch, path):
+    """A seeded Microsoft-ProDA R101 with its bn_clr `bn_pretrain`, saved in
+    ProDA's training container `{"ResNet101": {"model_state": sd}}`."""
+    from onda_torch.models import build_deeplab_v2
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        model = build_deeplab_v2(19, (3, 4, 23, 3), "ProDA", proda_layout=True, bn_clr=True)
+        with torch.no_grad():  # running statistics that differ from the init's
+            model.bn_pretrain.running_mean.uniform_(-0.1, 0.1)
+            model.bn_pretrain.running_var.uniform_(0.5, 1.5)
+    torch.save({"ResNet101": {"model_state": model.state_dict()}, "iteration": 0}, path)
+
+
+def option_run(torch, K, card, tag, batch, per_step, steps=OPTION_TIMED_STEPS, profile=None,
+               **adapter_kw):
+    """The hybrid_switch.yml adapter of `adapter_kw` (a model name, OTHERS
+    overrides, a MODEL.LOAD) at full width with seeded weights: a bootstrap
+    on one source batch, then 1 + `steps` steps in memory at b`batch`
+    1024x512 with the launch counters reset just before and read just after;
+    one more step counts its host syncs (and, given a `profile` path, one
+    more runs under torch.profiler). Checks `per_step` launches a step,
+    finite losses and the logits' dtype at the main head. Returns (launches,
+    numbers, the adapter, the first step's running statistics and loss, the
+    logits' dtypes)."""
+    base = release(torch)
+    t0 = time.perf_counter()
+    ad = make_adapter(torch, "cuda", MAIN_HW, batch, **adapter_kw)
+    src = make_batches(torch, 1, batch, MAIN_HW, 40)[0]
+    trg = make_batches(torch, 1, batch, MAIN_HW, 41)[0]
+    ad.calculate_prototypes([src])
+    s_img, s_lbl = src["image"][None].cuda(), src["label_res"][None].cuda()
+    t_img = trg["image"].cuda()
+    step = ad.step_fn(True, 1, False)
+    head = ad.model.layer5 if ad.model.proda_layout else ad.model.layer6
+    dtypes = set()
+    hook = head.register_forward_hook(lambda m, a, o: dtypes.add(o["out"].dtype))
+    first = {}
+
+    def one_step():
+        ad.state, logs = step(ad.state, t_img, s_img, s_lbl, 1e-5)
+        if not first:
+            first["stats"] = {k: v.clone() for k, v in ad.state.batch_stats.items()}
+            first["loss"] = float(logs["Total target loss"])
+        return logs
+
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    times = timed_ms(torch, lambda: one_step()["Total target loss"], warmup=1, n=steps)
+    launches = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    logs, syncs = count_syncs(torch, one_step)
+    if profile:
+        k2 = profile_step(torch, lambda: one_step()["Total target loss"], profile,
+                          f"phase {tag} profiled step [{card}]")
+        print(f"phase {tag}: the trace holds {k2} K2 launches of the step's "
+              f"{per_step['bn_stats_kernel']} calls")
+    hook.remove()
+    want = {k: v * (1 + steps) for k, v in per_step.items()}
+    check(launches == want, f"{tag}: {1 + steps} steps launched {launches}, expected {per_step} "
+                            f"per step")
+    check(len(syncs) == 1, f"{tag}: {len(syncs)} host syncs in a step, expected 1 (the dynamic "
+                           f"teacher's gate): {syncs}")
+    for key, value in logs.items():
+        check("loss" not in key or math.isfinite(value), f"{tag}: {key} = {value}")
+    ms = statistics.median(times)
+    numbers = {"step_ms": ms, "frames_per_s": batch / (ms / 1e3), "peak_gib": peak / 2**30,
+               "launches_per_step": per_step, "logits_dtype": str(sorted(map(str, dtypes)))}
+    print(f"phase 10 {tag}, b{batch} {MAIN_HW[1]}x{MAIN_HW[0]}, seeded weights [{card}]: "
+          f"{', '.join(f'{t:.3f}' for t in times)} ms; median {ms:.3f} ms, "
+          f"{numbers['frames_per_s']:.3f} frames/s; peak memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated; {base / 2**30:.3f} GiB allocated before); launches per step "
+          f"{per_step}; host syncs {len(syncs)}; logits {sorted(map(str, dtypes))}; set-up "
+          f"{setup_s:.3f} s")
+    return launches, numbers, ad, first, dtypes
+
+
+def model_options_path(torch, K, card, work, out_dir, profile=False):
+    """Phase 10: one step of hybrid_switch.yml in memory at b4 1024x512 for
+    each option of get_model: OTHERS.PRECISION bf16; OTHERS.REMAT at b4 and
+    b8, each beside the same batch without it; DeepLabv2-Resnet101;
+    DeepLabv2-Resnet101-ProDA from a `.pth` in ProDA's container with
+    `bn_pretrain`; DeepLabv2-Resnet50-GN. With `profile`, the bf16 step and
+    the f32 step of the same batch are traced. Returns launch counts by path
+    and the numbers."""
+    t_phase = time.perf_counter()
+    paths, summary = {}, {}
+    hybrid = {"pseudo_labels_kernel": 2, "bn_stats_kernel": 159}
+
+    # 10.1 OTHERS.PRECISION: bf16
+    launches, summary["bf16"], ad, _, dtypes = option_run(
+        torch, K, card, "10.1 bf16 (OTHERS.PRECISION bf16)", 4, hybrid,
+        profile=profile and os.path.join(out_dir, "profile_bf16_step.txt"),
+        others={"PRECISION": "bf16"})
+    check(dtypes == {torch.bfloat16}, f"10.1: the bf16 config's logits are {dtypes}: it ran in f32")
+    check(all(v.dtype == torch.float32 for v in ad.state.params.values()),
+          "10.1: a parameter is not f32")
+    paths["bf16_in_memory"] = launches
+    del ad
+
+    # 10.2 OTHERS.REMAT at b4 and b8, each beside the same batch without it;
+    # the backward recomputes the student's bottlenecks in both grad forwards
+    n_block = block_bns(torch)
+    remat = dict(hybrid, bn_stats_kernel=159 + 2 * n_block)
+    for batch in (4, 8):
+        runs = {}
+        for on in (False, True):
+            tag = f"10.2 f32 REMAT {'on' if on else 'off'}"
+            traced = profile and batch == 4 and not on
+            launches, numbers, ad, first, _ = option_run(
+                torch, K, card, tag, batch, remat if on else hybrid, others={"REMAT": on},
+                profile=traced and os.path.join(out_dir, "profile_f32_b4_step.txt"))
+            runs[on] = (numbers, first)
+            paths[f"{'remat' if on else 'plain'}_b{batch}_in_memory"] = launches
+            del ad
+        (plain, f_plain), (rem, f_rem) = runs[False], runs[True]
+        worst = max((f_rem["stats"][k] - v).abs().max().item() for k, v in f_plain["stats"].items())
+        check(all(torch.allclose(f_rem["stats"][k], v, rtol=1e-6, atol=1e-6)
+                  for k, v in f_plain["stats"].items()),
+              f"10.2 b{batch}: the running statistics after a step differ with REMAT ({worst})")
+        check(math.isclose(f_rem["loss"], f_plain["loss"], rel_tol=1e-5),
+              f"10.2 b{batch}: the first step's loss {f_rem['loss']} vs {f_plain['loss']}")
+        print(f"phase 10.2 b{batch} [{card}]: REMAT {rem['step_ms']:.3f} ms, peak "
+              f"{rem['peak_gib']:.3f} GiB against {plain['step_ms']:.3f} ms, {plain['peak_gib']:.3f} "
+              f"GiB without ({rem['step_ms'] / plain['step_ms'] - 1:+.1%} time, "
+              f"{rem['peak_gib'] - plain['peak_gib']:+.3f} GiB); K2 {remat['bn_stats_kernel']} "
+              f"launches a step under recompute (159 + 2 x {n_block}); running statistics "
+              f"after the first step equal to {worst:.3e}")
+        summary[f"remat_b{batch}"], summary[f"plain_b{batch}"] = rem, plain
+
+    # 10.3 DeepLabv2-Resnet101: 104 BatchNorms a forward
+    launches, summary["r101"], ad, _, _ = option_run(
+        torch, K, card, "10.3 DeepLabv2-Resnet101", 4, dict(hybrid, bn_stats_kernel=312),
+        model="DeepLabv2-Resnet101")
+    paths["r101_in_memory"] = launches
+    del ad
+
+    # 10.4 DeepLabv2-Resnet101-ProDA from ProDA's container, bn_clr detected
+    pth = os.path.join(work, "proda_r101_bn_clr.pth")
+    write_proda_checkpoint(torch, pth)
+    launches, summary["proda"], ad, _, _ = option_run(
+        torch, K, card, "10.4 DeepLabv2-Resnet101-ProDA (bn_clr)", 4,
+        dict(hybrid, bn_stats_kernel=315), model="DeepLabv2-Resnet101-ProDA", load=pth)
+    os.remove(pth)
+    check(ad.model.bn_pretrain is not None and not hasattr(ad.model, "layer6")
+          and not ad.cfg.MODEL.MULTI_LEVEL, "10.4: bn_clr not detected or the layout is not ProDA's")
+    start = {k: v.cuda() for k, v in ad.state.static_params.items()}
+    moved = {k: (ad.state.params[k] - start[k]).abs().max().item()
+             for k in ("layer5.head.1.weight", "layer5.bottleneck.1.weight", "bn_pretrain.weight",
+                       "bn_pretrain.bias")}
+    check(all(v > 0 for v in moved.values()), f"10.4: a head tensor did not train: {moved}")
+    print(f"phase 10.4: bn_pretrain detected, MULTI_LEVEL forced off; largest change after "
+          f"{1 + OPTION_TIMED_STEPS + 1} steps " + ", ".join(f"{k} {v:.3e}" for k, v in moved.items()))
+    paths["proda_in_memory"] = launches
+    del ad
+
+    # 10.5 DeepLabv2-Resnet50-GN: no BatchNorm, so no K2
+    launches, summary["gn"], ad, _, _ = option_run(
+        torch, K, card, "10.5 DeepLabv2-Resnet50-GN", 4, dict(hybrid, bn_stats_kernel=0),
+        model="DeepLabv2-Resnet50-GN")
+    check(not ad.state.batch_stats, "10.5: the GN model has BatchNorm buffers")
+    paths["gn_in_memory"] = launches
+    del ad
+    release(torch)
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10: {summary['phase_seconds']:.3f} s")
+    return paths, summary
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--skip-main", action="store_true", help="kernel phases only")
@@ -1692,6 +1963,9 @@ def main() -> int:
             adversarial, summary["adversarial"] = adversarial_path(torch, K, args.out_dir, work,
                                                                    root, pth, args.profile)
             paths.update(adversarial)
+            options, summary["model_options"] = model_options_path(torch, K, card, work,
+                                                                   args.out_dir, args.profile)
+            paths.update(options)
         finally:
             shutil.rmtree(work, ignore_errors=True)
     for k in (k1, k2):

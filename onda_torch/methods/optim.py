@@ -37,6 +37,10 @@ def label_params(params: dict, frozen_bn: bool = True, aux_grad: bool = True) ->
             return FROZEN
         if parts[0] in ("layer5", "layer6"):
             return HEAD
+        if parts[0] == "bn_pretrain":
+            # the ProDA layout's bn_clr BatchNorm sits in the 10x group,
+            # yielded once (reference deeplabv2_proda.py:441-447)
+            return HEAD
         module = parts[-2] if len(parts) > 1 else ""
         is_bn_affine = parts[-1] in ("weight", "bias") and (
             "bn" in module or parts[-3:-1] == ["downsample", "1"])

@@ -366,7 +366,10 @@ class ProtoOnlineAdapter:
         ema_update = float(spec.EMA_UPDATE)
         labels = self.param_labels
         trainable = [k for k, lab in labels.items() if lab != optim.FROZEN]
-        aux_head = {k for k in trainable if k.startswith("layer5.")}  # its forward is skipped
+        # the multi-level aux head beside `layer6`: its forward is skipped (under
+        # the ProDA layout `layer5` is the main head)
+        aux_head = ({k for k in trainable if k.startswith("layer5.")}
+                    if hasattr(self.model, "layer6") else set())
         r0, r1 = self.lr_ratios
         fwd = self._forward
         teachers = self._build_teachers()

@@ -7,9 +7,13 @@ port's `DeepLabV2` in the reference OnDA key layout:
 
 * conv kernels HWIO → OIHW, dense kernels (I, O) → (O, I);
 * GroupNorm / BatchNorm `scale` → `weight`; `batch_stats` → running buffers,
-  plus a `num_batches_tracked` counter (0) beside every BatchNorm;
+  plus a `num_batches_tracked` counter (0) beside every BatchNorm; the GN
+  backbone's inner `gn` scope drops (`layer1/0/bn1/gn/scale` →
+  `layer1.0.bn1.weight`, no buffers), and the ProDA layout's
+  `bn_pretrain` is a BatchNorm like any other;
 * ProDA classifier branches → Sequential indices
-  (`layer6/branch2_gn/gn/scale` → `layer6.conv2d_list.2.1.weight`).
+  (`layer6/branch2_gn/gn/scale` → `layer6.conv2d_list.2.1.weight`), at
+  `layer5` too (the aux head, or the ProDA layout's only head).
 """
 
 from __future__ import annotations

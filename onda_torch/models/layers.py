@@ -3,6 +3,11 @@
 Train-mode BatchNorm takes its batch statistics from the hand-written kernel
 K2 (`ops/kernels.bn_stats`) inside a `torch.autograd.Function` whose backward
 is the closed form of `_bn_train_bwd` in plain torch.
+
+Convolutions and dense layers compute in an optional `compute_dtype` (bf16)
+over f32 parameters, cast on entry as flax's `nn.Conv(dtype=bf16,
+param_dtype=f32)` casts them; normalisations take their statistics in f32.
+`rematerialized` runs a block under activation checkpointing.
 """
 
 from __future__ import annotations
@@ -10,8 +15,65 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
+
+def rematerialized(block, x, train: bool, update_stats: bool):
+    """block(x, train, update_stats) with its activations dropped after the
+    forward and recomputed in the backward (`nn.remat` per bottleneck in the
+    JAX model). The recompute runs the block on the parameters and buffers
+    the forward ran it on, taken when it is called, so it sees the step's
+    tensors even after a `functional_call` around the model has put the
+    module's own back; and it leaves the BatchNorm running statistics alone,
+    so a step moves them by one momentum update, as the functional `nn.remat`
+    does. The parameters enter the checkpoint as arguments; the buffers,
+    which the forward updates in place, are held by reference (train mode
+    normalises by the batch's statistics, so the recompute does not read
+    them)."""
+    params = dict(block.named_parameters())
+    buffers = dict(block.named_buffers())
+    calls = []  # the forward is the first call of `run`, a recompute any later one
+
+    def run(x, *tensors):
+        first = not calls
+        calls.append(None)
+        return functional_call(block, {**buffers, **dict(zip(params, tensors))},
+                               (x, train, update_stats and first))
+
+    return checkpoint(run, x, *params.values(), use_reentrant=False, preserve_rng_state=False)
+
+
+def _cast(t, dtype):
+    return t if t is None or dtype is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in `compute_dtype` (None: the input's) over its
+    f32 weight and bias; their gradients reach the f32 tensors through the
+    cast (`onda_tpu/models/layers.py::conv`)."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `compute_dtype`, as `Conv2d` (the SE block's
+    `nn.Dense(dtype=...)`)."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
 
 
 class _BNTrain(torch.autograd.Function):
@@ -93,10 +155,22 @@ class TorchBatchNorm(nn.Module):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm(32) as used by the ProDA classifier head (reference deeplabv2.py:141)."""
+    """GroupNorm(32) (reference deeplabv2.py:141) with its statistics and
+    affine in f32, as flax's `nn.GroupNorm` computes them. The ProDA head's
+    returns the input's type (built with `dtype` there, so bf16 under bf16);
+    the GN backbone's (`f32_out`) returns f32 whatever comes in, as flax's
+    does when built with no dtype: f32 parameters promote a bf16 input, so
+    that backbone passes f32 between its convolutions. Takes the BatchNorm
+    slot's `train` and `update_stats` and ignores them."""
 
-    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
+                 f32_out: bool = False):
         super().__init__(num_groups, channels, eps=eps)
+        self.f32_out = f32_out
+
+    def forward(self, x, train: bool = False, update_stats: bool = True):
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y if self.f32_out else y.to(x.dtype)
 
 
 def max_pool_ceil(x, window: int, stride: int, padding: int):

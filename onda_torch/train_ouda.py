@@ -19,8 +19,9 @@
   only the first domain bootstraps prototypes and evaluates before adapting;
   model, teachers, prototypes and monitors carry over between domains.
 
-It runs on the card (`--device cuda`, the default) unless asked for the CPU;
-without a card it stops.
+An option the port does not run yet (OTHERS.ASYNC_SAVE, more than one
+device) stops it before the first step. It runs on the card (`--device
+cuda`, the default) unless asked for the CPU; without a card it stops.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ def main(argv=None):
     args = get_arguments(argv)
     from .config import cfg_from_file, default_config, unset
     from .data import Loader, ReplayBuffer, SegmentationDataset, Table
+    from .methods.proto_online import refuse_unported
     from .native import BatchExecutor
     from .registry import get_adapt_method, get_db, get_model
     from .utils.logging_ import Logger
@@ -62,6 +64,8 @@ def main(argv=None):
     cfg = cfg_from_file(args.cfg, default_config())
     print("Using config:")
     pprint(cfg.to_dict())
+    # before anything trains: SEGMENT pretraining would otherwise run in full
+    refuse_unported(cfg)
     np.random.seed(int(cfg.TRAINING.RANDOM_SEED))
 
     datasets = get_db(cfg)

@@ -10,6 +10,7 @@ b2 at 32x64."""
 import contextlib
 import io
 import os
+import shutil
 import time
 
 import numpy as np
@@ -55,6 +56,14 @@ PARAM_ENVELOPE = dict(rtol=1e-4, atol=1e-5)
 # packages, so the discriminators' weights are held within atol 1e-5 (lr_d
 # is 1e-4 here)
 DISC_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """The `.pt`, `.pth` and prototype pickles a test writes (up to 1.2 GB
+    each) go when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -28,6 +28,14 @@ PER_DOMAIN, BATCH = 4, 2
 STEPS = PER_DOMAIN // BATCH  # per domain, one epoch
 
 
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """The `.pt`, `.pth` and prototype pickles a test writes (up to 1.2 GB
+    each) go when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 def _write_cfg(path, root, snap, **over):
     with open("configs/hybrid_switch.yml") as f:
         cfg = yaml.safe_load(f)

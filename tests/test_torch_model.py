@@ -2,6 +2,8 @@
 `onda_torch.models.convert`, eval- and train-mode outputs, running-stat
 updates and the ceil-mode pooling grid."""
 
+import shutil
+
 import numpy as np
 import pytest
 import jax
@@ -22,6 +24,14 @@ B, H, W, C = 2, 32, 64, 19
 # head's GroupNorm renormalises small activations, which amplifies benign
 # rounding differences (the same envelope as tests/test_model.py)
 TOL = dict(rtol=1e-3, atol=2e-4)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """The `.pt`, `.pth` and prototype pickles a test writes (up to 1.2 GB
+    each) go when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,7 @@ restarts them. R50 cut to one block a stage, Dropout2d off, b2 at 32x64."""
 
 import contextlib
 import io
+import shutil
 
 import numpy as np
 import pytest
@@ -36,6 +37,14 @@ LOSSES = ("Segmentation loss", "Adversarial loss", "Discriminator loss", "ce_los
 # proto_advent.py:255-263: PROTO_ONLINE's step logs these too, PROTO_ADVENT's does not
 NOT_LOGGED = ("encoder_lr", "output & prototype agreement", "dynamic forward fired",
               "model exp confidence ma", "buff_ce_loss", "model regularization")
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """The `.pt`, `.pth` and prototype pickles a test writes (up to 1.2 GB
+    each) go when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -90,8 +99,9 @@ def runs(tmp_path_factory):
     src_img, src_lbl = tensors(src)
     tad.state, tad.d_state, tlogs = tad.pa_step_fn()(tad.state, tad.d_state, src_img, src_lbl,
                                                      _nchw(trg["image"]), lr, lr_d)
-    return {"jad": jad, "tad": tad, "jlogs": dict(jlogs.items()), "tlogs": dict(tlogs.items()),
-            "before": before, "src": (src_img, src_lbl), "trg": _nchw(trg["image"])}
+    yield {"jad": jad, "tad": tad, "jlogs": dict(jlogs.items()), "tlogs": dict(tlogs.items()),
+           "before": before, "src": (src_img, src_lbl), "trg": _nchw(trg["image"])}
+    shutil.rmtree(tmp, ignore_errors=True)  # the bootstrap's prototype pickles
 
 
 def test_step_logs_match_jax(runs):

@@ -39,6 +39,14 @@ LR = 2e-2  # training_fog.yml's 2.5e-4 moves random weights too little to compar
 CONFIG = "configs/training_fog.yml"  # SEGMENT, MULTI_LEVEL, POWER 0.9
 
 
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """The `.pt`, `.pth` and prototype pickles a test writes (up to 1.2 GB
+    each) go when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _two_threads():
     """Torch on two threads in this file: the test run's workers share the

@@ -3,6 +3,8 @@ the same weights (carried across by onda_torch.models.convert), bootstrap the
 prototypes from the same source batch and take the same steps on the same
 inputs, with Dropout2d off on both sides (build_deeplab_v2(droprate=0.0))."""
 
+import shutil
+
 import numpy as np
 import pytest
 import jax
@@ -25,6 +27,14 @@ STEPS = 3
 LOSSES = ("ce_loss", "rce_loss", "regularization_loss", "buff_ce_loss", "Total target loss")
 
 
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """The `.pt`, `.pth` and prototype pickles a test writes (up to 1.2 GB
+    each) go when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 def _configure(cfg, spec, snap):
     cfg.SCHEME.RESOLUTION = [W, H]
     cfg.OTHERS.SNAPSHOT_DIR = snap
@@ -45,13 +55,14 @@ def _nchw(a):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    jax_snap, torch_snap = tmp_path_factory.mktemp("jax"), tmp_path_factory.mktemp("torch")
     rng = np.random.default_rng(0)
     boot = _batch(rng)
     steps = [(_batch(rng), _batch(rng)) for _ in range(STEPS)]
 
     jcfg = jax_cfg_from_file("configs/hybrid_switch.yml", default_config())
     jspec = jcfg.METHOD.ADAPTATION.PROTO_ONLINE_HYBRIDSWITCH
-    _configure(jcfg, jspec, str(tmp_path_factory.mktemp("jax")))
+    _configure(jcfg, jspec, str(jax_snap))
     jmodel = jax_build(num_classes=C, layers=(1, 1, 1, 1), droprate=0.0)
     variables = jmodel.init(jax.random.key(0), jnp.zeros((1, H, W, 3)), train=False)
     variables = jax.tree.map(np.asarray, dict(variables))
@@ -61,7 +72,7 @@ def runs(tmp_path_factory):
 
     tcfg = cfg_from_file("configs/hybrid_switch.yml")
     tspec = tcfg.METHOD.ADAPTATION.PROTO_ONLINE_HYBRIDSWITCH
-    _configure(tcfg, tspec, str(tmp_path_factory.mktemp("torch")))
+    _configure(tcfg, tspec, str(torch_snap))
     tmodel = build_deeplab_v2(C, (1, 1, 1, 1), "ProDA", droprate=0.0)
     tmodel.load_state_dict(flax_to_state_dict(variables), strict=True)
     tad = ProtoOnlineAdapter(tmodel, registry.variables_of(tmodel), tcfg, tspec, C, device="cpu")
@@ -79,7 +90,9 @@ def runs(tmp_path_factory):
                                  torch.tensor(src["label_res"][None]).long(), 1e-3)
         out["torch"].append((dict(tlogs.items()), tad.state.proto.mean.numpy().copy(),
                              tad.state.params["layer6.head.1.weight"].numpy().copy()))
-    return out
+    yield out
+    for snap in (jax_snap, torch_snap):  # the bootstrap's prototype pickles
+        shutil.rmtree(snap, ignore_errors=True)
 
 
 def test_bootstrap_prototypes_match(runs):

@@ -6,6 +6,7 @@ across by onda_torch.models.convert) with Dropout2d off on both sides, and
 bootstrap the prototypes from the same source batch."""
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -32,6 +33,14 @@ LOSSES = ("ce_loss", "rce_loss", "regularization_loss", "buff_ce_loss", "Total t
 # step 0, as tests/test_torch_step.py holds it
 LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
 TREE_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """The `.pt`, `.pth` and prototype pickles a test writes (up to 1.2 GB
+    each) go when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -28,6 +28,14 @@ def _two_threads():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """The `.pt`, `.pth` and prototype pickles a test writes (up to 1.2 GB
+    each) go when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 WORKFLOW_SETS = ("(0,)", "(25,)")
 
 
