@@ -80,6 +80,23 @@ Phases:
     from a `.pth` the script writes in ProDA's container with bn_pretrain
     (bn_clr detected, K2 315, layer5 and bn_pretrain trained);
     DeepLabv2-Resnet50-GN (K2 0, K1 2).
+ 11. the six shipped prototype configs no earlier phase runs, each through
+    `onda_torch.train_ouda.main` on phase 7's files at its own width (R50
+    ProDA head, b4 1024x512), cut only in its data path, domain order (its
+    first two domains), epochs, absent files and snapshot directory:
+    static_model.yml and dynamic_model.yml (PROTO_ONLINE), confidence_switch.yml
+    (HSWITCH), confidence_der_switch.yml (VSWITCH), hybrid_switch_fog.yml (the
+    fog table of phase 8) and external_video.yml (a metadata_bern.json over
+    the clear frames and, without labels, the 25 mm ones; no validation):
+    K1 2 and K2 159 per step, the steady stage times, the logged frames/s,
+    the host syncs of one more step (0 for PROTO_ONLINE, 1 otherwise), the
+    steps that ran the dynamic teacher, finite losses; then OTHERS.ASYNC_SAVE
+    in memory (the hybrid adapter at b4 1024x512: the step right after the
+    save changes the state in place, the file must hold it as saved, bit
+    for bit, and equal a synchronous save; the save's return, drain and the
+    next step timed) and through the CLI (confidence_switch.yml, SAVE_EVERY
+    2). Every K1 and K2 shape these runs feed must be among those phases 3-4
+    checked.
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
@@ -241,6 +258,7 @@ def check_k1(torch, K, P):
             "source": "onda_torch/csrc/pseudo_labels.cu",
             "replaces": "onda_tpu/ops/pallas_kernels.py:60",
             "shape": f"P={n_pix} F={n_feat} C={n_cls} f32, mahalanobis",
+            "checked_shapes": [list(c) for c in cases],
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "bound_share": share(b_ms, ms),
             "library_ms": None, "check": "pass"}
@@ -1892,6 +1910,348 @@ def model_options_path(torch, K, card, work, out_dir, profile=False):
     print(f"phase 10: {summary['phase_seconds']:.3f} s")
     return paths, summary
 
+# ---------------------------------------------------------------------------
+# phase 11: the six prototype configs no earlier phase runs, and ASYNC_SAVE
+# ---------------------------------------------------------------------------
+
+# config → its METHOD.ADAPTATION.NAME and the host syncs of one of its steps
+# (the dynamic teacher's gate; base reads none: its decision is the config's)
+SHIPPED_CONFIGS = {
+    "static_model": ("PROTO_ONLINE", 0),
+    "dynamic_model": ("PROTO_ONLINE", 0),
+    "confidence_switch": ("PROTO_ONLINE_HSWITCH", 1),
+    "confidence_der_switch": ("PROTO_ONLINE_VSWITCH", 1),
+    "hybrid_switch_fog": ("PROTO_ONLINE_HYBRIDSWITCH", 1),
+    "external_video": ("PROTO_ONLINE_HYBRIDSWITCH", 1),
+}
+POLICY_LOGS = ("prior static confidence ma", "percentage_static confidence ma",
+               "dev avg prior static")
+
+
+def write_bern_metadata(root, rows):
+    """metadata_bern.json over phase 7's files: its clear train frames (with
+    their labels) as the `clear` source and its 25 mm train frames, without
+    labels, as the `video` target (external_video.yml's layout)."""
+    from onda_torch.data.metadata import Table
+
+    bern = [{"image_path": r["image_path"], "label_path": r["label_path"] if scene == "clear"
+             else None, "set": "train", "scene": scene}
+            for r in rows if r["set"] == "train"
+            for scene in [{0: "clear", 25: "video"}.get(r["intensity"])] if scene]
+    Table(bern, ["image_path", "label_path", "set", "scene"]).to_json(
+        os.path.join(root, "metadata_bern.json"))
+    return sum(b["scene"] == "video" for b in bern)
+
+
+class KernelShapes:
+    """Records the input shape of every K1 and K2 call while it is entered
+    (the wrappers are wrapped, so the launch counts are theirs)."""
+
+    def __init__(self, K):
+        self.K, self.k1, self.k2 = K, set(), set()
+
+    def __enter__(self):
+        pseudo_labels, bn_stats = self.K.pseudo_labels, self.K.bn_stats
+        self.saved = pseudo_labels, bn_stats
+
+        def k1(feat, protos, *args, **kwargs):
+            self.k1.add((feat.shape[0], feat.shape[1], protos.shape[0]))
+            return pseudo_labels(feat, protos, *args, **kwargs)
+
+        def k2(x):
+            self.k2.add((tuple(x.shape), str(x.dtype)))
+            return bn_stats(x)
+
+        self.K.pseudo_labels, self.K.bn_stats = k1, k2
+        return self
+
+    def __exit__(self, *exc):
+        self.K.pseudo_labels, self.K.bn_stats = self.saved
+
+
+def one_step_syncs(torch, K, adapter, batch, seed):
+    """One more step of an adapter the CLI returned, on device tensors: its
+    launches and host syncs."""
+    src = make_batches(torch, 1, batch, MAIN_HW, seed)[0]
+    trg = make_batches(torch, 1, batch, MAIN_HW, seed + 1)[0]
+    img, s_img, s_lbl = (trg["image"].cuda(), src["image"][None].cuda(),
+                         src["label_res"][None].cuda())
+    step = adapter.step_fn(True, 1, False)
+
+    def one_step():
+        adapter.state, logs = step(adapter.state, img, s_img, s_lbl, 1e-5)
+        return logs
+
+    K.reset_launches()
+    logs, syncs = count_syncs(torch, one_step)
+    check(math.isfinite(logs["Total target loss"]), "extra step: non-finite loss")
+    return dict(K.launches), syncs
+
+
+def state_tensors(torch, state):
+    """Every tensor of an AdaptState by a flat name, as `save_model` writes it."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        if f.name == "generator":
+            out["generator"] = value.get_state()
+        elif isinstance(value, dict):
+            out.update({f"{f.name}/{k}": v for k, v in value.items()})
+        elif hasattr(value, "__dict__"):  # the prototypes, the monitor, the switch
+            out.update({f"{f.name}/{k}": v for k, v in vars(value).items()
+                        if isinstance(v, torch.Tensor)})
+    return out
+
+
+def payload_tensors(torch, payload):
+    """The tensors of a loaded `adapt_state.pt` under `state_tensors`' names."""
+    out = {}
+    for key, value in payload.items():
+        if key == "generator":
+            out["generator"] = value
+        elif isinstance(value, dict):
+            out.update({f"{key}/{k}": v for k, v in value.items() if isinstance(v, torch.Tensor)})
+    return out
+
+
+def same_bits(torch, a, b) -> bool:
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def async_save_in_memory(torch, K, work, batch=4):
+    """11.2: OTHERS.ASYNC_SAVE on the card: the hybrid adapter at b4 1024x512
+    saves its state in the background while the next step changes every
+    tensor in place; the file must hold the state as it was, bit for bit,
+    and equal a synchronous save of that state."""
+    from onda_torch.utils import checkpoint as ckpt
+
+    release(torch)
+    ad = make_adapter(torch, "cuda", MAIN_HW, batch)
+    src = make_batches(torch, 1, batch, MAIN_HW, 50)[0]
+    trg = make_batches(torch, 1, batch, MAIN_HW, 51)[0]
+    ad.calculate_prototypes([src])
+    s_img, s_lbl = src["image"][None].cuda(), src["label_res"][None].cuda()
+    t_img = trg["image"].cuda()
+    step = ad.step_fn(True, 1, False)
+
+    def one_step():
+        ad.state, logs = step(ad.state, t_img, s_img, s_lbl, 1e-5)
+        return logs["Total target loss"]
+
+    K.reset_launches()
+    steady = statistics.median(timed_ms(torch, one_step, warmup=1, n=3))
+    snap_async, snap_sync = (os.path.join(work, f"async_save_{k}") for k in ("async", "sync"))
+    ad.cfg.OTHERS.SNAPSHOT_DIR = snap_async
+    ad.cfg.OTHERS.ASYNC_SAVE = True
+    # the path's first async save allocates its pinned buffers; later ones reuse them
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ad.save_model()
+    cold_ms = 1e3 * (time.perf_counter() - t)
+    one_step()
+    path = os.path.join(snap_async, "adapt_state.pt")
+    ckpt.wait_for(path)
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in state_tensors(torch, ad.state).items()}
+    t = time.perf_counter()
+    ad.save_model()
+    async_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    one_step()  # the step's SGD, model EMA and prototype EMA change the state in place
+    torch.cuda.synchronize()
+    after_ms = 1e3 * (time.perf_counter() - t)
+    launches = dict(K.launches)
+    want = {"pseudo_labels_kernel": 2 * 6, "bn_stats_kernel": 159 * 6}
+    check(launches == want, f"11.2: six steps launched {launches}, expected {want}")
+    t = time.perf_counter()
+    ckpt.wait_for(path)
+    drain_ms = 1e3 * (time.perf_counter() - t)
+    ckpt.wait_for_saves()
+    saved = payload_tensors(torch, torch.load(path, map_location="cpu", weights_only=False))
+    check(set(saved) == set(before), f"11.2: the file's tensors {sorted(set(saved) ^ set(before))[:6]}")
+    now = state_tensors(torch, ad.state)
+    changed = [k for k, v in before.items() if not same_bits(torch, v, now[k])]
+    must = ["params/layer6.head.1.weight", "opt_momentum/layer6.head.1.weight",
+            "ema_params/layer6.head.1.weight", "params/conv1.weight", "proto/mean",
+            "batch_stats/bn1.running_mean"]
+    check(all(k in changed for k in must),
+          f"11.2: the step left {[k for k in must if k not in changed]} as they were")
+    wrong = [k for k, v in before.items() if not same_bits(torch, saved[k], v)]
+    check(not wrong, f"11.2: the async file differs from the state at the save in {wrong[:6]}")
+
+    ad.load_model(path)  # the saved state back, then saved synchronously
+    ad.cfg.OTHERS.SNAPSHOT_DIR, ad.cfg.OTHERS.ASYNC_SAVE = snap_sync, False
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ad.save_model()
+    sync_ms = 1e3 * (time.perf_counter() - t)
+    synced = payload_tensors(torch, torch.load(os.path.join(snap_sync, "adapt_state.pt"),
+                                               map_location="cpu", weights_only=False))
+    wrong = [k for k, v in saved.items() if not same_bits(torch, synced[k], v)]
+    check(set(synced) == set(saved) and not wrong, f"11.2: sync and async files differ: {wrong[:6]}")
+    nbytes = sum(v.numel() * v.element_size() for v in saved.values())
+    size = os.path.getsize(path)
+    print(f"phase 11.2 ASYNC_SAVE in memory (hybrid_switch.yml, b{batch} 1024x512): payload "
+          f"{nbytes / 1e9:.3f} GB in {len(saved)} tensors ({size / 1e9:.3f} GB file); save_model() "
+          f"returned after {async_ms:.3f} ms async (the path's first async save, which "
+          f"allocates the pinned buffers: {cold_ms:.3f} ms) against {sync_ms:.3f} ms sync; drain "
+          f"{drain_ms:.3f} ms; the step right after the async save {after_ms:.3f} ms against a "
+          f"steady {steady:.3f} ms; {len(changed)} of {len(before)} tensors changed in place "
+          f"during the write, the file holds every one as saved (bit for bit) and equals the "
+          f"synchronous save")
+    shutil.rmtree(snap_async, ignore_errors=True)
+    shutil.rmtree(snap_sync, ignore_errors=True)
+    del ad, step, one_step, before, now, saved, synced
+    release(torch)
+    return launches, {"payload_gb": nbytes / 1e9, "file_gb": size / 1e9,
+                      "save_return_ms_async": async_ms, "save_return_ms_async_first": cold_ms,
+                      "save_return_ms_sync": sync_ms,
+                      "drain_ms": drain_ms, "step_after_async_save_ms": after_ms,
+                      "steady_step_ms": steady}
+
+
+def shipped_configs_path(torch, K, out_dir, work, root, rows, checked):
+    """Phase 11: 11.1 the six shipped prototype configs no earlier phase runs,
+    each through `onda_torch.train_ouda.main` from phase 7's PNG files at its
+    own width (R50 ProDA head, b4 1024x512), cut only in its data path,
+    domain order (its first two domains), epochs, absent files and snapshot
+    directory; 11.2 OTHERS.ASYNC_SAVE in memory and through the CLI. Every K1
+    and K2 shape the runs feed must be among those phases 3-4 checked
+    (`checked`). Returns launch counts by path and the numbers."""
+    import yaml
+    from onda_torch.utils.checkpoint import checkpoints_by_mtime
+
+    t_phase = time.perf_counter()
+    write_fog_metadata(root, rows)
+    n_video = write_bern_metadata(root, rows)
+    n_train = CLI_FRAMES["train"]
+    paths, summary = {}, {}
+    shapes = KernelShapes(K)
+    with shapes:
+        for name, (method, want_syncs) in SHIPPED_CONFIGS.items():
+            snap = os.path.join(work, f"shipped_{name}")
+            with open(os.path.join(HERE, "configs", f"{name}.yml")) as f:
+                order = yaml.safe_load(f)["SCHEME"]["DOMAIN_ORDER"][:2]
+            spec_key = f"METHOD.ADAPTATION.{method}"
+            cfg = workflow_config(name, os.path.join(work, f"{name}.yml"), **{
+                "SCHEME.PATH": root, "SCHEME.DOMAIN_ORDER": order, "MODEL.LOAD": None,
+                f"{spec_key}.LOAD_PROTO": None, f"{spec_key}.EPOCHS": 1,
+                "OTHERS.SNAPSHOT_DIR": snap, "OTHERS.SCHEDULE": True})
+            batch = int(cfg["TRAINING"]["BATCH_SIZE"])
+            check(batch == 4 and cfg["SCHEME"]["RESOLUTION"] == [1024, 512]
+                  and cfg["MODEL"]["NAME"] == "DeepLabv2-Resnet50"
+                  and cfg["MODEL"]["CLASSIFIER"] == "ProDA", f"{name}.yml is no longer b4 "
+                                                             f"1024x512 R50 ProDA")
+            launches, batches, seconds, text, adapter = run_cli(
+                torch, K, os.path.join(work, f"{name}.yml"),
+                os.path.join(out_dir, f"shipped_{name}.log"))
+            per_domain = (n_video if name == "external_video" else n_train) // batch
+            steps = len(order) * per_domain
+            boot = min(int(cfg["TRAINING"]["REPLAY_BUFFER"]), n_train) // batch
+            want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": 159 * steps + 53 * boot}
+            check(launches == want, f"{name}.yml launches {launches}, expected {want} (K1 2 and K2 "
+                                    f"159 per step, K2 53 per bootstrap batch)")
+            check(batches.get("collate", 0) == 0 and batches.get("executor", 0) > 0,
+                  f"{name}.yml: every batch must come from the C++ executor, got {batches}")
+            records = read_records(snap)
+            step_records = [r for r in records if "Total target loss" in r]
+            check(len(step_records) == steps, f"{name}.yml: {len(step_records)} step records, "
+                                              f"expected {steps}")
+            finite = all(math.isfinite(v) for r in step_records for k, v in r.items() if "loss" in k)
+            check(finite, f"{name}.yml: a non-finite loss")
+            fired = [int(r["dynamic forward fired"]) for r in step_records]
+            if name == "static_model":
+                check(not any(fired), "static_model.yml ran the dynamic teacher")
+            if name == "dynamic_model":
+                check(all(fired), "dynamic_model.yml skipped the dynamic teacher")
+            keys = set().union(*records)
+            has_val = cfg["OTHERS"]["VALIDATION"] != "none"
+            check(any(k.startswith("Val mIoU model of ") for k in keys) == has_val,
+                  f"{name}.yml: validation keys {'missing' if has_val else 'present'}")
+            files = os.listdir(snap)
+            check("adapt_state.pt" in files and any(f.startswith("proto_") for f in files)
+                  and not [f for f in files if f.startswith(".")], f"{name}.yml wrote {files}")
+            one, syncs = one_step_syncs(torch, K, adapter, batch, 60)
+            check(one == {"pseudo_labels_kernel": 2, "bn_stats_kernel": 159},
+                  f"{name}.yml: one step launched {one}")
+            check(len(syncs) == want_syncs, f"{name}.yml: {len(syncs)} host syncs in a step, "
+                                            f"expected {want_syncs}: {syncs}")
+            stages = {}
+            for d in range(len(order)):
+                per = step_stage_ms(step_records[d * per_domain:(d + 1) * per_domain])
+                for key, ms in per.items():  # steps 1..n-2 of each domain
+                    stages.setdefault(key[5:], []).extend(ms[1:-1])
+            median = {k: statistics.median(v) for k, v in stages.items()}
+            fps = [r["Adaptation frames per second"] for r in step_records
+                   if "Adaptation frames per second" in r]
+            policy_logs = {k: (min(r[k] for r in step_records), max(r[k] for r in step_records))
+                           for k in POLICY_LOGS}
+            numbers = {"seconds": seconds, "steps": steps, "stage_ms_median": median,
+                       "step_ms": sum(median.values()), "frames_per_s": fps,
+                       "k1_per_step": one["pseudo_labels_kernel"],
+                       "k2_per_step": one["bn_stats_kernel"], "host_syncs_per_step": len(syncs),
+                       "dynamic_steps": sum(fired), "fired": fired, "finite": finite,
+                       "policy_logs": policy_logs}
+            summary[name] = numbers
+            paths[f"{name}_cli"] = launches
+            print(f"phase 11.1 {name}.yml ({method}, policy {adapter.policy}, b{batch} 1024x512, "
+                  f"DOMAIN_ORDER {order}, {steps} steps, {boot} bootstrap batches): "
+                  f"{seconds:.3f} s; launches {launches}; steady stage ms "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in median.items())
+                  + f" (sum {numbers['step_ms']:.3f}); Adaptation frames per second "
+                  + ", ".join(f"{v:.3f}" for v in fps)
+                  + f"; per step K1 {one['pseudo_labels_kernel']}, K2 {one['bn_stats_kernel']}, "
+                  f"host syncs {len(syncs)}; dynamic teacher on {sum(fired)} of {steps} steps "
+                  f"{fired}; every loss finite {finite}; "
+                  + ", ".join(f"{k} {lo:.6g}..{hi:.6g}" for k, (lo, hi) in policy_logs.items()))
+            del adapter
+            for f in files:  # the checkpoints: over 1 GB each
+                if f.endswith((".pt", ".pth")):
+                    os.remove(os.path.join(snap, f))
+
+        # 11.2 ASYNC_SAVE: in memory, then through the CLI
+        paths["async_save_in_memory"], summary["async_save"] = async_save_in_memory(torch, K, work)
+        snap = os.path.join(work, "async_save_cli")
+        method = SHIPPED_CONFIGS["confidence_switch"][0]
+        cfg = workflow_config("confidence_switch", os.path.join(work, "async_cli.yml"), **{
+            "SCHEME.PATH": root, "SCHEME.DOMAIN_ORDER": [[25]], "MODEL.LOAD": None,
+            f"METHOD.ADAPTATION.{method}.LOAD_PROTO": None,
+            f"METHOD.ADAPTATION.{method}.EPOCHS": 1, "OTHERS.SNAPSHOT_DIR": snap,
+            "OTHERS.ASYNC_SAVE": True, "OTHERS.SAVE_EVERY": 2})
+        launches, _, seconds, text, adapter = run_cli(torch, K, os.path.join(work, "async_cli.yml"),
+                                                      os.path.join(out_dir, "async_save_cli.log"))
+        steps = n_train // 4
+        check(launches["pseudo_labels_kernel"] == 2 * steps, f"11.2 CLI launches {launches}")
+        files = os.listdir(snap)
+        check(not [f for f in files if f.startswith(".")], f"11.2 CLI left a temporary: {files}")
+        state = torch.load(os.path.join(snap, "adapt_state.pt"), map_location="cpu",
+                           weights_only=False)
+        check(state["step"] == steps, f"11.2 CLI: adapt_state.pt holds step {state['step']}")
+        listed = [p.name for p in checkpoints_by_mtime(snap)]
+        print(f"phase 11.2 confidence_switch.yml with OTHERS.ASYNC_SAVE true, SAVE_EVERY 2, "
+              f"DOMAIN_ORDER [[25]] ({steps} steps): {seconds:.3f} s; launches {launches}; "
+              f"adapt_state.pt loads (step {state['step']}); listed {listed}; no temporary left")
+        paths["async_save_cli"] = launches
+        summary["async_save"]["cli_seconds"] = seconds
+        del adapter, state
+        shutil.rmtree(snap, ignore_errors=True)
+    k1_checked = {tuple(c) for c in checked["k1"]}
+    k2_checked = {tuple(c) for c in checked["k2"]}
+    check(shapes.k1 <= k1_checked, f"phase 11 fed K1 unchecked shapes {shapes.k1 - k1_checked}")
+    check({s for s, _ in shapes.k2} <= k2_checked and {d for _, d in shapes.k2} <= {
+        "torch.float32", "torch.bfloat16"}, f"phase 11 fed K2 unchecked shapes "
+                                            f"{sorted(s for s, _ in shapes.k2 if s not in k2_checked)}")
+    print(f"phase 11: K1 shapes fed {sorted(shapes.k1)}, K2 {len(shapes.k2)} shape/type pairs; "
+          f"all among those phases 3-4 checked against the plain versions")
+    release(torch)
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {summary['phase_seconds']:.3f} s")
+    return paths, summary
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1966,6 +2326,10 @@ def main() -> int:
             options, summary["model_options"] = model_options_path(torch, K, card, work,
                                                                    args.out_dir, args.profile)
             paths.update(options)
+            shipped, summary["shipped_configs"] = shipped_configs_path(
+                torch, K, args.out_dir, work, root, rows,
+                {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]})
+            paths.update(shipped)
         finally:
             shutil.rmtree(work, ignore_errors=True)
     for k in (k1, k2):

@@ -39,7 +39,7 @@ from ..data.loader import DeviceFeeder, cycle
 from ..models.discriminator import FCDiscriminator, seeded_fc_discriminator
 from ..ops import losses as L
 from ..ops.interp import upsample_bilinear_ac
-from ..utils.checkpoint import save_atomic
+from ..utils import checkpoint as ckpt
 from . import optim
 from .proto_online import LazyLogs, ProtoOnlineAdapter, refuse_unported
 from .timing import samples_due
@@ -256,15 +256,17 @@ class AdventAdapter:
     def save_model(self) -> None:
         """`advent_state.pt`: the student, its BN buffers and momentum, both
         discriminators, both Adam states, the dropout generator and the step,
-        replaced only once the new file is whole."""
+        replaced only once the new file is whole (written in the background under
+        OTHERS.ASYNC_SAVE)."""
         s = self.state
         payload = {f.name: getattr(s, f.name) for f in dataclasses.fields(s) if f.name != "generator"}
         payload["generator"] = s.generator.get_state()
-        save_atomic(payload, os.path.join(str(self.cfg.OTHERS.SNAPSHOT_DIR), "advent_state.pt"))
+        ckpt.save_atomic(payload, os.path.join(str(self.cfg.OTHERS.SNAPSHOT_DIR), "advent_state.pt"),
+                         wait=not value_or(self.cfg.OTHERS.ASYNC_SAVE, False))
 
     def load_model(self, path: str) -> None:
         """Restore a whole `advent_state.pt` (an exact resume)."""
-        payload = torch.load(path, map_location=self.device, weights_only=False)
+        payload = ckpt.load(path, map_location=self.device, weights_only=False)
         missing = {f.name for f in dataclasses.fields(self.state)} - set(payload)
         if missing:
             raise KeyError(f"{path} is not an ADVENT snapshot: it lacks {sorted(missing)}")

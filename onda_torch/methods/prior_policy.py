@@ -5,7 +5,10 @@ decides whether to run the dynamic teacher and how to mix the prior. All
 decisions are tensor comparisons on monitor statistics, kept on the device;
 the one exception is the gate of the dynamic teacher's forward: skipping a
 forward in eager PyTorch needs the decision on the host, so `_gated_dynamic`
-reads it with one `.item()` (the JAX package uses `lax.cond`).
+reads it with one `.item()` (the JAX package uses `lax.cond`). A policy whose
+decision is fixed by the config reads nothing: `base` with DYNAMIC_LAMBDA 0
+never runs the dynamic teacher, and with SWITCH_PRIOR_THRESH 0 runs it every
+step.
 
 * base    — PROTO_ONLINE: below SWITCH_PRIOR_THRESH the prior is replaced by
             the dynamic prediction (reference methods/prototypes.py:227-248)
@@ -53,16 +56,17 @@ def compute_prior(policy: str, spec, monitor, mon_state, switch: SwitchState, pr
 
     if policy == "base":
         thresh = float(value_or(spec.SWITCH_PRIOR_THRESH, 0.0))
+        if dyn_l <= 0:
+            return base_prior, torch.zeros_like(prior_ema), false, switch, logs
         if thresh > 0:
             replace = avg_static < thresh
             calc_dyn = replace
-        else:
-            replace, calc_dyn = false, torch.ones((), dtype=torch.bool, device=dev)
-        if dyn_l > 0:
             dyn_p = _gated_dynamic(dyn_forward, calc_dyn, prior_ema)
             prior = torch.where(replace, dyn_l * dyn_p, base_prior + dyn_l * dyn_p)
-        else:
-            dyn_p, calc_dyn, prior = torch.zeros_like(prior_ema), false, base_prior
+        else:  # the dynamic teacher runs every step: there is no gate to read
+            calc_dyn = torch.ones((), dtype=torch.bool, device=dev)
+            dyn_p = dyn_forward()
+            prior = base_prior + dyn_l * dyn_p
         return prior, dyn_p, calc_dyn, switch, logs
 
     if policy == "hswitch":

@@ -26,9 +26,10 @@ Around the step, `train` feeds batches through `DeviceFeeder`s (the next
 batch's copy overlaps the step), inserts pseudo-labeled target frames into a
 replay buffer, refreshes the dynamic teacher under AUTO_DYNAMIC, dumps the
 raw target logits under PREDICTION_SAVE, evaluates, renders samples and
-checkpoints once per epoch.
+checkpoints once per epoch. Under OTHERS.ASYNC_SAVE the checkpoint's disk
+write runs in the background (`utils.checkpoint`).
 
-Not ported yet (they raise): OTHERS.ASYNC_SAVE and more than one device (M17).
+Not ported yet (they raise): more than one device (M17).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from ..ops import metrics as M
 from ..ops import prototypes as P
 from ..ops.interp import resize_nearest, upsample_bilinear_ac
 from ..ops.monitor import Monitor
-from ..utils.checkpoint import save_atomic
+from ..utils import checkpoint as ckpt
 from . import optim
 from .prior_policy import POLICY_BY_METHOD, compute_prior
 from .state import AdaptState, clone_tree, make_adapt_state
@@ -97,9 +98,8 @@ def _flat(x):
 
 
 def refuse_unported(cfg) -> None:
-    """Raise for the options the port does not run yet."""
-    if value_or(cfg.OTHERS.ASYNC_SAVE, False):
-        raise NotImplementedError("OTHERS.ASYNC_SAVE is not ported yet")
+    """Raise for the options the port does not run yet: OTHERS.DATA_PARALLEL
+    and OTHERS.TENSOR_PARALLEL (more than one device)."""
     for key in ("DATA_PARALLEL", "TENSOR_PARALLEL"):
         if value_or(cfg.OTHERS[key], False):
             raise NotImplementedError(f"OTHERS.{key}: the port runs on one device "
@@ -838,8 +838,9 @@ class ProtoOnlineAdapter:
     # ------------------------------------------------------------------
     def save_model(self) -> None:
         """The full state as one `torch.save` (`adapt_state.pt`, replaced only
-        once the new file is whole) plus the prototype pickle (reference
-        adaptation_model.py:202-216)."""
+        once the new file is whole; written in the background under
+        OTHERS.ASYNC_SAVE) plus the prototype pickle, always written at once
+        (reference adaptation_model.py:202-216)."""
         root = str(self.cfg.OTHERS.SNAPSHOT_DIR)
         s = self.state
         payload = {f.name: getattr(s, f.name) for f in dataclasses.fields(s)
@@ -848,7 +849,8 @@ class ProtoOnlineAdapter:
         payload["monitor"] = vars(s.monitor)
         payload["switch"] = vars(s.switch)
         payload["generator"] = s.generator.get_state()
-        save_atomic(payload, os.path.join(root, "adapt_state.pt"))
+        ckpt.save_atomic(payload, os.path.join(root, "adapt_state.pt"),
+                         wait=not value_or(self.cfg.OTHERS.ASYNC_SAVE, False))
         P.save(s.proto, self._proto_path(self.cfg_spec.set_ or "current"))
 
     def load_newest(self, candidates, skip: str):
@@ -870,7 +872,7 @@ class ProtoOnlineAdapter:
         run's `advent_state.pt` lends the student (params and BN buffers, as
         the JAX runner lifts them); any other file is a model state_dict and
         restores the student only."""
-        payload = torch.load(path, map_location=self.device, weights_only=False)
+        payload = ckpt.load(path, map_location=self.device, weights_only=False)
         s = self.state
         if "params" in payload and "proto" in payload:
             gen_state = payload.pop("generator")

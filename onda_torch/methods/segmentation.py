@@ -26,7 +26,7 @@ from ..data.loader import DeviceFeeder, to_device
 from ..ops import losses as L
 from ..ops import metrics as M
 from ..ops.interp import upsample_bilinear_ac
-from ..utils.checkpoint import save_atomic
+from ..utils import checkpoint as ckpt
 from . import optim
 from .timing import SpeedMeter
 
@@ -163,16 +163,23 @@ class SegmentTrainer:
             self._log(log)
             self.save_model()
 
+    def _student(self) -> dict:
+        """The student in the reference's state_dict key layout, where it lives."""
+        tensors = {**self.params, **self.batch_stats}
+        return {k: tensors[k].detach() for k in self.model.state_dict()}
+
     def state_dict(self) -> dict:
         """The student in the reference's state_dict key layout, on the host."""
-        tensors = {**self.params, **self.batch_stats}
-        return {k: tensors[k].detach().cpu() for k in self.model.state_dict()}
+        return {k: v.cpu() for k, v in self._student().items()}
 
     def save_model(self) -> None:
-        """`model_train_{SOURCE}.pth` in SNAPSHOT_DIR (reference segmentation.py:141-151)."""
+        """`model_train_{SOURCE}.pth` in SNAPSHOT_DIR (reference
+        segmentation.py:141-151); under OTHERS.ASYNC_SAVE the save copies the
+        student to pinned host memory and writes it in the background."""
         path = os.path.join(str(self.cfg.OTHERS.SNAPSHOT_DIR),
                             f"model_train_{self.cfg.SCHEME.SOURCE}.pth")
-        save_atomic(self.state_dict(), path)
+        wait = not value_or(self.cfg.OTHERS.ASYNC_SAVE, False)
+        ckpt.save_atomic(self.state_dict() if wait else self._student(), path, wait=wait)
 
     def _log(self, metrics):
         if self.logger is not None:

@@ -11,6 +11,7 @@ import os
 import torch
 
 from .config import unset
+from .utils import checkpoint
 
 DATABASE_NAMES = [
     "rainy_cityscapes_video",
@@ -62,7 +63,7 @@ def load_state_dict(path: str) -> dict:
     """Unpickle a `.pth`: a bare state_dict, a whole-module pickle, or
     Microsoft ProDA's training container `{"ResNet101": {"model_state": sd}}`
     (reference deeplabv2_proda.py:525-527)."""
-    sd = torch.load(path, map_location="cpu", weights_only=False)
+    sd = checkpoint.load(path, map_location="cpu", weights_only=False)
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     if isinstance(sd, dict) and isinstance(sd.get("ResNet101"), dict):

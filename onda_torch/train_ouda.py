@@ -19,9 +19,12 @@
   only the first domain bootstraps prototypes and evaluates before adapting;
   model, teachers, prototypes and monitors carry over between domains.
 
-An option the port does not run yet (OTHERS.ASYNC_SAVE, more than one
-device) stops it before the first step. It runs on the card (`--device
-cuda`, the default) unless asked for the CPU; without a card it stops.
+An option the port does not run yet (OTHERS.DATA_PARALLEL and
+OTHERS.TENSOR_PARALLEL: more than one device) stops it before the first
+step. Under OTHERS.ASYNC_SAVE the checkpoints are written in the background;
+`main` waits for every write, and raises a failed one, before it returns. It
+runs on the card (`--device cuda`, the default) unless asked for the CPU;
+without a card it stops.
 """
 
 from __future__ import annotations
@@ -48,7 +51,17 @@ def getf(x):
 
 def main(argv=None):
     """Run the CLI; returns the adapter after the last domain (the runner in
-    EVALUATION mode)."""
+    EVALUATION mode). Every checkpoint write still in flight (OTHERS.ASYNC_SAVE)
+    is waited for before it returns or raises."""
+    from .utils.checkpoint import wait_for_saves
+
+    try:
+        return _main(argv)
+    finally:
+        wait_for_saves()
+
+
+def _main(argv):
     args = get_arguments(argv)
     from .config import cfg_from_file, default_config, unset
     from .data import Loader, ReplayBuffer, SegmentationDataset, Table

@@ -554,14 +554,32 @@ def test_param_labels_match_jax(kind):
 # an option the port lacks stops the CLI before SEGMENT trains
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("option", ["ASYNC_SAVE", "DATA_PARALLEL", "TENSOR_PARALLEL"])
-def test_segment_config_refuses_unported_options_before_training(tmp_path, option):
+def _segment_cfg(tmp_path, **over):
+    """training_fog.yml cut to one SEGMENT epoch on the synthetic fog dataset."""
     root, snap = str(tmp_path / "ds"), str(tmp_path / "snaps")
     make_synthetic_dataset(root, intensities=(0, 25), per_domain=2, size_wh=(128, 64))
     os.rename(os.path.join(root, "metadata.json"), os.path.join(root, "metadata_fog.json"))
     cfg = _workflow_cfg(tmp_path / "seg.yml", "configs/training_fog.yml", root, snap, **{
-        "METHOD.PRETRAIN.SEGMENT.EPOCHS": 1, f"OTHERS.{option}": True})
+        "METHOD.PRETRAIN.SEGMENT.EPOCHS": 1, **over})
+    return cfg, snap
+
+
+@pytest.mark.parametrize("option", ["DATA_PARALLEL", "TENSOR_PARALLEL"])
+def test_segment_config_refuses_unported_options_before_training(tmp_path, option):
+    cfg, snap = _segment_cfg(tmp_path, **{f"OTHERS.{option}": True})
     with pytest.raises(NotImplementedError, match=option):
         _main(cfg)
     written = os.listdir(snap) if os.path.isdir(snap) else []
     assert not [f for f in written if f.endswith((".pth", ".pt"))]
+
+
+def test_segment_config_with_async_save_trains_and_saves(tmp_path):
+    """OTHERS.ASYNC_SAVE is ported: the same cut SEGMENT config trains, and the
+    CLI returns with its `.pth` whole and loadable (no write left in flight)."""
+    cfg, snap = _segment_cfg(tmp_path, **{"OTHERS.ASYNC_SAVE": True})
+    _main(cfg)
+    assert not [f for f in os.listdir(snap) if f.startswith(".")]
+    sd = torch.load(os.path.join(snap, "model_train_[[0]].pth"), weights_only=False)
+    model = build_deeplab_v2(C, registry.LAYERS["DeepLabv2-Resnet50"], "ProDA", multi_level=True)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd)
