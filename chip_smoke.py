@@ -12,21 +12,28 @@
                                          # against this tree's, in turns
     python3 chip_smoke.py --aux-cost     # also time phase 8.2's step with the
                                          # aux head computed and thrown away
+    python3 chip_smoke.py --parallel-only  # phases 1-4, phase 7's dataset and
+                                         # phase 12 (the data-parallel ranks)
 
 Phases:
  1. card name and power limit; the TF32 settings of each phase;
  2. build the CUDA kernels of onda_torch/csrc (one nvcc per source, in parallel)
     and, beside them, the C++ host prep of onda_torch/native (g++);
  3. K1 (pseudo_labels_kernel) against its plain version at the main path's
-    shape (P = 4*65*129, F = 256, C = 19), euclidean and mahalanobis, and at
-    C = 1, C = 32 and P = 700 and 1 (not multiples of its 128-pixel tile);
+    shape (P = 4*65*129, F = 256, C = 19), euclidean and mahalanobis, at a
+    rank's b2 of phase 12 and b8, and at C = 1, C = 32 and P = 700 and 1
+    (not multiples of its 128-pixel tile);
  4. K2 (bn_stats_kernel) against a float64 reference at every distinct
-    BatchNorm input shape of DeepLabv2-R50 at batch 4, 1024x512 and at
-    training_fog.yml's batch 4, 128x64 (phase 8.1's SEGMENT run), and at
+    BatchNorm input shape of DeepLabv2-R50 at batch 4, 1024x512 (and a
+    rank's batch 2 of phase 12, and batch 8) and at training_fog.yml's batch
+    4, 128x64 (phase 8.1's SEGMENT run), and at
     adversarial shapes (odd planes, one element, planes that start at an odd
     element), f32 and bf16, NCHW and channels_last, each call repeated to show
-    that the result is the same bit for bit; the BatchNorm autograd.Function's
-    gradients against autograd of the plain version;
+    that the result is the same bit for bit; its raw-moments output (mean and
+    E[x^2] in f64, what data parallelism all-reduces) against its plain
+    version at the same shapes, and against the statistics output bit for
+    bit; the BatchNorm autograd.Function's gradients against autograd of the
+    plain version;
  5. a small-input check: one bootstrap and one adaptation step of a tiny model
     on the card against the same on the CPU (plain versions of both kernels),
     the same in bf16 (OTHERS.PRECISION's model), and one step each of ADVENT
@@ -97,6 +104,17 @@ Phases:
     next step timed) and through the CLI (confidence_switch.yml, SAVE_EVERY
     2). Every K1 and K2 shape these runs feed must be among those phases 3-4
     checked.
+ 12. OTHERS.DATA_PARALLEL across two ranks, each run through `python -m
+    torch.distributed.run --nproc-per-node 2` (NCCL with a card per rank
+    where there are two cards, else both ranks on the one card through
+    gloo; the phase's lines name the backend and the layout): 12.1
+    hybrid_switch.yml in memory at b4 1024x512, one process at b4 against
+    the ranks at b2 each after a bootstrap and one step (losses,
+    prototypes, every parameter's update; the ranks' whole states equal bit
+    for bit), then timed steps (per-rank step ms, K1 2 and K2 159 a step,
+    271 all-reduces a step and their bytes, host syncs, peak memory); 12.2
+    `onda_torch.train_ouda.main` on phase 7's files (two domains), rank 0
+    the one writer: exit 0, finite losses, each rank's K1/K2 counts.
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
@@ -114,6 +132,7 @@ build/chip_smoke/).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -217,10 +236,10 @@ def k1_inputs(torch, n_pix, n_feat, n_cls, seed):
 def check_k1(torch, K, P):
     main = (4 * 65 * 129, 256, 19)
     thresh, tau = 0.3, torch.tensor(1.0, device="cuda")
-    # the main path's shape, phase 10.2's batch of 8, then C = 1 and 32 and P
-    # off the 128-pixel tile
-    cases = [main, (8 * 65 * 129, 256, 19), (main[0], 256, 1), (main[0], 256, 32),
-             (700, 256, 19), (1, 256, 19)]
+    # the main path's shape, a phase-12 rank's batch of 2, phase 10.2's batch
+    # of 8, then C = 1 and 32 and P off the 128-pixel tile
+    cases = [main, (2 * 65 * 129, 256, 19), (8 * 65 * 129, 256, 19), (main[0], 256, 1),
+             (main[0], 256, 32), (700, 256, 19), (1, 256, 19)]
     max_err = 0.0
     for n_pix, n_feat, n_cls in cases:
         feat, protos, prior, scale = k1_inputs(torch, n_pix, n_feat, n_cls, 1)
@@ -302,8 +321,10 @@ def k2_layouts(torch, x):
 
 
 def check_k2_once(torch, K, x, tag):
-    """K2 on x in every layout against float64, and twice to the same bits.
-    Returns (max mean error, max var error) of the NCHW call."""
+    """K2 on x in every layout against float64, and twice to the same bits;
+    its raw moments against their plain version and against the statistics
+    output, bit for bit. Returns (max mean error, max var relative error,
+    max var error, max raw-moment error) of the NCHW call."""
     x64 = x.double()
     ref_mean = x64.mean(dim=(0, 2, 3))
     ref_var = x64.var(dim=(0, 2, 3), unbiased=False)
@@ -327,8 +348,22 @@ def check_k2_once(torch, K, x, tag):
         ok = e_mean <= 1e-6 * amax and e_var <= 1e-4 and e_flat <= 1e-6 * amax**2
         check(ok, f"K2 {tag} {layout}: mean err {e_mean:.3e} (limit {1e-6 * amax:.3e}), var rel "
                   f"err {e_var:.3e} (limit 1e-4), zero-var err {e_flat:.3e}")
+        raw, raw2 = K.bn_moments(xl), K.bn_moments(xl)
+        torch.cuda.synchronize()
+        check(torch.equal(raw, raw2), f"K2 {tag} {layout}: two raw-moment calls differ")
+        plain = K.bn_moments_plain(xl)
+        e_raw = (raw - plain).abs().max().item()
+        e_sq = ((raw[1] - plain[1]).abs() / plain[1].abs().clamp(min=1e-30)).max().item()
+        # the same f64 fold as the statistics: its mean rounds to theirs, and
+        # E[x²] − E[x]² in f64 to their variance, bit for bit
+        same = (torch.equal(raw[0].float(), mean) and torch.equal(
+            torch.clamp(raw[1] - raw[0] * raw[0], min=0.0).float(), var))
+        e_m = (raw[0] - plain[0]).abs().max().item()
+        check(raw.dtype == torch.float64 and e_m <= 1e-6 * amax and e_sq <= 1e-6 and same,
+              f"K2 {tag} {layout}: raw moments: mean err {e_m:.3e}, E[x²] rel err {e_sq:.3e} "
+              f"(limits {1e-6 * amax:.3e}, 1e-6), the statistics' bits {same}")
         if layout == "nchw":
-            result = (e_mean, e_var, (var.double() - ref_var).abs().max().item())
+            result = (e_mean, e_var, (var.double() - ref_var).abs().max().item(), e_raw)
     return result
 
 
@@ -346,12 +381,14 @@ def check_k2(torch, K, layers, out_dir):
     shapes = bn_input_shapes(torch)
     check(len(shapes) == 53, f"expected 53 BatchNorm calls in R50, got {len(shapes)}")
     distinct = sorted(set(shapes), key=lambda s: -math.prod(s))
-    # checked, not timed: phase 8.1's shapes and phase 10.2's batch of 8
-    extra = set(segment_bn_shapes(torch)) | set(bn_input_shapes(torch, batch=8))
+    # checked, not timed: phase 8.1's shapes, a phase-12 rank's batch of 2 and
+    # phase 10.2's batch of 8
+    extra = (set(segment_bn_shapes(torch)) | set(bn_input_shapes(torch, batch=2))
+             | set(bn_input_shapes(torch, batch=8)))
     others = sorted(extra - set(distinct), key=lambda s: -math.prod(s))
     g = torch.Generator(device="cuda").manual_seed(2)
-    rows, max_err = [], 0.0
-    per_shape = {}
+    rows, max_err, raw_err = [], 0.0, 0.0
+    per_shape, raw_ms = {}, {}
     for shape in distinct + others + K2_ODD_SHAPES:
         c = shape[1]
         offset = torch.randn(1, c, 1, 1, device="cuda", generator=g)
@@ -359,13 +396,15 @@ def check_k2(torch, K, layers, out_dir):
         base = torch.randn(shape, device="cuda", generator=g) * spread + offset
         for dtype in (torch.float32, torch.bfloat16):
             x = base.to(dtype)
-            e_mean, e_var, e_var_abs = check_k2_once(torch, K, x, f"{shape} {dtype}")
+            e_mean, e_var, e_var_abs, e_raw = check_k2_once(torch, K, x, f"{shape} {dtype}")
             rows.append({"shape": shape, "dtype": str(dtype), "mean_abs_err": e_mean,
-                         "var_rel_err": e_var})
+                         "var_rel_err": e_var, "raw_moments_abs_err": e_raw})
             if shape not in distinct:
                 continue
             if dtype == torch.float32:
                 max_err = max(max_err, e_mean, e_var_abs)
+                raw_err = max(raw_err, e_raw)
+                raw_ms[shape] = cuda_ms(torch, lambda: K.bn_moments(x))
             # time the layout the main path uses (NCHW)
             ms = cuda_ms(torch, lambda: K.bn_stats(x))
             plain = cuda_ms(torch, lambda: K.bn_stats_plain(x))
@@ -386,9 +425,11 @@ def check_k2(torch, K, layers, out_dir):
           f"pairs: {slower}")
     # one forward's 53 BN inputs (f32), summed with multiplicity
     tot = [sum(per_shape[(s, "torch.float32")][i] for s in shapes) for i in range(4)]
+    moments_ms = sum(raw_ms[s] for s in shapes)
     print(f"K2 over the 53 BN inputs of one R50 forward (f32): kernel {tot[0]:.4f} ms, "
           f"plain {tot[1]:.4f} ms, torch.var_mean {tot[2]:.4f} ms, bound {tot[3]:.4f} ms, "
-          f"{100 * share(tot[3], tot[0]):.1f}% of the bound")
+          f"{100 * share(tot[3], tot[0]):.1f}% of the bound; the raw-moments output "
+          f"{moments_ms:.4f} ms (max abs err against its plain version {raw_err:.3e})")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "k2_shapes.json"), "w") as f:
         json.dump({"checks": rows, "timings": [
@@ -421,7 +462,7 @@ def check_k2(torch, K, layers, out_dir):
             "checked_shapes": [list(s) for s in distinct + others + K2_ODD_SHAPES],
             "max_abs_err": max_err, "ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[3],
             "bound_by": "bytes", "bound_share": share(tot[3], tot[0]), "library_ms": tot[2],
-            "check": "pass"}
+            "moments_ms": moments_ms, "moments_max_abs_err": raw_err, "check": "pass"}
 
 
 # ---------------------------------------------------------------------------
@@ -1053,8 +1094,6 @@ def run_cli(torch, K, cfg_path, log_path):
     """onda_torch.train_ouda.main in this process, its output into log_path;
     the launch and batch counts are reset just before and read just after.
     Returns (launches, batches, seconds, output, what main returned)."""
-    import contextlib
-
     from onda_torch import train_ouda
     from onda_torch.data import loader
 
@@ -2252,8 +2291,354 @@ def shipped_configs_path(torch, K, out_dir, work, root, rows, checked):
     print(f"phase 11: {summary['phase_seconds']:.3f} s")
     return paths, summary
 
+# ---------------------------------------------------------------------------
+# phase 12: OTHERS.DATA_PARALLEL across two ranks (the PROTO_ONLINE family)
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_TIMED_STEPS = 6
+DP_DEADLINE = 480  # seconds for a run of the two ranks; past it both are killed
+# one process at b4 against two ranks at b2 each, after a bootstrap and one
+# step with TF32 off: losses relative, prototypes absolute, and the largest
+# difference of the updated parameters in the head and in the backbone
+# against the largest entry of that group's update. "exact": each sample's
+# arithmetic made independent of its batch (`batch_invariant`), so only the
+# order of the sums over the batch differs; "kernels": the step as it runs,
+# cuDNN and K2 at b2 against b4, whose last-bit differences in the forward
+# move the backbone's update by ≈2% (its BatchNorms of near-constant channels
+# scale the backward by up to 1/sqrt(eps)). Each bound is ≈3-10x PR 9's
+# reading on an H100.
+DP_BOUNDS = {"exact": {"loss": 1e-6, "proto": 1e-5, "head": 4e-4, "backbone": 1e-4},
+             "kernels": {"loss": 1e-6, "proto": 1e-4, "head": 2e-3, "backbone": 5e-2}}
+DP_LOSS_KEYS = ("Total target loss", "ce_loss", "rce_loss", "regularization_loss", "buff_ce_loss")
+
+
+def dp_layout(torch):
+    """The backend the ranks will pick here, and the layout in words."""
+    from onda_torch.parallel import distributed as D
+
+    cards = torch.cuda.device_count()
+    backend = D.choose_backend("cuda", DP_RANKS, cards)
+    where = (f"one card each (cards 0-{DP_RANKS - 1})" if backend == "nccl"
+             else f"both on card 0 ({cards} card(s) here)")
+    return backend, f"{DP_RANKS} ranks, {where}, {backend}"
+
+
+def run_ranks(args, log_path, deadline=DP_DEADLINE):
+    """`python -m torch.distributed.run --standalone --nproc-per-node 2 args`,
+    its output into log_path; every process it started is killed at the
+    deadline. Returns (exit code, output, seconds)."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(DP_RANKS), *args]
+    t = time.perf_counter()
+    with open(log_path, "w+") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=HERE,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=deadline)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise SmokeFailure(f"the ranks of {args[:2]} ran past {deadline} s (a collective "
+                               f"that never completed?); see {log_path}")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        log.seek(0)
+        text = log.read()
+    return proc.returncode, text, time.perf_counter() - t
+
+
+def digests(torch, state):
+    """sha256 of the bytes of every tensor of an AdaptState."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                              .numpy().tobytes()).hexdigest()
+            for k, v in state_tensors(torch, state).items()}
+
+
+@contextlib.contextmanager
+def batch_invariant(torch):
+    """cuDNN off and every BatchNorm's statistics from exact f64 sums (the
+    plain K2): each sample's arithmetic then does not depend on the batch."""
+    from onda_torch.ops import kernels as K
+
+    saved = K.bn_stats, K.bn_moments, torch.backends.cudnn.enabled
+
+    def exact_stats(x):
+        mean, mean_sq = K.bn_moments_plain(x)
+        return mean.float(), torch.clamp(mean_sq - mean * mean, min=0.0).float()
+
+    K.bn_stats, K.bn_moments, torch.backends.cudnn.enabled = exact_stats, K.bn_moments_plain, False
+    try:
+        yield
+    finally:
+        K.bn_stats, K.bn_moments, torch.backends.cudnn.enabled = saved
+
+
+def dp_compare_step(torch, device, batch, exact, rank=0, world=1):
+    """The adapter of hybrid_switch.yml at b`batch` 1024x512 (seeded
+    weights) on `device`, bootstrapped on this rank's rows of two seeded
+    source batches, after one step on its rows of a seeded target batch,
+    with TF32 off and deterministic cuDNN (`exact`: `batch_invariant`);
+    returns (adapter, step, logs, local batch fn, the parameters before the
+    step on the host)."""
+    b = batch // world
+
+    def local(bt):
+        return {k: v[rank * b:(rank + 1) * b] for k, v in bt.items()}
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    with batch_invariant(torch) if exact else contextlib.nullcontext():
+        ad = make_adapter(torch, device, MAIN_HW, batch)
+        ad.cfg_spec.PSEUDO_THRESH = 0.06  # random weights: keep pseudo-labels, so CE and RCE count
+        start = {k: v.detach().to("cpu", copy=True) for k, v in ad.state.params.items()}
+        ad.calculate_prototypes([local(x) for x in make_batches(torch, 2, batch, MAIN_HW, 10)])
+        step = ad.step_fn(True, 1, False)
+        src = local(make_batches(torch, 1, batch, MAIN_HW, 12)[0])
+        trg = local(make_batches(torch, 1, batch, MAIN_HW, 13)[0])
+        dev = ad.device
+        ad.state, logs = step(ad.state, trg["image"].to(dev), src["image"][None].to(dev),
+                              src["label_res"][None].to(dev), 1e-5)
+        logs = dict(logs.items())
+        torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, False
+    return ad, step, logs, local, start
+
+
+def compared_state(torch, ad):
+    """The parameters and prototypes of an adapter, on the host."""
+    return {"params": {k: v.detach().to("cpu", copy=True) for k, v in ad.state.params.items()},
+            "proto": {k: v.detach().to("cpu", copy=True) for k, v in vars(ad.state.proto).items()}}
+
+
+def dp_rank(work):
+    """One rank of phase 12.1 (run under torch.distributed.run): the compared
+    step, the digests of its whole state, then DP_TIMED_STEPS timed steps
+    with TF32 on; writes rank<r>.json (and rank 0 its state after the
+    compared step) into `work`."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from onda_torch.ops import kernels as K
+    from onda_torch.parallel import distributed as D
+
+    from onda_torch.models.layers import TorchBatchNorm
+
+    device = D.initialize("cuda")
+    rank, world = D.rank(), D.world()
+    batch = 4
+    out = {"rank": rank, "world": world, "backend": D.backend(), "device": str(device)}
+    for mode in DP_BOUNDS:  # "exact", then "kernels", whose adapter goes on to the timed steps
+        ad, step, logs, local, _ = dp_compare_step(torch, device, batch, mode == "exact", rank,
+                                                   world)
+        out[mode] = {"logs": logs, "digests": digests(torch, ad.state)}
+        if rank == 0:
+            torch.save(compared_state(torch, ad), os.path.join(work, f"rank0_{mode}.pt"))
+    out["n_bn"] = sum(isinstance(m, TorchBatchNorm) for m in ad.model.modules())
+    batches = [(local(s), local(t)) for s, t in zip(
+        make_batches(torch, DP_TIMED_STEPS, batch, MAIN_HW, 20),
+        make_batches(torch, DP_TIMED_STEPS, batch, MAIN_HW, 21))]
+    feed = [(t["image"].to(device), s["image"][None].to(device), s["label_res"][None].to(device))
+            for s, t in batches]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    D.reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    times, finite = [], True
+    for img, s_img, s_lbl in feed:
+        t = time.perf_counter()
+        ad.state, step_logs = step(ad.state, img, s_img, s_lbl, 1e-5)
+        finite &= math.isfinite(step_logs["Total target loss"])  # the step ends at its log read
+        times.append(1e3 * (time.perf_counter() - t))
+    out.update(step_ms=times, finite=finite, launches=dict(K.launches), collectives=dict(D.COUNTS),
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    img, s_img, s_lbl = feed[0]
+    D.reset_counts()
+    (ad.state, step_logs), syncs = count_syncs(
+        torch, lambda: step(ad.state, img, s_img, s_lbl, 1e-5))
+    out.update(debug_syncs=len(syncs), sync_collectives=D.COUNTS["collectives"])
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    D.destroy()
+
+
+def cli_rank(work, argv):
+    """One rank of phase 12.2: `onda_torch.train_ouda.main(argv)` under
+    torch.distributed.run, then its K1/K2 launches into work/cli_rank<r>.json."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from onda_torch import train_ouda
+    from onda_torch.ops import kernels as K
+    from onda_torch.parallel import distributed as D
+
+    rank = int(os.environ.get("RANK", "0"))
+    K.reset_launches()
+    train_ouda.main(argv)
+    torch.cuda.synchronize()
+    with open(os.path.join(work, f"cli_rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "launches": dict(K.launches), "collectives": dict(D.COUNTS)}, f)
+
+
+def update_gap(got, want, start, keys):
+    """The largest |got − want| over the tensors `keys`, against the largest
+    entry of want's update from start among them."""
+    diff = max((got[k].double() - want[k].double()).abs().max().item() for k in keys)
+    update = max((want[k].double() - start[k].double()).abs().max().item() for k in keys)
+    return diff / max(update, 1e-30)
+
+
+def data_parallel_path(torch, K, out_dir, work, root, rows):
+    """Phase 12: 12.1 hybrid_switch.yml in memory at full width, one process
+    at b4 against two ranks at b2 each (bootstrap and one step compared, the
+    ranks bit for bit), then timed; 12.2 the CLI under torch.distributed.run
+    on phase 7's files. Returns launch counts by path and the numbers."""
+    t_phase = time.perf_counter()
+    backend, layout = dp_layout(torch)
+    summary = {"backend": backend, "layout": layout}
+    # 12.1: the one-process references first, then the two ranks
+    release(torch)
+    one = {}
+    for mode in DP_BOUNDS:
+        ad, _, logs, _, start = dp_compare_step(torch, "cuda", 4, mode == "exact")
+        one[mode] = {**compared_state(torch, ad), "logs": logs}
+        del ad
+        release(torch)
+    dp_dir = os.path.join(work, "dp")
+    os.makedirs(dp_dir, exist_ok=True)
+    rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--dp-rank", dp_dir],
+                                  os.path.join(out_dir, "dp_ranks.log"))
+    check(rc == 0, f"phase 12.1: a rank failed (exit {rc}):\n{text[-3000:]}")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(dp_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    check(all(r["world"] == DP_RANKS and r["backend"] == backend for r in ranks),
+          f"phase 12.1: ranks report {[(r['world'], r['backend']) for r in ranks]}, expected "
+          f"{DP_RANKS} on {backend}")
+    gaps = {}
+    for mode, bounds in DP_BOUNDS.items():
+        differ = sorted(k for k in r0[mode]["digests"] if any(
+            r[mode]["digests"][k] != r0[mode]["digests"][k] for r in ranks[1:]))
+        check(not differ, f"phase 12.1 {mode}: the ranks' states differ after the step in "
+                          f"{differ[:6]}")
+        check(all(r[mode]["logs"] == r0[mode]["logs"] for r in ranks),
+              f"phase 12.1 {mode}: the ranks' logs differ")
+        got = torch.load(os.path.join(dp_dir, f"rank0_{mode}.pt"), weights_only=False)
+        want = one[mode]
+        logs = r0[mode]["logs"]
+        gaps[mode] = {
+            "loss": max(abs(logs[k] - want["logs"][k]) / max(abs(want["logs"][k]), 1e-12)
+                        for k in DP_LOSS_KEYS),
+            "proto": max((got["proto"][k] - want["proto"][k]).abs().max().item()
+                         for k in ("mean", "sq_mean")),
+            **{group: update_gap(got["params"], want["params"], start,
+                                 [k for k in start if k.startswith("layer6") == (group == "head")])
+               for group in ("head", "backbone")}}
+        check(torch.equal(got["proto"]["count"], want["proto"]["count"])
+              and logs["pseudolabel_pixel_num"] == want["logs"]["pseudolabel_pixel_num"]
+              and logs["dynamic forward fired"] == want["logs"]["dynamic forward fired"],
+              f"phase 12.1 {mode}: prototype counts, pseudo-labels or the gate differ from one "
+              f"process's")
+        print(f"phase 12.1 {mode}: hybrid_switch.yml in memory, b4 1024x512 ({layout}), one "
+              f"process at b4 against the ranks at b2 after a bootstrap and one step (TF32 off): "
+              + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.0e})" for k, v in gaps[mode].items())
+              + f"; the ranks' {len(r0[mode]['digests'])} state tensors equal bit for bit")
+        for key, gap in gaps[mode].items():
+            check(gap <= bounds[key], f"phase 12.1 {mode}: {key} gap {gap:.3e} > {bounds[key]}")
+    steps, n_bn = DP_TIMED_STEPS, r0["n_bn"]  # 53 BatchNorms in the R50
+    for r in ranks:
+        check(r["finite"], f"phase 12.1 rank {r['rank']}: a non-finite loss")
+        check(r["launches"] == {"pseudo_labels_kernel": 2 * steps,
+                                "bn_stats_kernel": 3 * n_bn * steps},
+              f"phase 12.1 rank {r['rank']}: launches {r['launches']}, expected K1 2 and K2 "
+              f"{3 * n_bn} a step")
+        check(r["collectives"]["collectives"] == (5 * n_bn + 6) * steps,
+              f"phase 12.1 rank {r['rank']}: {r['collectives']} collectives over {steps} steps, "
+              f"expected {5 * n_bn + 6} a step ({3 * n_bn} BatchNorm forwards, {2 * n_bn} "
+              f"backwards, 3 in the teachers, the loss counts, the gradients, the logs)")
+    step_ms = [statistics.median(r["step_ms"][1:]) for r in ranks]
+    summary.update(step_ms=step_ms, peak_gib=[r["peak_gib"] for r in ranks],
+                   collectives_per_step=r0["collectives"]["collectives"] / steps,
+                   bytes_per_step=r0["collectives"]["bytes"] / steps,
+                   debug_syncs=r0["debug_syncs"], sync_collectives=r0["sync_collectives"],
+                   gaps=gaps, seconds_12_1=seconds)
+    staged = (f", and each of its {r0['sync_collectives']} gloo all-reduces of card tensors "
+              f"stages through the host" if backend == "gloo" else "")
+    print(f"phase 12.1 timed ({steps} steps, TF32 on, {layout}): median step ms per rank "
+          + ", ".join(f"{v:.3f}" for v in step_ms) + " (steps 1..): "
+          + "; ".join(", ".join(f"{v:.3f}" for v in r["step_ms"]) for r in ranks)
+          + f"; per rank and step K1 {r0['launches']['pseudo_labels_kernel'] // steps}, K2 "
+          f"{r0['launches']['bn_stats_kernel'] // steps}; {summary['collectives_per_step']:.0f} "
+          f"all-reduces of {summary['bytes_per_step'] / 1e6:.3f} MB a step; host syncs the CUDA "
+          f"sync debug mode counts in one step: {r0['debug_syncs']}{staged}; peak memory per "
+          f"rank " + ", ".join(f"{r['peak_gib']:.3f} GiB" for r in ranks)
+          + f"; {seconds:.3f} s with start-up")
+    paths = {f"data_parallel_rank{r['rank']}": r["launches"] for r in ranks}
+
+    # 12.2: the CLI under torch.distributed.run on phase 7's files
+    snap = os.path.join(work, "dp_cli")
+    cfg_path = os.path.join(work, "dp_cli.yml")
+    cfg = cli_config(root, snap, cfg_path, [[25], [50]])
+    batch, n_train = int(cfg["TRAINING"]["BATCH_SIZE"]), CLI_FRAMES["train"]
+    rc, text, seconds = run_ranks(
+        [os.path.join(HERE, "chip_smoke.py"), "--cli-rank", work, "--", "--cfg", cfg_path],
+        os.path.join(out_dir, "dp_cli.log"))
+    check(rc == 0, f"phase 12.2: the CLI under torch.distributed.run failed (exit {rc}):\n"
+                   f"{text[-3000:]}")
+    steps = 2 * n_train // batch
+    boot = min(int(cfg["TRAINING"]["REPLAY_BUFFER"]), n_train) // batch
+    want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": n_bn * (3 * steps + boot)}
+    cli = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(work, f"cli_rank{r}.json")) as f:
+            cli.append(json.load(f))
+        check(cli[r]["launches"] == want, f"phase 12.2 rank {r}: launches {cli[r]['launches']}, "
+                                          f"expected {want} (K1 2 and K2 {3 * n_bn} a step, "
+                                          f"K2 {n_bn} a bootstrap batch)")
+        paths[f"data_parallel_cli_rank{r}"] = cli[r]["launches"]
+    records = read_records(snap)
+    step_records = [rec for rec in records if "Total target loss" in rec]
+    check(len(step_records) == steps, f"phase 12.2: {len(step_records)} step records for {steps} "
+                                      f"steps (one writer)")
+    finite = all(math.isfinite(v) for rec in step_records for k, v in rec.items() if "loss" in k)
+    check(finite, "phase 12.2: a non-finite loss")
+    files = sorted(os.listdir(snap))
+    check({"adapt_state.pt", "metrics.jsonl", "proto_current.pickle", "proto_(25,).pickle",
+           "proto_(50,).pickle"} <= set(files) and not [f for f in files if f.startswith(".")],
+          f"phase 12.2 wrote {files}")
+    miou = {k: v for rec in records for k, v in rec.items() if k.startswith("Val mIoU")}
+    stages = {}
+    for d in range(2):
+        per = step_stage_ms(step_records[d * (steps // 2):(d + 1) * (steps // 2)])
+        for key, ms in per.items():
+            stages.setdefault(key[5:], []).extend(ms[1:-1] or ms)
+    median = {k: statistics.median(v) for k, v in stages.items()}
+    print(f"phase 12.2 configs/hybrid_switch.yml (phase 7's cuts, DOMAIN_ORDER [[25], [50]]) "
+          f"through torch.distributed.run --nproc-per-node {DP_RANKS} ({layout}): {seconds:.3f} s "
+          f"with start-up; per rank launches " + "; ".join(str(c["launches"]) for c in cli)
+          + f"; {len(step_records)} step records from rank 0, every loss finite; files {files}; "
+          f"steady stage ms " + ", ".join(f"{k} {v:.3f}" for k, v in median.items())
+          + f" (sum {sum(median.values()):.3f}); last mIoU keys {json.dumps(miou)}")
+    shutil.rmtree(snap, ignore_errors=True)
+    summary.update(cli_seconds=seconds, cli_stage_ms=median,
+                   phase_seconds=time.perf_counter() - t_phase)
+    print(f"phase 12: {summary['phase_seconds']:.3f} s")
+    return paths, summary
+
+
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 12.1, under torch.distributed.run
+        return dp_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--cli-rank"]:  # a rank of phase 12.2: --cli-rank DIR -- <CLI args>
+        return cli_rank(sys.argv[2], sys.argv[4:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--skip-main", action="store_true", help="kernel phases only")
     parser.add_argument("--profile", action="store_true")
@@ -2261,6 +2646,8 @@ def main() -> int:
                         help="time the K1 and K2 of the onda_torch package in DIR against this tree's")
     parser.add_argument("--aux-cost", action="store_true",
                         help="also time phase 8.2's step with the aux head computed, in turns")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="phases 1-4, phase 7's dataset and phase 12 only")
     parser.add_argument("--out-dir", default=os.path.join(HERE, "build", "chip_smoke"),
                         help="where the per-shape K2 table, the profile and the comparison go")
     args = parser.parse_args()
@@ -2297,7 +2684,8 @@ def main() -> int:
 
     k1 = check_k1(torch, K, P)
     k2 = check_k2(torch, K, layers, args.out_dir)
-    small_input_check(torch)
+    if not args.parallel_only:
+        small_input_check(torch)
     if args.compare:
         compare_earlier(torch, K, args.compare, args.out_dir)
     paths, summary = {}, {}
@@ -2305,7 +2693,8 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = True
         print("main path: cudnn.allow_tf32=True (PyTorch's default: convolutions in TF32), "
               "cuda.matmul.allow_tf32=False")
-        paths["in_memory"], summary = main_path(torch, K, args.profile, args.out_dir)
+        if not args.parallel_only:
+            paths["in_memory"], summary = main_path(torch, K, args.profile, args.out_dir)
         work = tempfile.mkdtemp(prefix="onda_cli_")
         try:
             root = os.path.join(work, "weather_cityscapes") + "/"
@@ -2315,21 +2704,25 @@ def main() -> int:
                   f"(intensities {CLI_INTENSITIES}, {CLI_FRAMES} per intensity), mean image "
                   f"PNG {img_bytes / len(rows) / 1e6:.3f} MB, written in "
                   f"{time.perf_counter() - t:.3f} s")
-            (paths["cli"], paths["cli_resumed"]), summary["cli"] = cli_path(
-                torch, K, args.out_dir, summary["frames_per_s"], work, root, rows)
-            workflow, summary["workflow"], pth = workflow_path(
-                torch, K, args.out_dir, work, root, rows, aux_cost=args.aux_cost)
-            paths.update(workflow)
-            adversarial, summary["adversarial"] = adversarial_path(torch, K, args.out_dir, work,
-                                                                   root, pth, args.profile)
-            paths.update(adversarial)
-            options, summary["model_options"] = model_options_path(torch, K, card, work,
-                                                                   args.out_dir, args.profile)
-            paths.update(options)
-            shipped, summary["shipped_configs"] = shipped_configs_path(
-                torch, K, args.out_dir, work, root, rows,
-                {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]})
-            paths.update(shipped)
+            if not args.parallel_only:
+                (paths["cli"], paths["cli_resumed"]), summary["cli"] = cli_path(
+                    torch, K, args.out_dir, summary["frames_per_s"], work, root, rows)
+                workflow, summary["workflow"], pth = workflow_path(
+                    torch, K, args.out_dir, work, root, rows, aux_cost=args.aux_cost)
+                paths.update(workflow)
+                adversarial, summary["adversarial"] = adversarial_path(
+                    torch, K, args.out_dir, work, root, pth, args.profile)
+                paths.update(adversarial)
+                options, summary["model_options"] = model_options_path(
+                    torch, K, card, work, args.out_dir, args.profile)
+                paths.update(options)
+                shipped, summary["shipped_configs"] = shipped_configs_path(
+                    torch, K, args.out_dir, work, root, rows,
+                    {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]})
+                paths.update(shipped)
+            parallel, summary["data_parallel"] = data_parallel_path(
+                torch, K, args.out_dir, work, root, rows)
+            paths.update(parallel)
         finally:
             shutil.rmtree(work, ignore_errors=True)
     for k in (k1, k2):

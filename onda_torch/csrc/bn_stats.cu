@@ -4,7 +4,12 @@
 // `_bn_stats_kernel`). For a 4-D activation (N, C, H, W) in f32 or bf16 it
 // returns per-channel mean and biased variance max(E[x^2] - E[x]^2, 0),
 // accumulated in f32 per thread and folded in f64, the semantics of
-// `_bn_train_math` in onda_tpu/models/layers.py.
+// `_bn_train_math` in onda_tpu/models/layers.py. Given a `raw` buffer it
+// writes the raw moments there instead, in f64: the mean and the mean of
+// squares E[x^2] (the TPU kernel's sums and sums of squares over the count).
+// Under data parallelism each rank's moments are all-reduced and the variance
+// is taken once, from the global moments, in f64 as here
+// (models/layers.py::bn_train).
 //
 // What bounds it on this card: bytes. Every input element is read once and
 // takes three flops, so at 3.35 TB/s the read is the whole cost: 40 us for the
@@ -144,10 +149,12 @@ __device__ __forceinline__ void reduce_run(const T* __restrict__ p, long long le
 
 // grid (cluster, C), clusters of (cluster, 1, 1): block r of channel c sums
 // the values [r*span, min((r+1)*span, M)) of the channel, M = N*HW.
+// A non-null raw (2 * C f64) receives mean and E[x^2] instead of mean and var.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     bn_stats_cluster_kernel(const T* __restrict__ x, int C, long long HW, long long M,
-                            long long span, float* __restrict__ mean, float* __restrict__ var) {
+                            long long span, float* __restrict__ mean, float* __restrict__ var,
+                            double* __restrict__ raw) {
   __shared__ double part[2];
   cg::cluster_group cluster = cg::this_cluster();
   const int c = blockIdx.y;
@@ -186,9 +193,14 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (threadIdx.x == 0) {
       const double m = a / (double)M;
-      const double v = b / (double)M - m * m;
-      mean[c] = (float)m;
-      var[c] = (float)(v > 0.0 ? v : 0.0);
+      if (raw) {
+        raw[c] = m;
+        raw[C + c] = b / (double)M;
+      } else {
+        const double v = b / (double)M - m * m;
+        mean[c] = (float)m;
+        var[c] = (float)(v > 0.0 ? v : 0.0);
+      }
     }
   }
   cluster.sync();  // keep every block's shared memory alive until rank 0 has read it
@@ -231,7 +243,7 @@ __global__ void stats_cl_kernel(const T* __restrict__ x, int C, long long M, lon
 // channels_last, second launch: grid (C,), fold one channel's partials in f64
 __global__ void finalize_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
                                 int nparts, double count, float* __restrict__ mean,
-                                float* __restrict__ var) {
+                                float* __restrict__ var, double* __restrict__ raw) {
   const int c = blockIdx.x;
   double s = 0.0, q = 0.0;
   for (int i = threadIdx.x; i < nparts; i += kThreads) {
@@ -241,15 +253,20 @@ __global__ void finalize_kernel(const float* __restrict__ psum, const float* __r
   block_sum2(s, q);
   if (threadIdx.x == 0) {
     const double m = s / count;
-    const double v = q / count - m * m;
-    mean[c] = (float)m;
-    var[c] = (float)(v > 0.0 ? v : 0.0);
+    if (raw) {
+      raw[c] = m;
+      raw[gridDim.x + c] = q / count;
+    } else {
+      const double v = q / count - m * m;
+      mean[c] = (float)m;
+      var[c] = (float)(v > 0.0 ? v : 0.0);
+    }
   }
 }
 
 template <typename T>
 int launch_nchw(const void* x, int N, int C, long long HW, int cluster, long long span,
-                float* mean, float* var, cudaStream_t stream) {
+                float* mean, float* var, double* raw, cudaStream_t stream) {
   const long long M = (long long)N * HW;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, C, 1);
@@ -264,21 +281,21 @@ int launch_nchw(const void* x, int N, int C, long long HW, int cluster, long lon
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, bn_stats_cluster_kernel<T>, (const T*)x, C, HW, M,
-                                       span, mean, var);
+                                       span, mean, var, raw);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_cl(const void* x, int C, long long M, long long rows, int nchunks, float* partial,
-              float* mean, float* var, cudaStream_t stream) {
+              float* mean, float* var, double* raw, cudaStream_t stream) {
   float* psum = partial;
   float* psq = partial + (size_t)C * nchunks;
   stats_cl_kernel<T><<<dim3(nchunks, (C + 31) / 32), kThreads, 0, stream>>>(
       (const T*)x, C, M, rows, psum, psq, nchunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  finalize_kernel<<<C, kThreads, 0, stream>>>(psum, psq, nchunks, (double)M, mean, var);
+  finalize_kernel<<<C, kThreads, 0, stream>>>(psum, psq, nchunks, (double)M, mean, var, raw);
   return (int)cudaGetLastError();
 }
 
@@ -287,8 +304,9 @@ int launch_cl(const void* x, int C, long long M, long long rows, int nchunks, fl
 // x: (N, C, H, W) NCHW-contiguous, HW = H*W. The plan (ops/kernels.py::
 // bn_stats_plan) gives `cluster` blocks per channel, each summing `span`
 // values of the channel's N*HW, with (cluster - 1) * span < N*HW <= cluster * span.
+// A non-null raw (2 * C f64) receives mean and E[x^2]; mean and var are then unused.
 extern "C" int onda_bn_stats_nchw(const void* x, int is_bf16, int N, int C, long long HW,
-                                  int cluster, long long span, void* mean, void* var,
+                                  int cluster, long long span, void* mean, void* var, void* raw,
                                   void* stream) {
   const long long M = (long long)N * HW;
   if (N < 1 || C < 1 || HW < 1 || C > 65535 || cluster < 1 || cluster > kMaxCluster ||
@@ -296,21 +314,25 @@ extern "C" int onda_bn_stats_nchw(const void* x, int is_bf16, int N, int C, long
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch_nchw<__nv_bfloat16>(x, N, C, HW, cluster, span, (float*)mean, (float*)var, s);
-  return launch_nchw<float>(x, N, C, HW, cluster, span, (float*)mean, (float*)var, s);
+    return launch_nchw<__nv_bfloat16>(x, N, C, HW, cluster, span, (float*)mean, (float*)var,
+                                      (double*)raw, s);
+  return launch_nchw<float>(x, N, C, HW, cluster, span, (float*)mean, (float*)var, (double*)raw,
+                            s);
 }
 
 // x: channels_last, i.e. (M, C) row-major with M = N*H*W; `rows` rows per
 // block, `nchunks` = ceil(M / rows) blocks per 32 channels; `partial` holds
-// 2 * C * nchunks f32 scratch.
+// 2 * C * nchunks f32 scratch; raw as for onda_bn_stats_nchw.
 extern "C" int onda_bn_stats_cl(const void* x, int is_bf16, long long M, int C, long long rows,
-                                int nchunks, void* partial, void* mean, void* var, void* stream) {
+                                int nchunks, void* partial, void* mean, void* var, void* raw,
+                                void* stream) {
   if (M < 1 || C < 1 || rows < 1 || nchunks < 1 || (long long)nchunks * rows < M ||
       (C + 31) / 32 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return launch_cl<__nv_bfloat16>(x, C, M, rows, nchunks, (float*)partial, (float*)mean,
-                                    (float*)var, s);
-  return launch_cl<float>(x, C, M, rows, nchunks, (float*)partial, (float*)mean, (float*)var, s);
+                                    (float*)var, (double*)raw, s);
+  return launch_cl<float>(x, C, M, rows, nchunks, (float*)partial, (float*)mean, (float*)var,
+                          (double*)raw, s);
 }

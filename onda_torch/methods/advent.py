@@ -39,9 +39,10 @@ from ..data.loader import DeviceFeeder, cycle
 from ..models.discriminator import FCDiscriminator, seeded_fc_discriminator
 from ..ops import losses as L
 from ..ops.interp import upsample_bilinear_ac
+from ..parallel.mesh import refuse_unported
 from ..utils import checkpoint as ckpt
 from . import optim
-from .proto_online import LazyLogs, ProtoOnlineAdapter, refuse_unported
+from .proto_online import LazyLogs, ProtoOnlineAdapter
 from .timing import samples_due
 
 SOURCE_LABEL, TARGET_LABEL = 0.0, 1.0  # advent.py:35

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import distributed as dist
+
 FROZEN, HEAD = -1, 0
 BACKBONE = 1  # plain backbone leaf (k=1), e.g. the stem conv
 
@@ -69,10 +71,17 @@ def grads(loss: torch.Tensor, live: dict, names: list, unused=()) -> dict:
     loss reaches by design (the multi-level aux head where its forward is
     skipped): they get a zero gradient, as `jax.grad` gives, so SGD still
     decays them and runs their momentum. Any other parameter that no loss
-    reaches is an error."""
+    reaches is an error.
+
+    Under data parallelism the loss is this rank's share of the global
+    batch's (its means divide by the global counts), so the gradient of the
+    global loss is the sum over the ranks: one all-reduce of a flat bucket
+    of every gradient, one f32 copy of the trainable parameters, before the
+    update. Every rank then updates with the same bits."""
     used = [k for k in names if k not in unused]
     got = dict(zip(used, torch.autograd.grad(loss, [live[k] for k in used])))
-    return {k: got[k] if k in got else torch.zeros_like(live[k]) for k in names}
+    out = {k: got[k] if k in got else torch.zeros_like(live[k]) for k in names}
+    return dict(zip(out, dist.all_sum(*out.values())))
 
 
 @torch.no_grad()

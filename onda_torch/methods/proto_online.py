@@ -29,7 +29,16 @@ raw target logits under PREDICTION_SAVE, evaluates, renders samples and
 checkpoints once per epoch. Under OTHERS.ASYNC_SAVE the checkpoint's disk
 write runs in the background (`utils.checkpoint`).
 
-Not ported yet (they raise): more than one device (M17).
+OTHERS.DATA_PARALLEL across ranks (`parallel`; one process per rank under
+torchrun, each with the local slice of the global batch) computes the step
+of the global batch, as GSPMD does for the JAX step on a `data` mesh: every
+train-mode BatchNorm normalises with the global statistics, the confidences
+the monitor records are global means, the prototype moments are summed over
+the ranks before the EMA, each loss divides by the global count, and the
+gradients are summed in one bucket. Every rank ends the step with the same
+bits: parameters, prototypes, monitor and switch. Only rank 0 writes files;
+each rank inserts its own frames into its own replay buffer. At world size
+1 none of this makes a collective call.
 """
 
 from __future__ import annotations
@@ -53,6 +62,8 @@ from ..ops import metrics as M
 from ..ops import prototypes as P
 from ..ops.interp import resize_nearest, upsample_bilinear_ac
 from ..ops.monitor import Monitor
+from ..parallel import distributed as dist
+from ..parallel.mesh import refuse_unported
 from ..utils import checkpoint as ckpt
 from . import optim
 from .prior_policy import POLICY_BY_METHOD, compute_prior
@@ -95,15 +106,6 @@ def _conf(p, dim=1):
 def _flat(x):
     """(N, C, H, W) → (N·H·W, C), pixels in (n, h, w) order."""
     return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
-
-
-def refuse_unported(cfg) -> None:
-    """Raise for the options the port does not run yet: OTHERS.DATA_PARALLEL
-    and OTHERS.TENSOR_PARALLEL (more than one device)."""
-    for key in ("DATA_PARALLEL", "TENSOR_PARALLEL"):
-        if value_or(cfg.OTHERS[key], False):
-            raise NotImplementedError(f"OTHERS.{key}: the port runs on one device "
-                                      "(multi-GPU is ROADMAP M17)")
 
 
 def _union_ms(intervals) -> float:
@@ -306,13 +308,16 @@ class ProtoOnlineAdapter:
             mon = state.monitor
             ema_main = fwd(state.ema_params, state.batch_stats, trg_images, train=True)
             prior_ema = _softmax(ema_main["out"])
-            mon = monitor.add(mon, "prior EMA", _conf(prior_ema))
             prior_static = None
             if static_on:
                 static_main = fwd(state.static_params, state.static_batch_stats, trg_images,
                                   train=False)
                 prior_static = _softmax(static_main["out"])
-                mon = monitor.add(mon, "prior static", _conf(prior_static))
+                conf_ema, conf_static = dist.all_mean(_conf(prior_ema), _conf(prior_static))
+                mon = monitor.add(mon, "prior EMA", conf_ema)
+                mon = monitor.add(mon, "prior static", conf_static)
+            else:
+                mon = monitor.add(mon, "prior EMA", dist.all_mean(_conf(prior_ema))[0])
 
             def dyn_forward():
                 main = fwd(state.dynamic_params, state.dynamic_batch_stats, trg_images,
@@ -324,8 +329,6 @@ class ProtoOnlineAdapter:
                 dyn_forward, frozen=False)
             if "percentage_static" in plogs:
                 mon = monitor.add(mon, "percentage_static", plogs["percentage_static"])
-            mon = monitor.add(mon, "prior dynamic", _conf(dyn_p), enable=calc_dyn)
-            mon = monitor.add(mon, "prior", _conf(prior))
 
             # ---- K1 pseudo-labels: hard at the old τ, soft at the new τ
             b, _, hh, ww = prior_ema.shape
@@ -334,17 +337,22 @@ class ProtoOnlineAdapter:
             scale = P.inv_std(state.proto, metric)
             _, hard, prop_max = K.pseudo_labels(
                 feat, state.proto.mean, prior_flat, state.proto.tau, pseudo_thresh, scale)
-            mon = monitor.add(mon, "prototypes", prop_max.mean())
+            conf_dyn, conf_prior, conf_proto = dist.all_mean(_conf(dyn_p), _conf(prior),
+                                                             prop_max.mean())
+            mon = monitor.add(mon, "prior dynamic", conf_dyn, enable=calc_dyn)
+            mon = monitor.add(mon, "prior", conf_prior)
+            mon = monitor.add(mon, "prototypes", conf_proto)
             tau_bump = monitor.avg(mon, "prototypes") > conf_reg_thresh
             new_tau = state.proto.tau + 0.001 * tau_bump.float()
             mon = monitor.add(mon, "tau", new_tau, enable=tau_bump)
             soft, _, _ = K.pseudo_labels(
                 feat, state.proto.mean, prior_flat, new_tau, pseudo_thresh, scale)
-            mon = monitor.add(mon, "pseudolabel confidence", _conf(soft, dim=-1))
 
-            # ---- prototype EMA -------------------------------------------
+            # ---- prototype EMA: the class moments of the global batch -----
             onehot = P.onehot_assign(_flat(ema_main["out"]).float())
-            vect, sq, sums = P.class_moments(feat, onehot)
+            conf_soft, vect, sq, sums = dist.all_sum(_conf(soft, dim=-1),
+                                                     *P.class_moments(feat, onehot))
+            mon = monitor.add(mon, "pseudolabel confidence", conf_soft / dist.world())
             proto = P.ma(state.proto.replace(tau=new_tau), vect, sq, sums, ma_lambda)
             return (mon, switch, calc_dyn, hard.view(b, hh, ww),
                     soft.view(b, hh, ww, C).permute(0, 3, 1, 2), proto)
@@ -373,11 +381,20 @@ class ProtoOnlineAdapter:
         r0, r1 = self.lr_ratios
         fwd = self._forward
         teachers = self._build_teachers()
+        world = dist.world()
 
         def step(state: AdaptState, trg_images, src_images, src_labels, lr_base: float):
             dev = trg_images.device
             zero = torch.zeros((), device=dev)
             mon, switch, calc_dyn, pseudolabels, soft_nchw, proto = teachers(state, trg_images)
+            # the losses' denominators: the global batch's pixel counts (None:
+            # each loss counts its own batch, as on one device)
+            trg_count = src_counts = all_pixels = None
+            if world > 1:
+                src_valid = [L.valid_count(src_labels[s]) for s in range(source_repeat)
+                             ] if have_src else []
+                trg_count, *src_counts = dist.all_sum(L.valid_count(pseudolabels), *src_valid)
+                all_pixels = world * pseudolabels.numel()
 
             # ---- student: source slices (BN stats frozen) + target slice --
             live = dict(state.params)
@@ -394,20 +411,26 @@ class ProtoOnlineAdapter:
                 for s in range(source_repeat):
                     out_s = fwd(live, src_stats, src_images[s], train=True,
                                 update_stats=bn_policy != "freeze")["out"].float()
+                    n_src = src_counts[s] if src_counts else None
                     if buff_ce_w > 0:
-                        buff_ce_last = L.cross_entropy_2d(out_s, src_labels[s])
+                        buff_ce_last = L.cross_entropy_2d(out_s, src_labels[s], count=n_src)
                         buff_ce = buff_ce + buff_ce_last
                     if buff_rce_w > 0:
-                        buff_rce_last = L.rce(out_s, src_labels[s])
+                        buff_rce_last = L.rce(out_s, src_labels[s], count=n_src)
                         buff_rce = buff_rce + buff_rce_last
             out_t = fwd(live, state.batch_stats, trg_images, train=True,
                         update_stats=True)["out"].float()
-            ce = L.cross_entropy_2d(out_t, trg_target, soft=soft_labels) if rce_alpha > 0 else zero
-            rce_l = L.rce(out_t, trg_target, soft=soft_labels) if rce_beta > 0 else zero
+            n_trg = all_pixels if soft_labels else trg_count
+            ce = (L.cross_entropy_2d(out_t, trg_target, soft=soft_labels, count=n_trg)
+                  if rce_alpha > 0 else zero)
+            rce_l = (L.rce(out_t, trg_target, soft=soft_labels, count=n_trg)
+                     if rce_beta > 0 else zero)
             sym = rce_alpha * ce + rce_beta * rce_l
-            reg = L.regular_loss(regularizer, out_t) if reg_weight > 0 else zero
-            js = L.js_divergence(out_t, pseudolabels) if js_d > 0 else zero
-            mreg = L.ewc_loss(model_reg, state.static_params, live) if model_reg > 0 else zero
+            reg = L.regular_loss(regularizer, out_t, count=all_pixels) if reg_weight > 0 else zero
+            js = L.js_divergence(out_t, pseudolabels, count=trg_count) if js_d > 0 else zero
+            # a term of the parameters alone enters once: on rank 0
+            mreg = (L.ewc_loss(model_reg, state.static_params, live)
+                    if model_reg > 0 and dist.is_primary() else zero)
             total_t = sym + reg_weight * reg + js_d * js + mreg
             total = total_t + buff_ce_w * buff_ce + buff_rce_w * buff_rce
             grads = optim.grads(total, live, trainable, unused=aux_head)
@@ -416,27 +439,31 @@ class ProtoOnlineAdapter:
             # ---- SGD + EMA ----------------------------------------------
             with torch.no_grad():
                 out_t = out_t.detach()
-                mon = monitor.add(mon, "model", _conf(_softmax(out_t)))
+                # the losses' shares and the batch means, summed over the ranks
+                shares = {
+                    "ce_loss": ce, "rce_loss": rce_l, "sym_loss": sym,
+                    "regularization_loss": reg, "JS Divergance loss": js,
+                    "Total target loss": total_t, "model regularization": mreg,
+                    "buff_ce_loss": buff_ce_last, "buff_rce_loss": buff_rce_last,
+                    "buff_loss": buff_ce_w * buff_ce_last + buff_rce_w * buff_rce_last,
+                    "pseudolabel_pixel_num": L.valid_count(pseudolabels),
+                    "output & prototype agreement":
+                        (pseudolabels == out_t.argmax(dim=1)).float().mean() / world,
+                    "model": _conf(_softmax(out_t)) / world,
+                }
+                logs = dict(zip(shares, dist.all_sum(*(v.float() for v in shares.values()))))
+                mon = monitor.add(mon, "model", logs.pop("model"))
                 optim.update(state.params, grads, state.opt_momentum, labels,
                              lr_base * r0, lr_base * r1, momentum, weight_decay)
                 del grads
                 for k, e in state.ema_params.items():
                     e.mul_(ema_update).add_(state.params[k], alpha=1.0 - ema_update)
 
-                logs = {
-                    "ce_loss": ce, "rce_loss": rce_l, "sym_loss": sym,
-                    "regularization_loss": reg, "JS Divergance loss": js,
-                    "Total target loss": total_t, "model regularization": mreg,
-                    "buff_ce_loss": buff_ce_last, "buff_rce_loss": buff_rce_last,
-                    "buff_loss": buff_ce_w * buff_ce_last + buff_rce_w * buff_rce_last,
-                    "pseudolabel_pixel_num":
-                        ((pseudolabels >= 0) & (pseudolabels != 255)).float().sum(),
-                    "output & prototype agreement":
-                        (pseudolabels == out_t.argmax(dim=1)).float().mean(),
+                logs.update({
                     "mean_prototype_intensity_values": (proto.mean**2).mean(),
                     "encoder_lr": torch.full((), lr_base * r0, device=dev),
                     "dynamic forward fired": calc_dyn.float(),
-                }
+                })
                 for key in MONITOR_KEYS:
                     logs[f"{key} confidence ma"] = monitor.avg(mon, key)
                     logs[f"{key} exp confidence ma"] = monitor.exp_avg(mon, key)
@@ -473,7 +500,7 @@ class ProtoOnlineAdapter:
             onehot = (lbl[:, None] == torch.arange(C, device=lbl.device)).float()  # 255 → zero row
         else:
             onehot = P.onehot_assign(_flat(main["out"]).float())
-        vect, sq, sums = P.class_moments(feat, onehot)
+        vect, sq, sums = dist.all_sum(*P.class_moments(feat, onehot))
         state.proto = P.append(state.proto, vect, sq, sums)
 
     def calculate_prototypes(self, loader) -> None:
@@ -483,7 +510,8 @@ class ProtoOnlineAdapter:
             images = self._to_device(batch["image"], torch.float32)
             labels = self._to_device(batch["label"], torch.long) if from_source else None
             self._bootstrap(images, labels, from_source)
-        P.save(self.state.proto, self._proto_path("current"))
+        if dist.is_primary():
+            P.save(self.state.proto, self._proto_path("current"))
 
     def _proto_path(self, tag):
         root = str(self.cfg.OTHERS.SNAPSHOT_DIR)
@@ -546,6 +574,10 @@ class ProtoOnlineAdapter:
             valid_mask = (torch.arange(len(labels), device=self.device) < valid).float()
             self._eval_batch(self._to_device(batch["image"], torch.float32), labels, valid_mask,
                              hists, eces, with_proto)
+        # every rank evaluated its shard of each set: sum the counts
+        hists = dict(zip(hists, dist.all_sum(*hists.values())))
+        if self.ece_record:
+            eces = dict(zip(eces, dist.all_sum(*eces.values())))
         result = {k: M.per_class_iu(h) for k, h in hists.items()}
         self._last_ece = (
             {f"ece {k}": float(M.ece_value(a)) for k, a in eces.items()} if self.ece_record else {})
@@ -574,7 +606,9 @@ class ProtoOnlineAdapter:
         """Up to n rendered samples per validation set (reference
         da_model.test_on_samples, adaptation_model.py:181-200), as `MaskSample`s
         whose PNG lies under SNAPSHOT_DIR/samples. The prediction of a batch
-        comes to the host in one copy."""
+        comes to the host in one copy. Under data parallelism every rank
+        predicts its rows, and rank 0 renders the global batch's (the ranks'
+        rows in rank order), so that the samples are those of one device."""
         from ..data.metadata import load_dataset_info
         from ..utils.viz import MaskSample, denormalize_rgb, save_sample
 
@@ -589,18 +623,26 @@ class ProtoOnlineAdapter:
         for val_set, loader in validation_loaders.items():
             count = 0
             for batch in loader:
-                preds = self._predict(self._to_device(batch["image"], torch.float32)).int().cpu().numpy()
+                images = self._to_device(batch["image"], torch.float32)
+                preds = self._predict(images).int()
                 label = batch.get("label")
+                if dist.world() > 1:  # the global batch's rows
+                    preds, images = dist.gather_rows(preds), dist.gather_rows(images)
+                    if label is not None:
+                        label = dist.gather_rows(self._to_device(label, torch.int32)).cpu()
+                    batch = {"image": images.cpu()}
+                preds = preds.cpu().numpy()
                 for b in range(len(preds)):
                     if count >= n:
                         break
-                    label_b = np.asarray(label[b]) if label is not None else None
-                    rgb_b = denormalize_rgb(np.asarray(batch["image"][b]), mean, std)
-                    path = save_sample(
-                        rgb_b, preds[b], label_b, palette,
-                        os.path.join(out_dir, f"{val_set}_{count}_step{int(self.state.step)}.png"))
-                    log[f"Condition {val_set} sample {count}"] = MaskSample(
-                        rgb_b, preds[b], label_b, class_labels, f"Sample from {val_set}", path)
+                    if dist.is_primary():
+                        label_b = np.asarray(label[b]) if label is not None else None
+                        rgb_b = denormalize_rgb(np.asarray(batch["image"][b]), mean, std)
+                        name = f"{val_set}_{count}_step{int(self.state.step)}.png"
+                        path = save_sample(rgb_b, preds[b], label_b, palette,
+                                           os.path.join(out_dir, name))
+                        log[f"Condition {val_set} sample {count}"] = MaskSample(
+                            rgb_b, preds[b], label_b, class_labels, f"Sample from {val_set}", path)
                     count += 1
                 if count >= n:
                     break
@@ -629,12 +671,16 @@ class ProtoOnlineAdapter:
 
     def _save_prediction(self, logits_nchw) -> None:
         """Dump one step's raw target logits under PREDICTION_SAVE/<set>, one
-        counter per domain (reference adaptation_model.py:218-232)."""
+        counter per domain (reference adaptation_model.py:218-232); under data
+        parallelism rank 0 writes the global batch, the ranks' rows in rank
+        order."""
         set_ = self.cfg_spec.set_
         base = os.path.join(str(self.cfg_spec.PREDICTION_SAVE), "_".join(str(set_)))
         counter = self.prediction_counter.setdefault(set_, 0)
-        os.makedirs(base, exist_ok=True)
-        dump_logits_batch(base, counter, logits_nchw)
+        logits_nchw = dist.gather_rows(logits_nchw)
+        if dist.is_primary():
+            os.makedirs(base, exist_ok=True)
+            dump_logits_batch(base, counter, logits_nchw)
         self.prediction_counter[set_] = counter + 1
 
     # ------------------------------------------------------------------
@@ -688,7 +734,7 @@ class ProtoOnlineAdapter:
         save_every = int(value_or(self.cfg.OTHERS.SAVE_EVERY, 0))
         # OTHERS.PROFILE: N traces N steps after the first 5 with
         # torch.profiler, written under SNAPSHOT_DIR/profile
-        profile_steps = int(value_or(self.cfg.OTHERS.PROFILE, 0))
+        profile_steps = int(value_or(self.cfg.OTHERS.PROFILE, 0)) if dist.is_primary() else 0
         profile_at = 5
         if profile_steps and steps <= profile_at + profile_steps:
             print(f"OTHERS.PROFILE: need > {profile_at + profile_steps} steps, have {steps}; "
@@ -840,7 +886,7 @@ class ProtoOnlineAdapter:
         """The full state as one `torch.save` (`adapt_state.pt`, replaced only
         once the new file is whole; written in the background under
         OTHERS.ASYNC_SAVE) plus the prototype pickle, always written at once
-        (reference adaptation_model.py:202-216)."""
+        (reference adaptation_model.py:202-216). Rank 0 writes both."""
         root = str(self.cfg.OTHERS.SNAPSHOT_DIR)
         s = self.state
         payload = {f.name: getattr(s, f.name) for f in dataclasses.fields(s)
@@ -851,7 +897,8 @@ class ProtoOnlineAdapter:
         payload["generator"] = s.generator.get_state()
         ckpt.save_atomic(payload, os.path.join(root, "adapt_state.pt"),
                          wait=not value_or(self.cfg.OTHERS.ASYNC_SAVE, False))
-        P.save(s.proto, self._proto_path(self.cfg_spec.set_ or "current"))
+        if dist.is_primary():
+            P.save(s.proto, self._proto_path(self.cfg_spec.set_ or "current"))
 
     def load_newest(self, candidates, skip: str):
         """Load the newest of `candidates` (paths, oldest first) that loads,

@@ -26,6 +26,7 @@ from ..data.loader import DeviceFeeder, to_device
 from ..ops import losses as L
 from ..ops import metrics as M
 from ..ops.interp import upsample_bilinear_ac
+from ..parallel import distributed as dist
 from ..utils import checkpoint as ckpt
 from . import optim
 from .timing import SpeedMeter
@@ -41,6 +42,10 @@ def _logits(out):
 class SegmentTrainer:
     def __init__(self, model, variables, cfg, cfg_spec, num_classes: int, logger=None,
                  device="cuda"):
+        if dist.world() > 1:
+            raise NotImplementedError("SEGMENT training runs on one rank only: OTHERS."
+                                      "DATA_PARALLEL across ranks covers the PROTO_ONLINE "
+                                      "family (ROADMAP M17)")
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg

@@ -2,7 +2,14 @@
 
 Train-mode BatchNorm takes its batch statistics from the hand-written kernel
 K2 (`ops/kernels.bn_stats`) inside a `torch.autograd.Function` whose backward
-is the closed form of `_bn_train_bwd` in plain torch.
+is the closed form of `_bn_train_bwd` in plain torch. Under data parallelism
+(`parallel.distributed`) the statistics are those of the global batch, as
+GSPMD computes them for the JAX step on a `data` mesh: K2 gives each rank's
+raw moments in f64 (`kernels.bn_moments`), one all-reduce sums them, and
+the variance is taken once from the global moments; the backward all-reduces
+the per-channel sums of dy and dy·x̂ before its closed form, and the
+running update uses the global count. Dropout draws its mask for the global
+batch and keeps this rank's rows.
 
 Convolutions and dense layers compute in an optional `compute_dtype` (bf16)
 over f32 parameters, cast on entry as flax's `nn.Conv(dtype=bf16,
@@ -19,6 +26,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
+from ..parallel import distributed as dist
 
 def rematerialized(block, x, train: bool, update_stats: bool):
     """block(x, train, update_stats) with its activations dropped after the
@@ -81,7 +89,10 @@ class _BNTrain(torch.autograd.Function):
     in f32 and cast back to x's type (`_bn_train_math`). mean and var enter as
     constants: the backward is the full closed form
         dx = γ·inv · (dy − mean(dy) − x̂·mean(dy·x̂)),
-    which already accounts for the statistics' dependence on x."""
+    which already accounts for the statistics' dependence on x. Under data
+    parallelism the means run over the global batch (one all-reduce of the
+    two sums), while dγ and dβ stay this rank's: the gradient bucket sums
+    them over the ranks (`optim.grads`)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, mean, var, eps):
@@ -102,16 +113,23 @@ class _BNTrain(torch.autograd.Function):
         dgamma = (dy * x_hat).sum(dim=(0, 2, 3))
         dx = None
         if ctx.needs_input_grad[0]:
+            sum_dy, sum_dy_xhat = dist.all_sum(dbeta, dgamma)
+            n *= dist.world()
             dx = (weight * inv).view(shape) * (
-                dy - (dbeta / n).view(shape) - x_hat * (dgamma / n).view(shape))
+                dy - (sum_dy / n).view(shape) - x_hat * (sum_dy_xhat / n).view(shape))
             dx = dx.to(x.dtype)
         return (dx, dgamma if ctx.needs_input_grad[1] else None,
                 dbeta if ctx.needs_input_grad[2] else None, None, None, None)
 
 
 def bn_train(x, weight, bias, eps: float = 1e-5):
-    """Train-mode batch norm: returns (y, batch mean, biased batch var)."""
-    mean, var = kernels.bn_stats(x.detach())
+    """Train-mode batch norm: returns (y, batch mean, biased batch var), the
+    statistics of the global batch under data parallelism."""
+    if dist.world() == 1:
+        mean, var = kernels.bn_stats(x.detach())
+    else:
+        mean, mean_sq = dist.all_mean(kernels.bn_moments(x.detach()))[0]
+        mean, var = mean.float(), torch.clamp(mean_sq - mean * mean, min=0.0).float()
     return _BNTrain.apply(x, weight, bias, mean, var, eps), mean, var
 
 
@@ -122,7 +140,8 @@ class TorchBatchNorm(nn.Module):
     * batch statistics whenever `train` is set, whatever `update_stats` says;
     * running statistics in eval mode;
     * the running update uses the unbiased batch variance n/(n−1), with a
-      per-module momentum (0.1 by default).
+      per-module momentum (0.1 by default); n counts the global batch under
+      data parallelism.
 
     The running buffers are updated in place. State names follow
     `torch.nn.BatchNorm2d` (`num_batches_tracked` included, never advanced),
@@ -142,7 +161,7 @@ class TorchBatchNorm(nn.Module):
         if train:
             y, mean, var = bn_train(x, self.weight, self.bias, self.eps)
             if update_stats:
-                n = x.shape[0] * x.shape[2] * x.shape[3]
+                n = x.shape[0] * x.shape[2] * x.shape[3] * dist.world()
                 with torch.no_grad():
                     m = self.momentum
                     self.running_mean.mul_(1 - m).add_(m * mean)
@@ -181,12 +200,15 @@ def max_pool_ceil(x, window: int, stride: int, padding: int):
 
 def dropout2d(x, rate: float, train: bool, generator=None):
     """Channel-wise dropout (torch nn.Dropout2d) drawing from `generator`; a
-    None generator in train mode disables it, as a None rng does in JAX."""
+    None generator in train mode disables it, as a None rng does in JAX.
+    Under data parallelism every rank draws the global batch's mask and keeps
+    its own rows, so the ranks' generators stay equal."""
     if not train or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    probs = torch.full((x.shape[0], x.shape[1], 1, 1), keep, device=x.device)
-    mask = torch.bernoulli(probs, generator=generator).to(x.dtype)
+    n, r = x.shape[0], dist.rank()
+    probs = torch.full((n * dist.world(), x.shape[1], 1, 1), keep, device=x.device)
+    mask = torch.bernoulli(probs, generator=generator)[r * n:(r + 1) * n].to(x.dtype)
     return x * mask / keep
 
 

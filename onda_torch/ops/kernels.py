@@ -4,7 +4,9 @@ versions and their launch plans.
 * K1 `pseudo_labels` (csrc/pseudo_labels.cu) replaces the Pallas kernel
   `onda_tpu/ops/pallas_kernels.py::fused_pseudo_labels`.
 * K2 `bn_stats` (csrc/bn_stats.cu) replaces the Pallas kernel
-  `onda_tpu/ops/pallas_kernels.py::bn_batch_stats`.
+  `onda_tpu/ops/pallas_kernels.py::bn_batch_stats`; `bn_moments` is the same
+  kernel writing the raw moments (mean, E[x²], f64) that data parallelism
+  all-reduces.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises: it checks device, dtype, shape,
@@ -140,6 +142,14 @@ def bn_stats_plain(x: torch.Tensor):
     return mean, torch.clamp(mean_sq - mean * mean, min=0.0)
 
 
+def bn_moments_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2's raw moments: (2, C) f64, the per-channel mean
+    and mean of squares E[x²] of an (N, C, H, W) tensor, summed in f64 as
+    the kernel folds its sums."""
+    x64 = x.double()
+    return torch.stack([x64.mean(dim=(0, 2, 3)), (x64 * x64).mean(dim=(0, 2, 3))])
+
+
 class K2Plan(NamedTuple):
     cluster: int  # blocks per channel: grid (cluster, C), one cluster per channel
     span: int     # values of the channel's N*H*W each block sums
@@ -160,11 +170,39 @@ def _k2_lib():
     lib = build.load("bn_stats")
     if lib.onda_bn_stats_nchw.argtypes is None:
         v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.onda_bn_stats_nchw.argtypes = [v, i, i, i, ll, i, ll, v, v, v]
+        lib.onda_bn_stats_nchw.argtypes = [v, i, i, i, ll, i, ll, v, v, v, v]
         lib.onda_bn_stats_nchw.restype = i
-        lib.onda_bn_stats_cl.argtypes = [v, i, ll, i, ll, i, v, v, v, v]
+        lib.onda_bn_stats_cl.argtypes = [v, i, ll, i, ll, i, v, v, v, v, v]
         lib.onda_bn_stats_cl.restype = i
     return lib
+
+
+def _bn_launch(x: torch.Tensor, raw: bool) -> torch.Tensor:
+    """K2 on a card tensor: (2, C), each channel's mean and biased var in
+    f32, or with `raw` its mean and E[x²] in f64."""
+    if x.dim() != 4:
+        raise ValueError(f"bn_stats_kernel: expected a 4-D tensor, got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"bn_stats_kernel: expected float32 or bfloat16, got {x.dtype}")
+    n, c, h, w = x.shape
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    out = torch.empty((2, c), dtype=torch.float64 if raw else torch.float32, device=x.device)
+    # raw: the kernel writes the whole f64 buffer; else its two f32 rows
+    ptrs = (None, None, out) if raw else (out[0], out[1], None)
+    if x.is_contiguous():
+        plan = bn_stats_plan(n, c, h * w, x.element_size())
+        rc = _k2_lib().onda_bn_stats_nchw(_ptr(x), is_bf16, n, c, h * w, plan.cluster, plan.span,
+                                          *map(_ptr, ptrs), _stream())
+    elif x.is_contiguous(memory_format=torch.channels_last):
+        nchunks = _cdiv(n * h * w, K2_CL_ROWS)
+        partial = torch.empty((2, c, nchunks), dtype=torch.float32, device=x.device)
+        rc = _k2_lib().onda_bn_stats_cl(_ptr(x), is_bf16, n * h * w, c, K2_CL_ROWS, nchunks,
+                                        _ptr(partial), *map(_ptr, ptrs), _stream())
+    else:
+        raise ValueError("bn_stats_kernel: x must be NCHW-contiguous or channels_last")
+    _check(rc, "bn_stats_kernel")
+    launches["bn_stats_kernel"] += 1
+    return out
 
 
 def bn_stats(x: torch.Tensor):
@@ -172,25 +210,15 @@ def bn_stats(x: torch.Tensor):
     f32 or bf16 tensor, NCHW-contiguous (one launch) or channels_last."""
     if _on_cpu(x):
         return bn_stats_plain(x)
-    if x.dim() != 4:
-        raise ValueError(f"bn_stats_kernel: expected a 4-D tensor, got shape {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"bn_stats_kernel: expected float32 or bfloat16, got {x.dtype}")
-    n, c, h, w = x.shape
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    mean = torch.empty((c,), dtype=torch.float32, device=x.device)
-    var = torch.empty((c,), dtype=torch.float32, device=x.device)
-    if x.is_contiguous():
-        plan = bn_stats_plan(n, c, h * w, x.element_size())
-        rc = _k2_lib().onda_bn_stats_nchw(_ptr(x), is_bf16, n, c, h * w, plan.cluster, plan.span,
-                                          _ptr(mean), _ptr(var), _stream())
-    elif x.is_contiguous(memory_format=torch.channels_last):
-        nchunks = _cdiv(n * h * w, K2_CL_ROWS)
-        partial = torch.empty((2, c, nchunks), dtype=torch.float32, device=x.device)
-        rc = _k2_lib().onda_bn_stats_cl(_ptr(x), is_bf16, n * h * w, c, K2_CL_ROWS, nchunks,
-                                        _ptr(partial), _ptr(mean), _ptr(var), _stream())
-    else:
-        raise ValueError("bn_stats_kernel: x must be NCHW-contiguous or channels_last")
-    _check(rc, "bn_stats_kernel")
-    launches["bn_stats_kernel"] += 1
+    mean, var = _bn_launch(x, raw=False)
     return mean, var
+
+
+def bn_moments(x: torch.Tensor) -> torch.Tensor:
+    """K2's raw moments: (2, C) f64, the per-channel mean and E[x²] of an
+    (N, C, H, W) f32 or bf16 tensor, in one launch as `bn_stats`: one buffer,
+    ready for one all-reduce. f64 keeps the variance taken from the global
+    moments as exact as the one the kernel takes for one device."""
+    if _on_cpu(x):
+        return bn_moments_plain(x)
+    return _bn_launch(x, raw=True)

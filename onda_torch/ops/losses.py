@@ -3,6 +3,13 @@
 Predictions are (N, C, H, W) logits; hard labels are (N, H, W) integers with
 255 = ignore; soft labels are (N, C, H, W). Formulas follow the reference
 framework/utils/loss.py and methods/prototypes.py:29-39, quirks included.
+
+A loss that is a mean over pixels takes an optional `count`, the number of
+pixels it divides by (the valid ones for hard labels, all of them otherwise).
+Under data parallelism the step passes the count of the global batch, so
+that each rank's value is its share of the global loss: the ranks' values,
+and their gradients, sum to the loss of the global batch. By default the
+count is this batch's own.
 """
 
 from __future__ import annotations
@@ -20,13 +27,18 @@ def _valid_mask(target: torch.Tensor) -> torch.Tensor:
     return ((target >= 0) & (target != IGNORE)).float()
 
 
+def valid_count(target: torch.Tensor) -> torch.Tensor:
+    """The number of valid pixels of hard labels, f32 (0-d)."""
+    return _valid_mask(target).sum()
+
+
 def _onehot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     """(N, C, H, W) one-hot; labels outside [0, C) give a zero row."""
     classes = torch.arange(num_classes, device=labels.device)[None, :, None, None]
     return (labels[:, None].long() == classes).float()
 
 
-def cross_entropy_2d(logits, target, soft: bool = False):
+def cross_entropy_2d(logits, target, soft: bool = False, count=None):
     """Masked mean CE over valid pixels (reference loss.py:16-45).
 
     Soft mode keeps the reference's quirk: the target is truncated to integers
@@ -35,13 +47,14 @@ def cross_entropy_2d(logits, target, soft: bool = False):
     (see `onda_tpu/ops/losses.py::cross_entropy_2d`)."""
     if soft:
         t = torch.trunc(target)
-        return -(t * torch.log(logits + 1e-6)).sum(dim=1).mean()
+        per_pixel = -(t * torch.log(logits + 1e-6)).sum(dim=1)
+        return per_pixel.mean() if count is None else per_pixel.sum() / count
     mask = _valid_mask(target)
     logp = F.log_softmax(logits, dim=1)
     tclip = target.clamp(0, logits.shape[1] - 1).long()
     picked = logp.gather(1, tclip[:, None])[:, 0]
     total = -(picked * mask).sum()
-    count = mask.sum()
+    count = mask.sum() if count is None else count
     return torch.where(count > 0, total / count.clamp(min=1.0), torch.zeros_like(total))
 
 
@@ -56,18 +69,19 @@ def _clamped_one_hot(labels, num_classes: int):
     return _onehot(labels, num_classes).clamp(1e-4, 1.0)
 
 
-def rce(logits, labels, soft: bool = False):
+def rce(logits, labels, soft: bool = False, count=None):
     """Reverse cross-entropy (reference loss.py:88-112)."""
     probs = F.softmax(logits, dim=1)
     n, c, h, w = logits.shape
     if soft:
-        return -(probs * torch.log(labels + 1e-6)).sum() / (n * h * w)
+        return -(probs * torch.log(labels + 1e-6)).sum() / (n * h * w if count is None else count)
     mask = _valid_mask(labels)
     one_hot = _clamped_one_hot(labels, c)
-    return -((probs * torch.log(one_hot)).sum(dim=1) * mask).sum() / (mask.sum() + 1e-6)
+    count = mask.sum() if count is None else count
+    return -((probs * torch.log(one_hot)).sum(dim=1) * mask).sum() / (count + 1e-6)
 
 
-def js_divergence(logits, labels):
+def js_divergence(logits, labels, count=None):
     """Jensen–Shannon divergence vs hard labels (reference loss.py:62-85): masked
     predictions, a clamped but unmasked one-hot, scaled by N*H*W / mask.sum()."""
     probs = F.softmax(logits, dim=1)
@@ -76,18 +90,19 @@ def js_divergence(logits, labels):
     mpred = probs * mask[:, None]
     one_hot = _clamped_one_hot(labels, c)
     per = entropy_loss((one_hot + mpred) / 2.0) - (entropy_loss(one_hot) + entropy_loss(mpred)) / 2.0
-    return per * n * h * w / mask.sum()
+    return per * n * h * w / (mask.sum() if count is None else count)
 
 
-def regular_loss(regularizer: str, logits):
+def regular_loss(regularizer: str, logits, count=None):
     """MRENT: (p·log p).sum()/(N·H·W); MRKLD: −log p.sum()/(N·C·H·W)
-    (reference methods/prototypes.py:29-39)."""
+    (reference methods/prototypes.py:29-39); `count` replaces N·H·W."""
     n, c, h, w = logits.shape
+    pixels = n * h * w if count is None else count
     logp = F.log_softmax(logits, dim=1)
     if regularizer == "MRENT":
-        return (F.softmax(logits, dim=1) * logp).sum() / (n * h * w)
+        return (F.softmax(logits, dim=1) * logp).sum() / pixels
     if regularizer == "MRKLD":
-        return -logp.sum() / (n * c * h * w)
+        return -logp.sum() / (c * pixels)
     return logits.new_zeros(())
 
 

@@ -19,9 +19,19 @@
   only the first domain bootstraps prototypes and evaluates before adapting;
   model, teachers, prototypes and monitors carry over between domains.
 
-An option the port does not run yet (OTHERS.DATA_PARALLEL and
-OTHERS.TENSOR_PARALLEL: more than one device) stops it before the first
-step. Under OTHERS.ASYNC_SAVE the checkpoints are written in the background;
+Data parallelism (OTHERS.DATA_PARALLEL, unset meaning auto): launched as
+`torchrun --nproc-per-node N -m onda_torch.train_ouda --cfg <yaml>`, one
+process per rank, TRAINING.BATCH_SIZE the global batch. Each rank loads its
+disjoint shard of every metadata table at the local batch size (every
+world-th row, the uneven tail dropped on every rank) and, under
+BUFFER_DYNAMIC, keeps its own replay buffer over its shard of the sample,
+seeded with the seed plus its rank; rank 0 alone writes metrics, checkpoints
+and pickles. The PROTO_ONLINE family runs across ranks; ADVENT,
+PROTO_ADVENT, EVALUATION mode and SEGMENT training stop before anything is
+written, as OTHERS.TENSOR_PARALLEL does on any number of ranks
+(`parallel.mesh.refuse_unported`).
+
+Under OTHERS.ASYNC_SAVE the checkpoints are written in the background;
 `main` waits for every write, and raises a failed one, before it returns. It
 runs on the card (`--device cuda`, the default) unless asked for the CPU;
 without a card it stops.
@@ -52,33 +62,42 @@ def getf(x):
 def main(argv=None):
     """Run the CLI; returns the adapter after the last domain (the runner in
     EVALUATION mode). Every checkpoint write still in flight (OTHERS.ASYNC_SAVE)
-    is waited for before it returns or raises."""
+    is waited for before it returns or raises; then the process leaves its
+    process group, if it joined one."""
+    from .parallel import distributed
     from .utils.checkpoint import wait_for_saves
 
     try:
         return _main(argv)
     finally:
-        wait_for_saves()
+        try:
+            wait_for_saves()
+        finally:
+            distributed.destroy()
 
 
 def _main(argv):
     args = get_arguments(argv)
     from .config import cfg_from_file, default_config, unset
     from .data import Loader, ReplayBuffer, SegmentationDataset, Table
-    from .methods.proto_online import refuse_unported
     from .native import BatchExecutor
+    from .parallel import distributed
+    from .parallel.mesh import refuse_unported
     from .registry import get_adapt_method, get_db, get_model
     from .utils.logging_ import Logger
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: run on a card, or pass --device cpu")
+    device = distributed.initialize(device)  # a no-op outside torchrun
 
     cfg = cfg_from_file(args.cfg, default_config())
-    print("Using config:")
-    pprint(cfg.to_dict())
+    if distributed.is_primary():
+        print("Using config:")
+        pprint(cfg.to_dict())
     # before anything trains: SEGMENT pretraining would otherwise run in full
-    refuse_unported(cfg)
+    world = refuse_unported(cfg)
+    rank = distributed.rank()
     np.random.seed(int(cfg.TRAINING.RANDOM_SEED))
 
     datasets = get_db(cfg)
@@ -108,7 +127,10 @@ def _main(argv):
                                    original_label=original and raw_labels, executor=executor)
 
     def dl(frame, shuffle, train=True, raw_labels=False):
-        return Loader(ds(frame, raw_labels), batch_size=int(cfg.TRAINING.BATCH_SIZE),
+        # this rank's shard at the local batch size: every rank has as many rows
+        # and batches, so their collective calls pair up
+        frame = frame.take(distributed.shard_rows(len(frame)))
+        return Loader(ds(frame, raw_labels), batch_size=int(cfg.TRAINING.BATCH_SIZE) // world,
                       shuffle=shuffle, seed=int(cfg.TRAINING.RANDOM_SEED), drop_last=train,
                       pad_last=not train, num_threads=workers, pin_memory=device.type == "cuda")
 
@@ -160,7 +182,10 @@ def _main(argv):
     if buff_size == 0:
         src_loader = None
     elif isinstance(cfg.TRAINING.BUFFER_DYNAMIC, bool) and cfg.TRAINING.BUFFER_DYNAMIC:
-        src_loader = ReplayBuffer(ds(src_sample), int(cfg.TRAINING.BATCH_SIZE), seed=seed)
+        # each rank keeps a disjoint buffer and draws its slice of every global
+        # replay batch (JAX's per-host buffer)
+        src_loader = ReplayBuffer(ds(src_sample.take(distributed.shard_rows(len(src_sample)))),
+                                  int(cfg.TRAINING.BATCH_SIZE) // world, seed=seed + rank)
         print(f"Buffer size: {src_loader.nbytes() / 1024**2:.1f} MB")
     else:
         src_loader = dl(src_sample, True)

@@ -17,6 +17,9 @@ is in flight: a new save to the path waits for the earlier write, and so
 does any load of it (`load`, `wait_for`). `wait_for_saves()` drains every
 write and raises a writer's exception; a failed write is also raised by the
 next save.
+
+Under data parallelism every rank holds the same state and rank 0 alone
+writes: `save_atomic` returns at once on the other ranks.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from ..parallel import distributed as dist
 
 _lock = threading.Lock()
 _inflight: dict[str, "_Write"] = {}   # path → its background write
@@ -142,8 +147,10 @@ def save_atomic(obj, path: str, wait: bool = True) -> str:
     one is whole. With `wait=False` the call returns once obj's tensors are
     copied to host memory, and the write goes on in the background. Either
     way an earlier write to path is waited for first, and an earlier failed
-    write is raised."""
+    write is raised. Only rank 0 writes (the other ranks return the path)."""
     path = os.path.abspath(path)
+    if not dist.is_primary():
+        return path
     _drain(path)
     _raise_failed()
     if wait:

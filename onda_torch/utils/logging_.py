@@ -4,7 +4,8 @@ The reference logs every step to wandb under fixed key names (reference
 train_ouda.py:75-78, methods/prototypes.py:519). Here the same keys always go
 to `metrics.jsonl` in the log directory, one JSON record per call with
 `_step` and `_t` (seconds since the logger started); wandb is used only when
-asked for, and then it must be importable.
+asked for, and then it must be importable. Under data parallelism only rank
+0 logs: the other ranks' loggers write nothing and start no wandb run.
 """
 
 from __future__ import annotations
@@ -13,12 +14,17 @@ import json
 import os
 import time
 
+from ..parallel import distributed as dist
+
 
 class Logger:
     def __init__(self, project: str = "OUDA", config: dict | None = None, log_dir: str = ".",
                  use_wandb: bool = False):
         self.step = 0
         self._wandb = None
+        self._jsonl = None
+        if not dist.is_primary():
+            return
         if use_wandb:
             import wandb
 
@@ -29,6 +35,9 @@ class Logger:
         self._t0 = time.time()
 
     def log(self, metrics: dict) -> None:
+        if self._jsonl is None:
+            self.step += 1
+            return
         scalars = {}
         for key, val in metrics.items():
             if hasattr(val, "to_wandb") and getattr(val, "path", None):
@@ -54,4 +63,5 @@ class Logger:
         self.step += 1
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

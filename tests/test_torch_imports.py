@@ -20,6 +20,14 @@ def _sources():
     return sorted(paths)
 
 
+def test_the_scan_covers_every_port_package():
+    """The sources scanned include the data-parallel package."""
+    scanned = {os.path.relpath(p, ROOT) for p in _sources()}
+    for rel in ("onda_torch/parallel/__init__.py", "onda_torch/parallel/distributed.py",
+                "onda_torch/parallel/mesh.py"):
+        assert rel in scanned
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_or_onda_tpu_imports(path):
     tree = ast.parse(open(path).read(), filename=path)

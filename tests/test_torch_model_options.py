@@ -566,7 +566,15 @@ def _segment_cfg(tmp_path, **over):
 
 @pytest.mark.parametrize("option", ["DATA_PARALLEL", "TENSOR_PARALLEL"])
 def test_segment_config_refuses_unported_options_before_training(tmp_path, option):
+    """OTHERS.TENSOR_PARALLEL stops the CLI before SEGMENT trains.
+    OTHERS.DATA_PARALLEL true in one process is the JAX package's one-device
+    path (one device: no mesh), so the same config trains and saves; its
+    refusal across ranks is in tests/test_torch_parallel.py."""
     cfg, snap = _segment_cfg(tmp_path, **{f"OTHERS.{option}": True})
+    if option == "DATA_PARALLEL":
+        _main(cfg)
+        assert os.path.isfile(os.path.join(snap, "model_train_[[0]].pth"))
+        return
     with pytest.raises(NotImplementedError, match=option):
         _main(cfg)
     written = os.listdir(snap) if os.path.isdir(snap) else []
