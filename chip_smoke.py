@@ -13,7 +13,8 @@
     python3 chip_smoke.py --aux-cost     # also time phase 8.2's step with the
                                          # aux head computed and thrown away
     python3 chip_smoke.py --parallel-only  # phases 1-4, phase 7's dataset and
-                                         # phase 12 (the data-parallel ranks)
+                                         # phase 12 (the data-parallel ranks:
+                                         # 12.1-12.5)
 
 Phases:
  1. card name and power limit; the TF32 settings of each phase;
@@ -90,7 +91,7 @@ Phases:
  11. the six shipped prototype configs no earlier phase runs, each through
     `onda_torch.train_ouda.main` on phase 7's files at its own width (R50
     ProDA head, b4 1024x512), cut only in its data path, domain order (its
-    first two domains), epochs, absent files and snapshot directory:
+    first domain), epochs, absent files and snapshot directory:
     static_model.yml and dynamic_model.yml (PROTO_ONLINE), confidence_switch.yml
     (HSWITCH), confidence_der_switch.yml (VSWITCH), hybrid_switch_fog.yml (the
     fog table of phase 8) and external_video.yml (a metadata_bern.json over
@@ -114,7 +115,22 @@ Phases:
     for bit), then timed steps (per-rank step ms, K1 2 and K2 159 a step,
     271 all-reduces a step and their bytes, host syncs, peak memory); 12.2
     `onda_torch.train_ouda.main` on phase 7's files (two domains), rank 0
-    the one writer: exit 0, finite losses, each rank's K1/K2 counts.
+    the one writer: exit 0, finite losses, each rank's K1/K2 counts; 12.3
+    advent.yml (multi-level) and proto_advent.yml (bootstrapped) in memory
+    at b4 1024x512 the same way, one process at b4 against the ranks after
+    one step in both of 12.1's modes (losses, the student's head and
+    backbone updates, both discriminators' updates; the ranks' whole
+    states, discriminators and Adam states included, equal bit for bit),
+    then timed (per rank and step: ADVENT K2 106 and 216 collectives,
+    PROTO_ADVENT K1 2, K2 159 and 272 collectives), and a SEGMENT step of
+    training_fog.yml's model (K2 53, 108 collectives); 12.4 advent.yml (and
+    an AUTO_RESUME run that restores `advent_state.pt` on both ranks),
+    proto_advent.yml and training_fog.yml (SEGMENT 1 epoch, then its
+    adaptation) through the CLI on phase 7's files: launches per rank, one
+    writer, every file once, no temporary left; 12.5 validation_offline_fog.yml,
+    its EVAL_SWEEP and validation.yml (PREDICTION_SAVE) on 12.4's SEGMENT
+    snapshots, the ranks against one process on the same files (`Val
+    mIoU*`, the swept files, the dumps in rank-major order, the confidence).
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
@@ -137,6 +153,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2157,7 +2174,7 @@ def shipped_configs_path(torch, K, out_dir, work, root, rows, checked):
     """Phase 11: 11.1 the six shipped prototype configs no earlier phase runs,
     each through `onda_torch.train_ouda.main` from phase 7's PNG files at its
     own width (R50 ProDA head, b4 1024x512), cut only in its data path,
-    domain order (its first two domains), epochs, absent files and snapshot
+    domain order (its first domain), epochs, absent files and snapshot
     directory; 11.2 OTHERS.ASYNC_SAVE in memory and through the CLI. Every K1
     and K2 shape the runs feed must be among those phases 3-4 checked
     (`checked`). Returns launch counts by path and the numbers."""
@@ -2174,7 +2191,7 @@ def shipped_configs_path(torch, K, out_dir, work, root, rows, checked):
         for name, (method, want_syncs) in SHIPPED_CONFIGS.items():
             snap = os.path.join(work, f"shipped_{name}")
             with open(os.path.join(HERE, "configs", f"{name}.yml")) as f:
-                order = yaml.safe_load(f)["SCHEME"]["DOMAIN_ORDER"][:2]
+                order = yaml.safe_load(f)["SCHEME"]["DOMAIN_ORDER"][:1]
             spec_key = f"METHOD.ADAPTATION.{method}"
             cfg = workflow_config(name, os.path.join(work, f"{name}.yml"), **{
                 "SCHEME.PATH": root, "SCHEME.DOMAIN_ORDER": order, "MODEL.LOAD": None,
@@ -2334,8 +2351,9 @@ def run_ranks(args, log_path, deadline=DP_DEADLINE):
            str(DP_RANKS), *args]
     t = time.perf_counter()
     with open(log_path, "w+") as log:
+        # unbuffered: a rank killed at the deadline leaves all it printed
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=HERE,
-                                start_new_session=True)
+                                start_new_session=True, env={**os.environ, "PYTHONUNBUFFERED": "1"})
         try:
             proc.wait(timeout=deadline)
         except subprocess.TimeoutExpired:
@@ -2354,11 +2372,15 @@ def run_ranks(args, log_path, deadline=DP_DEADLINE):
 
 def digests(torch, state):
     """sha256 of the bytes of every tensor of an AdaptState."""
+    return digests_of(torch, state_tensors(torch, state))
+
+
+def digests_of(torch, tensors):
+    """sha256 of the bytes of every tensor of a flat dict."""
     import hashlib
 
     return {k: hashlib.sha256(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
-                              .numpy().tobytes()).hexdigest()
-            for k, v in state_tensors(torch, state).items()}
+                              .numpy().tobytes()).hexdigest() for k, v in tensors.items()}
 
 
 @contextlib.contextmanager
@@ -2634,11 +2656,563 @@ def data_parallel_path(torch, K, out_dir, work, root, rows):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 12.3-12.5: the other families across two ranks (ADVENT, PROTO_ADVENT,
+# SEGMENT training, EVALUATION)
+# ---------------------------------------------------------------------------
+
+ADV_TIMED_STEPS = 5  # phase 12.3, after 1 warm-up step (phase 9.4's count)
+ADV_LAUNCHES = {"advent": {"pseudo_labels_kernel": 0, "bn_stats_kernel": 106},
+                "proto_advent": {"pseudo_labels_kernel": 2, "bn_stats_kernel": 159}}
+# one process at b4 against two ranks at b2 each after one step (PROTO_ADVENT
+# after a bootstrap), TF32 off, in DP_BOUNDS' two modes: losses relative; the
+# largest difference of the updated weights in the student's head and in the
+# rest of the student (the aux head among it) against the largest entry of
+# that group's update; and the discriminators' gradients (Adam's first
+# moment after the step) against their largest entry. Their weights are not
+# compared: Adam's first step moves each by ±lr_d, the sign of a gradient
+# that is a near cancellation (BCE toward 0 and 1 of near-equal maps), which
+# the forward's last bits flip where it is near 0 (as the step runs, a
+# discriminator weight moved 1.58 lr_d apart). Each bound is ≈5-10x the
+# larger of the two methods' readings on an H100 (loss 9.6e-08; exact: head
+# 2.0e-04, backbone 3.6e-03 (ADVENT's aux head), discriminators 4.5e-05; as
+# it runs: head 2.6e-04, backbone 1.7e-02, discriminators 2.4e-03).
+ADV_BOUNDS = {"exact": {"loss": 1e-6, "head": 2e-3, "backbone": 2e-2, "disc": 5e-4},
+              "kernels": {"loss": 1e-6, "head": 3e-3, "backbone": 1e-1, "disc": 2e-2}}
+# 12.5, the ranks against one process on the same files, as users run them
+# (cuDNN's TF32 convolutions at b2 against b4, which move a few pixels'
+# argmax): each mIoU's absolute gap (read 2.1e-06 on an H100), the dumps'
+# gap against their largest entry (3.0e-04) and each batch confidence's
+# absolute gap (1.0e-07); ≈10x those
+EVAL_MIOU_ATOL, EVAL_DUMP_RTOL, EVAL_CONF_ATOL = 2e-5, 3e-3, 1e-6
+
+
+def adv_tensors(torch, ad):
+    """Every tensor of an ADVENT or PROTO_ADVENT adapter by a flat name: the
+    student's state, both discriminators and both Adam states (`count`
+    included)."""
+    if hasattr(ad, "d_state"):
+        out = state_tensors(torch, ad.state)
+        discs = {"d_aux": ad.d_state["aux"], "d_main": ad.d_state["main"],
+                 "d_aux_opt": ad.d_state["aux_opt"], "d_main_opt": ad.d_state["main_opt"]}
+    else:
+        s = ad.state
+        out = {f"{tree}/{k}": v for tree in ("params", "batch_stats", "opt_momentum")
+               for k, v in getattr(s, tree).items()}
+        out["generator"] = s.generator.get_state()
+        discs = {name: getattr(s, name) for name in ("d_aux", "d_main", "d_aux_opt", "d_main_opt")}
+    for name, tree in discs.items():
+        if name.endswith("_opt"):
+            out.update({f"{name}/{m}/{k}": v for m in ("mu", "nu") for k, v in tree[m].items()})
+            out[f"{name}/count"] = torch.tensor(tree["count"])
+        else:
+            out.update({f"{name}/{k}": v for k, v in tree.items()})
+    return out
+
+
+def adv_compare_step(torch, device, config, batch, exact, rank=0, world=1):
+    """The adapter of configs/<config>.yml (advent or proto_advent) at
+    b`batch` 1024x512 on `device`, seeded weights and discriminators,
+    PROTO_ADVENT bootstrapped on this rank's rows of a seeded source batch,
+    after one step on its rows of seeded batches at the config's own LRs,
+    with TF32 off and deterministic cuDNN (`exact`: `batch_invariant`).
+    Returns (adapter, one-step fn of (src, trg) device batches, logs, local
+    batch fn, the student's and discriminators' weights before the step on
+    the host)."""
+    b = batch // world
+
+    def local(bt):
+        return {k: v[rank * b:(rank + 1) * b] for k, v in bt.items()}
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    with batch_invariant(torch) if exact else contextlib.nullcontext():
+        ad = make_adapter(torch, device, MAIN_HW, batch, config=config)
+        start = {k: v.detach().to("cpu", copy=True) for k, v in adv_tensors(torch, ad).items()
+                 if k.startswith(("params/", "d_main/", "d_aux/"))}
+        lr, lr_d = float(ad.cfg_spec.LEARNING_RATE), float(ad.cfg_spec.LEARNING_RATE_D)
+        if config == "proto_advent":
+            ad.calculate_prototypes([local(make_batches(torch, 1, batch, MAIN_HW, 30)[0])])
+            step = ad.pa_step_fn()
+
+            def one(src, trg):
+                ad.state, ad.d_state, logs = step(ad.state, ad.d_state, src["image"],
+                                                  src["label"], trg["image"], lr, lr_d)
+                return logs
+        else:
+            step = ad.build_step()
+
+            def one(src, trg):
+                ad.state, logs = step(ad.state, src["image"], src["label"], trg["image"], lr, lr_d)
+                return logs
+        dev = ad.device
+        src = {k: v.to(dev) for k, v in local(make_batches(torch, 1, batch, MAIN_HW, 32)[0]).items()}
+        trg = {k: v.to(dev) for k, v in local(make_batches(torch, 1, batch, MAIN_HW, 33)[0]).items()}
+        logs = dict(one(src, trg).items())
+        torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, False
+    return ad, one, logs, local, start
+
+
+def adv_compared(torch, ad):
+    """What 12.3 compares, on the host: the student's parameters, both
+    discriminators' first moments (their gradients after one step), the
+    Adam counts."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in adv_tensors(torch, ad).items()
+            if k.startswith(("params/", "d_main_opt/mu/", "d_aux_opt/mu/"))
+            or k.endswith("_opt/count")}
+
+
+def adv_rank(work):
+    """One rank of phase 12.3 (run under torch.distributed.run): for ADVENT
+    and PROTO_ADVENT, the compared step in both modes, the digests of the
+    whole state, then ADV_TIMED_STEPS timed steps after one with TF32 on and
+    one more under the CUDA sync debug mode; writes adv_rank<r>.json (and
+    rank 0 the compared weights) into `work`."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from onda_torch.ops import kernels as K
+    from onda_torch.parallel import distributed as D
+
+    device = D.initialize("cuda")
+    rank, world, batch = D.rank(), D.world(), 4
+    out = {"rank": rank, "world": world, "backend": D.backend()}
+    for config in ADV_LAUNCHES:
+        res = out[config] = {}
+        for mode in ADV_BOUNDS:  # "kernels" last: its adapter goes on to the timed steps
+            ad, one, logs, local, _ = adv_compare_step(torch, device, config, batch,
+                                                       mode == "exact", rank, world)
+            res[mode] = {"logs": logs, "digests": digests_of(torch, adv_tensors(torch, ad))}
+            if rank == 0:
+                torch.save(adv_compared(torch, ad), os.path.join(work, f"adv0_{config}_{mode}.pt"))
+            if mode == "exact":
+                del ad, one
+                release(torch)
+        feed = [({k: v.to(device) for k, v in local(s).items()},
+                 {k: v.to(device) for k, v in local(t).items()}) for s, t in zip(
+            make_batches(torch, 1 + ADV_TIMED_STEPS, batch, MAIN_HW, 34),
+            make_batches(torch, 1 + ADV_TIMED_STEPS, batch, MAIN_HW, 35))]
+        torch.cuda.synchronize()
+        K.reset_launches()
+        D.reset_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        times, finite = [], True
+        for src, trg in feed:
+            t = time.perf_counter()
+            finite &= math.isfinite(one(src, trg)["Adversarial loss"])  # ends at its log read
+            times.append(1e3 * (time.perf_counter() - t))
+        res.update(step_ms=times, finite=finite, launches=dict(K.launches),
+                   collectives=dict(D.COUNTS),
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+        D.reset_counts()
+        _, syncs = count_syncs(torch, lambda: one(*feed[0]))
+        res.update(debug_syncs=len(syncs), sync_collectives=D.COUNTS["collectives"])
+        del ad, one, feed
+        release(torch)
+    # a SEGMENT step of training_fog.yml's multi-level R50 at the same size
+    trainer = make_trainer(torch, device, MAIN_HW)
+    feed = [{k: v.to(device) for k, v in local(bt).items()}
+            for bt in make_batches(torch, 1 + ADV_TIMED_STEPS, batch, MAIN_HW, 36)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    D.reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    times, finite = [], True
+    for bt in feed:
+        t = time.perf_counter()
+        finite &= math.isfinite(float(trainer.step(bt["image"], bt["label"], 2.5e-4)))
+        times.append(1e3 * (time.perf_counter() - t))
+    out["segment"] = {
+        "step_ms": times, "finite": finite, "launches": dict(K.launches),
+        "collectives": dict(D.COUNTS), "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+        "digests": digests_of(torch, {**{f"params/{k}": v for k, v in trainer.params.items()},
+                                      **{f"stats/{k}": v for k, v in trainer.batch_stats.items()},
+                                      **{f"momentum/{k}": v
+                                         for k, v in trainer.momentum_buf.items()}})}
+    del trainer, feed
+    release(torch)
+    with open(os.path.join(work, f"adv_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    D.destroy()
+
+
+def adv_gaps(torch, got, want, start):
+    """12.3's gaps of the ranks' weights against one process's (see ADV_BOUNDS)."""
+    groups = {"head": [k for k in start if k.startswith("params/layer6")],
+              "backbone": [k for k in start if k.startswith("params/")
+                           and not k.startswith("params/layer6")]}
+    gaps = {g: update_gap(got, want, start, [k for k in keys if not torch.equal(
+        want[k], start[k])]) for g, keys in groups.items()}
+    moments = [k for k in want if "_opt/mu/" in k and bool(want[k].any())]
+    gaps["disc"] = update_gap(got, want, {k: torch.zeros_like(want[k]) for k in moments}, moments)
+    return gaps
+
+
+def run_cli_ranks(work, name, cfg_path, out_dir):
+    """`onda_torch.train_ouda.main` on cfg_path under torch.distributed.run
+    (two ranks), each rank's launches and collectives into work/<name>/.
+    Returns (the ranks' records, the output, seconds)."""
+    run_dir = os.path.join(work, name)
+    os.makedirs(run_dir, exist_ok=True)
+    rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--cli-rank", run_dir,
+                                   "--", "--cfg", cfg_path],
+                                  os.path.join(out_dir, f"dp_{name}.log"))
+    check(rc == 0, f"phase 12 {name}: the CLI under torch.distributed.run failed (exit {rc}):\n"
+                   f"{text[-3000:]}")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(run_dir, f"cli_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, text, seconds
+
+
+def check_one_writer(tag, snap, want_files):
+    """The files of a run's snapshot directory: `want_files` among them, each
+    once, and no hidden temporary left."""
+    files = sorted(os.listdir(snap))
+    check(set(want_files) <= set(files) and not [f for f in files if f.startswith(".")],
+          f"{tag}: wrote {files}, expected {sorted(want_files)} and no temporary")
+    return files
+
+
+def data_parallel_families_path(torch, K, out_dir, work, root, rows):
+    """Phases 12.3-12.5: 12.3 ADVENT and PROTO_ADVENT in memory at full width,
+    one process at b4 against two ranks of b2 (both modes, the ranks bit for
+    bit), then timed; 12.4 advent.yml (and an AUTO_RESUME run of it),
+    proto_advent.yml and training_fog.yml (SEGMENT, then its adaptation)
+    through the CLI under torch.distributed.run on phase 7's files; 12.5
+    validation_offline_fog.yml, its EVAL_SWEEP and validation.yml
+    (PREDICTION_SAVE) on 12.4's snapshots, the ranks against one process.
+    Returns launch counts by path and the numbers."""
+    backend, layout = dp_layout(torch)
+    paths, summary = {}, {}
+    n_train = CLI_FRAMES["train"]
+
+    # 12.3: the one-process references first, then the two ranks
+    t = time.perf_counter()
+    release(torch)
+    one = {}
+    for config in ADV_LAUNCHES:
+        for mode in ADV_BOUNDS:
+            ad, _, logs, _, start = adv_compare_step(torch, "cuda", config, 4, mode == "exact")
+            one[(config, mode)] = {"w": adv_compared(torch, ad), "logs": logs, "start": start}
+            del ad
+            release(torch)
+    adv_dir = os.path.join(work, "adv")
+    os.makedirs(adv_dir, exist_ok=True)
+    rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--adv-rank", adv_dir],
+                                  os.path.join(out_dir, "dp_adversarial_ranks.log"))
+    check(rc == 0, f"phase 12.3: a rank failed (exit {rc}):\n{text[-3000:]}")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(adv_dir, f"adv_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    check(all(r["world"] == DP_RANKS and r["backend"] == backend for r in ranks),
+          f"phase 12.3: ranks report {[(r['world'], r['backend']) for r in ranks]}")
+    n_bn = 53
+    for config, per_step in ADV_LAUNCHES.items():
+        r0 = ranks[0][config]
+        for mode, bounds in ADV_BOUNDS.items():
+            differ = sorted(k for k in r0[mode]["digests"] if any(
+                r[config][mode]["digests"][k] != r0[mode]["digests"][k] for r in ranks[1:]))
+            check(not differ, f"phase 12.3 {config} {mode}: the ranks' states differ after the "
+                              f"step in {differ[:6]}")
+            check(all(r[config][mode]["logs"] == r0[mode]["logs"] for r in ranks),
+                  f"phase 12.3 {config} {mode}: the ranks' logs differ")
+            got = torch.load(os.path.join(adv_dir, f"adv0_{config}_{mode}.pt"), weights_only=False)
+            want = one[(config, mode)]
+            logs = r0[mode]["logs"]
+            keys = [k for k in want["logs"] if "loss" in k]
+            gaps = {"loss": max(abs(logs[k] - want["logs"][k]) / max(abs(want["logs"][k]), 1e-12)
+                                for k in keys),
+                    **adv_gaps(torch, got, want["w"], want["start"])}
+            counts = {k: int(v) for k, v in got.items() if k.endswith("_opt/count")}
+            check(counts == {k: int(v) for k, v in want["w"].items() if k.endswith("_opt/count")},
+                  f"phase 12.3 {config} {mode}: Adam counts {counts} differ from one process's")
+            print(f"phase 12.3 {config} {mode}: {config}.yml in memory, b4 1024x512 ({layout}), "
+                  f"one process at b4 against the ranks at b2 after one step (TF32 off): "
+                  + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.0e})" for k, v in gaps.items())
+                  + f"; Adam counts {counts}; the ranks' {len(r0[mode]['digests'])} state "
+                  f"tensors (both discriminators and Adam states among them) equal bit for bit")
+            for key, gap in gaps.items():
+                check(gap <= bounds[key], f"phase 12.3 {config} {mode}: {key} gap {gap:.3e} > "
+                                          f"{bounds[key]}")
+            summary[f"{config}_{mode}_gaps"] = gaps
+        n_steps = 1 + ADV_TIMED_STEPS
+        want_collectives = (4 * n_bn + 4) if config == "advent" else (5 * n_bn + 3 + 4)
+        for r in ranks:
+            res = r[config]
+            check(res["finite"], f"phase 12.3 {config} rank {r['rank']}: a non-finite loss")
+            check(res["launches"] == {k: v * n_steps for k, v in per_step.items()},
+                  f"phase 12.3 {config} rank {r['rank']}: launches {res['launches']}, expected "
+                  f"{per_step} a step")
+            check(res["collectives"]["collectives"] == want_collectives * n_steps,
+                  f"phase 12.3 {config} rank {r['rank']}: {res['collectives']} collectives over "
+                  f"{n_steps} steps, expected {want_collectives} a step")
+            paths[f"data_parallel_{config}_in_memory_rank{r['rank']}"] = res["launches"]
+        step_ms = [statistics.median(r[config]["step_ms"][1:]) for r in ranks]
+        staged = (f" and {r0['sync_collectives']} gloo collectives staged through the host"
+                  if backend == "gloo" else "")
+        print(f"phase 12.3 {config} timed ({ADV_TIMED_STEPS} steps after 1, TF32 on, {layout}): "
+              f"median step ms per rank " + ", ".join(f"{v:.3f}" for v in step_ms) + " ("
+              + "; ".join(", ".join(f"{v:.3f}" for v in r[config]["step_ms"]) for r in ranks)
+              + f"); per rank and step {per_step}; {want_collectives} collectives of "
+              f"{r0['collectives']['bytes'] / n_steps / 1e6:.3f} MB a step; host syncs the CUDA "
+              f"sync debug mode counts in one step: {r0['debug_syncs']}{staged}; peak memory per "
+              f"rank " + ", ".join(f"{r[config]['peak_gib']:.3f} GiB" for r in ranks))
+        summary.update({f"{config}_step_ms": step_ms,
+                        f"{config}_peak_gib": [r[config]["peak_gib"] for r in ranks],
+                        f"{config}_collectives_per_step": want_collectives,
+                        f"{config}_bytes_per_step": r0["collectives"]["bytes"] / n_steps,
+                        f"{config}_debug_syncs": r0["debug_syncs"]})
+    r0 = ranks[0]["segment"]
+    n_steps = 1 + ADV_TIMED_STEPS
+    differ = sorted(k for k in r0["digests"] if ranks[1]["segment"]["digests"][k] != r0["digests"][k])
+    check(not differ, f"phase 12.3 segment: the ranks' trainers differ after {n_steps} steps in "
+                      f"{differ[:6]}")
+    for r in ranks:
+        res = r["segment"]
+        check(res["finite"], f"phase 12.3 segment rank {r['rank']}: a non-finite loss")
+        check(res["launches"] == {"pseudo_labels_kernel": 0, "bn_stats_kernel": n_bn * n_steps},
+              f"phase 12.3 segment rank {r['rank']}: launches {res['launches']}, expected K2 "
+              f"{n_bn} a step")
+        check(res["collectives"]["collectives"] == (2 * n_bn + 2) * n_steps,
+              f"phase 12.3 segment rank {r['rank']}: {res['collectives']} collectives over "
+              f"{n_steps} steps, expected {2 * n_bn + 2} a step")
+        paths[f"data_parallel_segment_in_memory_rank{r['rank']}"] = res["launches"]
+    step_ms = [statistics.median(r["segment"]["step_ms"][1:]) for r in ranks]
+    print(f"phase 12.3 segment timed (training_fog.yml's multi-level R50, b4 1024x512 as two "
+          f"ranks of b2, {ADV_TIMED_STEPS} steps after 1, TF32 on, {layout}): median step ms per "
+          f"rank " + ", ".join(f"{v:.3f}" for v in step_ms) + " ("
+          + "; ".join(", ".join(f"{v:.3f}" for v in r["segment"]["step_ms"]) for r in ranks)
+          + f"); per rank and step K2 {n_bn}; {2 * n_bn + 2} collectives of "
+          f"{r0['collectives']['bytes'] / n_steps / 1e6:.3f} MB a step; peak memory per rank "
+          + ", ".join(f"{r['segment']['peak_gib']:.3f} GiB" for r in ranks)
+          + f"; the ranks' {len(r0['digests'])} trainer tensors equal bit for bit")
+    summary.update(segment_step_ms=step_ms, segment_peak_gib=[r["segment"]["peak_gib"]
+                                                              for r in ranks],
+                   segment_bytes_per_step=r0["collectives"]["bytes"] / n_steps)
+    summary["seconds_12_3"] = time.perf_counter() - t
+    print(f"phase 12.3: {summary['seconds_12_3']:.3f} s ({seconds:.3f} s of ranks with start-up)")
+
+    # 12.4: the CLI under torch.distributed.run on phase 7's files
+    t = time.perf_counter()
+    write_fog_metadata(root, rows)
+    runs = {}
+
+    def cli_run(name, config, snap=None, **cuts):
+        snap = snap or os.path.join(work, f"dp_{name}")
+        cfg_path = os.path.join(work, f"dp_{name}.yml")
+        cfg = workflow_config(config, cfg_path, **{"SCHEME.PATH": root, "MODEL.LOAD": None,
+                                                    "OTHERS.SNAPSHOT_DIR": snap, **cuts})
+        n_records = len(read_records(snap)) if os.path.exists(
+            os.path.join(snap, "metrics.jsonl")) else 0
+        ranks, text, seconds = run_cli_ranks(work, name, cfg_path, out_dir)
+        records = read_records(snap)[n_records:]
+        for r in ranks:
+            paths[f"data_parallel_cli_{name}_rank{r['rank']}"] = r["launches"]
+        check(all(math.isfinite(v) for rec in records for k, v in rec.items()
+                  if "loss" in k and isinstance(v, float)), f"phase 12.4 {name}: a non-finite loss")
+        runs[name] = {"ranks": ranks, "text": text, "seconds": seconds, "records": records,
+                      "snap": snap, "cfg": cfg, "cfg_path": cfg_path}
+        return runs[name]
+
+    advent_cuts = {"SCHEME.DOMAIN_ORDER": [[25, 50]], "METHOD.ADAPTATION.ADVENT.EPOCHS": 1}
+    run = cli_run("advent", "advent", **advent_cuts)
+    batch = int(run["cfg"]["TRAINING"]["BATCH_SIZE"])
+    steps = 2 * n_train // batch
+    want = {"pseudo_labels_kernel": 0, "bn_stats_kernel": 106 * steps}
+    check(all(r["launches"] == want for r in run["ranks"]),
+          f"phase 12.4 advent: launches {[r['launches'] for r in run['ranks']]}, expected {want}")
+    adv_steps = [rec for rec in run["records"] if "Adversarial loss" in rec]
+    check(len(adv_steps) == steps, f"phase 12.4 advent: {len(adv_steps)} step records for "
+                                   f"{steps} steps (one writer)")
+    files = check_one_writer("phase 12.4 advent", run["snap"], ["advent_state.pt", "metrics.jsonl"])
+    state = torch.load(os.path.join(run["snap"], "advent_state.pt"), map_location="cpu",
+                       weights_only=False)
+    check(state["step"] == steps and state["d_main_opt"]["count"] == state["d_aux_opt"]["count"]
+          == steps, f"phase 12.4 advent: advent_state.pt step {state['step']}, Adam counts "
+                    f"{state['d_main_opt']['count']}/{state['d_aux_opt']['count']}")
+    del state
+    print(f"phase 12.4 advent.yml (DOMAIN_ORDER [[25, 50]], seeded weights, {steps} steps at "
+          f"global b{batch}, {layout}): {run['seconds']:.3f} s with start-up; per rank launches "
+          + "; ".join(str(r["launches"]) for r in run["ranks"]) + f"; {len(adv_steps)} step "
+          f"records from rank 0, every loss finite; files {files}")
+    resume_cuts = {**advent_cuts, "SCHEME.DOMAIN_ORDER": [[25]], "OTHERS.AUTO_RESUME": True}
+    run = cli_run("advent_resume", "advent", snap=runs["advent"]["snap"], **resume_cuts)
+    # the ranks' lines may share a line of the joined output: matched, not split
+    restored = re.findall(r"AUTO_RESUME: restoring (\S+?advent_state\.pt)", run["text"])
+    check(len(restored) == DP_RANKS and len(set(restored)) == 1,
+          f"phase 12.4 advent AUTO_RESUME: {restored}, expected both ranks to restore "
+          f"advent_state.pt")
+    state = torch.load(os.path.join(run["snap"], "advent_state.pt"), map_location="cpu",
+                       weights_only=False)
+    check(state["step"] == steps + n_train // batch,
+          f"phase 12.4 advent AUTO_RESUME: step {state['step']} after the resumed run")
+    del state
+    print(f"phase 12.4 advent.yml AUTO_RESUME (DOMAIN_ORDER [[25]]): {run['seconds']:.3f} s; "
+          f"{restored}; advent_state.pt step {steps} + {n_train // batch}")
+
+    run = cli_run("proto_advent", "proto_advent", **{
+        "SCHEME.DOMAIN_ORDER": [[25], [50]], "METHOD.ADAPTATION.PROTO_ADVENT.LOAD_PROTO": None,
+        "METHOD.ADAPTATION.PROTO_ADVENT.EPOCHS": 1})
+    boot = min(int(run["cfg"]["TRAINING"]["REPLAY_BUFFER"]), n_train) // batch
+    want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": 159 * steps + 53 * boot}
+    check(all(r["launches"] == want for r in run["ranks"]),
+          f"phase 12.4 proto_advent: launches {[r['launches'] for r in run['ranks']]}, "
+          f"expected {want}")
+    pa_steps = [rec for rec in run["records"] if "Adversarial loss" in rec]
+    check(len(pa_steps) == steps, f"phase 12.4 proto_advent: {len(pa_steps)} step records")
+    files = check_one_writer("phase 12.4 proto_advent", run["snap"],
+                             ["adapt_state.pt", "metrics.jsonl", "proto_current.pickle",
+                              "proto_(25,).pickle", "proto_(50,).pickle"])
+    print(f"phase 12.4 proto_advent.yml (DOMAIN_ORDER [[25], [50]], {steps} steps, {boot} "
+          f"bootstrap batches): {run['seconds']:.3f} s; per rank launches "
+          + "; ".join(str(r["launches"]) for r in run["ranks"]) + f"; files {files}")
+
+    run = cli_run("segment", "training_fog", **{
+        "SCHEME.DOMAIN_ORDER": [[750]], "METHOD.PRETRAIN.SEGMENT.EPOCHS": 1,
+        "METHOD.ADAPTATION.PROTO_ONLINE_HYBRIDSWITCH.LOAD_PROTO": None})
+    seg_batch = int(run["cfg"]["TRAINING"]["BATCH_SIZE"])
+    seg_steps = n_train // seg_batch
+    boot = min(int(run["cfg"]["TRAINING"]["REPLAY_BUFFER"]), n_train) // seg_batch
+    want = {"pseudo_labels_kernel": 0, "bn_stats_kernel": 53 * (seg_steps + boot)}
+    check(all(r["launches"] == want for r in run["ranks"]),
+          f"phase 12.4 training_fog: launches {[r['launches'] for r in run['ranks']]}, expected "
+          f"{want} (K2 53 per SEGMENT step and bootstrap batch)")
+    seg = [rec["Segmentation loss"] for rec in run["records"] if "Segmentation loss" in rec]
+    epochs = [rec for rec in run["records"] if "epoch" in rec]
+    check(len(seg) == -(-seg_steps // 10) and len(epochs) == 1,
+          f"phase 12.4 training_fog: {len(seg)} loss and {len(epochs)} epoch records")
+    files = check_one_writer("phase 12.4 training_fog", run["snap"], [
+        "model_train_[[0]].pth", "model_train_[[0]]_after_src_training.pth", "adapt_state.pt",
+        "metrics.jsonl"])
+    trained = torch.load(os.path.join(run["snap"], "model_train_[[0]].pth"))
+    after = torch.load(os.path.join(run["snap"], "model_train_[[0]]_after_src_training.pth"))
+    check(all(torch.equal(trained[k], v) for k, v in after.items()),
+          "phase 12.4 training_fog: model_train_[[0]].pth != _after_src_training.pth")
+    del trained, after
+    print(f"phase 12.4 training_fog.yml (SEGMENT 1 epoch of {seg_steps} steps at global "
+          f"b{seg_batch} 128x64, then the adaptation's bootstrap of {boot} batches, EPOCHS 0 as "
+          f"shipped): {run['seconds']:.3f} s; per rank launches "
+          + "; ".join(str(r["launches"]) for r in run["ranks"]) + f"; Segmentation loss "
+          + ", ".join(f"{v:.4f}" for v in seg) + f"; epoch "
+          + json.dumps({k: v for k, v in epochs[0].items() if k.startswith(("Val", "val"))})
+          + f"; files {files}")
+    summary.update({f"cli_{k}_seconds": v["seconds"] for k, v in runs.items()})
+    summary["seconds_12_4"] = time.perf_counter() - t
+    print(f"phase 12.4: {summary['seconds_12_4']:.3f} s")
+
+    # 12.5: EVALUATION on 12.4's SEGMENT snapshots, the ranks then one process
+    t = time.perf_counter()
+    snap = runs["segment"]["snap"]
+    preds = {who: os.path.join(work, f"dp_predictions_{who}") for who in ("ranks", "one")}
+    evals = {"evaluation": ("validation_offline_fog", {}),
+             "sweep": ("validation_offline_fog", {"OTHERS.EVAL_SWEEP": True}),
+             "predictions": ("validation", {"SCHEME.DOMAIN_ORDER": [[750]]})}
+    for name, (config, cuts) in evals.items():
+        res = {}
+        for who in ("ranks", "one"):
+            over = dict(cuts)
+            if name == "predictions":
+                over["METHOD.PRETRAIN.EVALUATION.PREDICTION_SAVE"] = preds[who]
+            cfg_path = os.path.join(work, f"dp_{name}_{who}.yml")
+            workflow_config(config, cfg_path, **{"SCHEME.PATH": root, "MODEL.LOAD": None,
+                                                 "OTHERS.SNAPSHOT_DIR": snap, **over})
+            n_records = len(read_records(snap))
+            if who == "ranks":
+                ranks, text, seconds = run_cli_ranks(work, f"eval_{name}", cfg_path, out_dir)
+                for r in ranks:
+                    paths[f"data_parallel_cli_{name}_rank{r['rank']}"] = r["launches"]
+            else:
+                _, _, seconds, text, runner = run_cli(
+                    torch, K, cfg_path, os.path.join(out_dir, f"dp_{name}_one.log"))
+                del runner
+                release(torch)
+            res[who] = {"records": read_records(snap)[n_records:], "text": text,
+                        "seconds": seconds}
+        miou = {who: {k: v for rec in r["records"] for k, v in rec.items()
+                      if k.startswith("Val mIoU")} for who, r in res.items()}
+        loaded = {who: sorted(set(re.findall(r"Model (\S+) is being loaded", r["text"])))
+                  for who, r in res.items()}
+        check(loaded["ranks"] == loaded["one"] and len(loaded["one"]) == 1,
+              f"phase 12.5 {name}: the ranks loaded {loaded['ranks']}, one process "
+              f"{loaded['one']}")
+        line = f"phase 12.5 {name} ({evals[name][0]}.yml on 12.4's SEGMENT snapshots, {layout}): "
+        if name == "predictions":
+            dirs = sorted(os.listdir(preds["one"]))
+            check(sorted(os.listdir(preds["ranks"])) == dirs and dirs,
+                  f"phase 12.5 predictions: domains {os.listdir(preds['ranks'])} against {dirs}")
+            worst, n_files = 0.0, 0
+            for d in dirs:
+                names = sorted(os.listdir(os.path.join(preds["one"], d)))
+                check(sorted(os.listdir(os.path.join(preds["ranks"], d))) == names,
+                      f"phase 12.5 predictions {d}: the ranks dumped other files")
+                for fname in names:
+                    want_t = torch.load(os.path.join(preds["one"], d, fname))
+                    got_t = torch.load(os.path.join(preds["ranks"], d, fname))
+                    b = len(want_t) // DP_RANKS
+                    order = [r + DP_RANKS * j for r in range(DP_RANKS) for j in range(b)]
+                    check(got_t.shape == want_t.shape, f"phase 12.5 {d}/{fname}: shape "
+                                                       f"{tuple(got_t.shape)}")
+                    gap = ((got_t - want_t[order]).abs().max()
+                           / want_t.abs().max().clamp(min=1e-30)).item()
+                    worst, n_files = max(worst, gap), n_files + 1
+            check(worst <= EVAL_DUMP_RTOL, f"phase 12.5 predictions: the rank-major dumps differ from "
+                                      f"one process's by {worst:.3e} of their largest entry")
+            conf = {who: [rec["Prediction confidence"] for rec in r["records"]
+                          if "Prediction confidence" in rec] for who, r in res.items()}
+            check(len(conf["ranks"]) == len(conf["one"]) == n_files,
+                  f"phase 12.5 predictions: {len(conf['ranks'])} confidence records from the "
+                  f"ranks, {len(conf['one'])} from one process, {n_files} dumps")
+            conf_gap = max(abs(a - b) for a, b in zip(conf["ranks"], conf["one"]))
+            check(conf_gap <= EVAL_CONF_ATOL, f"phase 12.5 predictions: confidence gap "
+                                              f"{conf_gap:.3e}")
+            line += (f"{n_files} dumps equal one process's after the rank-major reorder within "
+                     f"{worst:.3e} of their largest entry (bound {EVAL_DUMP_RTOL:.0e}); global "
+                     f"confidence within {conf_gap:.3e} (bound {EVAL_CONF_ATOL:.0e})")
+        else:
+            check(set(miou["ranks"]) == set(miou["one"]) and miou["one"],
+                  f"phase 12.5 {name}: mIoU keys {sorted(miou['ranks'])} against "
+                  f"{sorted(miou['one'])}")
+            gap = max(abs(miou["ranks"][k] - v) for k, v in miou["one"].items())
+            exact = all(miou["ranks"][k] == v for k, v in miou["one"].items())
+            check(gap <= EVAL_MIOU_ATOL, f"phase 12.5 {name}: mIoU gap {gap:.3e} > {EVAL_MIOU_ATOL}")
+            if name == "sweep":
+                swept = {who: re.findall(r"sweep: (\S+) mIoU", r["text"])
+                         for who, r in res.items()}
+                # each rank prints its sweep lines: every file twice
+                check(sorted(swept["ranks"]) == sorted(swept["one"] * DP_RANKS),
+                      f"phase 12.5 sweep: the ranks swept {swept['ranks']}, one process "
+                      f"{swept['one']}")
+                line += f"swept {swept['one']}; "
+            line += (f"{len(miou['one'])} Val mIoU keys, the ranks' against one process's: "
+                     f"largest gap {gap:.3e} ({'equal' if exact else 'not bit-equal'}); loaded "
+                     f"{loaded['one']}")
+        print(line + f"; {res['ranks']['seconds']:.3f} s (ranks), {res['one']['seconds']:.3f} s "
+                     f"(one process)")
+        summary[f"eval_{name}_seconds"] = res["ranks"]["seconds"]
+    for d in preds.values():
+        shutil.rmtree(d, ignore_errors=True)
+    for run in runs.values():
+        shutil.rmtree(run["snap"], ignore_errors=True)
+    summary["seconds_12_5"] = time.perf_counter() - t
+    print(f"phase 12.5: {summary['seconds_12_5']:.3f} s")
+    return paths, summary
+
+
 def main() -> int:
+    if sys.argv[1:2] in (["--dp-rank"], ["--cli-rank"], ["--adv-rank"]):
+        import faulthandler
+
+        # a rank still running shortly before the deadline prints where it waits
+        faulthandler.dump_traceback_later(DP_DEADLINE - 30, exit=False)
     if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 12.1, under torch.distributed.run
         return dp_rank(sys.argv[2])
-    if sys.argv[1:2] == ["--cli-rank"]:  # a rank of phase 12.2: --cli-rank DIR -- <CLI args>
+    if sys.argv[1:2] == ["--cli-rank"]:  # a CLI rank of phase 12: --cli-rank DIR -- <CLI args>
         return cli_rank(sys.argv[2], sys.argv[4:])
+    if sys.argv[1:2] == ["--adv-rank"]:  # a rank of phase 12.3, under torch.distributed.run
+        return adv_rank(sys.argv[2])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--skip-main", action="store_true", help="kernel phases only")
     parser.add_argument("--profile", action="store_true")
@@ -2720,9 +3294,14 @@ def main() -> int:
                     torch, K, args.out_dir, work, root, rows,
                     {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]})
                 paths.update(shipped)
+            t_12 = time.perf_counter()
             parallel, summary["data_parallel"] = data_parallel_path(
                 torch, K, args.out_dir, work, root, rows)
             paths.update(parallel)
+            families, summary["data_parallel_families"] = data_parallel_families_path(
+                torch, K, args.out_dir, work, root, rows)
+            paths.update(families)
+            print(f"phase 12 (12.1-12.5): {time.perf_counter() - t_12:.3f} s")
         finally:
             shutil.rmtree(work, ignore_errors=True)
     for k in (k1, k2):

@@ -23,6 +23,19 @@ Around the step, `train` feeds the source replay and the target stream
 through `DeviceFeeder`s, evaluates the student, renders samples and writes
 `advent_state.pt` once per epoch and at the end (`run_adversarial`, which
 PROTO_ADVENT shares).
+
+Under OTHERS.DATA_PARALLEL across ranks (`parallel`; each rank holds the
+local slice of the global batch) the step is the global batch's, as GSPMD
+makes the JAX step on a `data` mesh: every train-mode BatchNorm takes the
+global statistics, the source CEs divide by the global valid count and the
+BCEs by the global number of discriminator outputs, so the ranks' losses sum
+to the global ones; the student's gradients go in one bucket and both
+discriminators' in another before Adam, and the three logs are summed in a
+third. Every rank ends the step with the same bits, the discriminators and
+their Adam states included. The loop makes the same calls in the same order
+on every rank (the loaders give each as many batches); evaluation, samples
+and `save_model` run on every rank and only rank 0 writes. At world size 1
+none of this makes a collective call.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ from ..data.loader import DeviceFeeder, cycle
 from ..models.discriminator import FCDiscriminator, seeded_fc_discriminator
 from ..ops import losses as L
 from ..ops.interp import upsample_bilinear_ac
+from ..parallel import distributed as dist
 from ..parallel.mesh import refuse_unported
 from ..utils import checkpoint as ckpt
 from . import optim
@@ -79,21 +93,40 @@ def init_discriminators(num_classes: int, device) -> tuple[dict, dict]:
                  for seed in (D_AUX_SEED, D_MAIN_SEED))
 
 
-def discriminator_loss(disc, d_params: dict, src_ent, trg_ent):
+def _bce(logits, label: float, world: int):
+    """The BCE's mean over the outputs of the global batch of `world` equal
+    slices: this rank's share of it."""
+    return L.bce_with_logits(logits, label, count=None if world == 1 else world * logits.numel())
+
+
+def discriminator_loss(disc, d_params: dict, src_ent, trg_ent, world: int = 1):
     """One discriminator's BCE with its current weights, source maps toward
-    SOURCE and target maps toward TARGET, each term /2; returns (loss, grads).
-    The maps are detached: no gradient reaches the student."""
+    SOURCE and target maps toward TARGET, each term /2; returns (loss, grads),
+    this rank's shares under `world` ranks (the gradients are summed by
+    `sum_grads`). The maps are detached: no gradient reaches the student."""
     live = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
-    loss = (L.bce_with_logits(functional_call(disc, live, (src_ent.detach(),)), SOURCE_LABEL) / 2
-            + L.bce_with_logits(functional_call(disc, live, (trg_ent.detach(),)), TARGET_LABEL) / 2)
+    loss = (_bce(functional_call(disc, live, (src_ent.detach(),)), SOURCE_LABEL, world) / 2
+            + _bce(functional_call(disc, live, (trg_ent.detach(),)), TARGET_LABEL, world) / 2)
     grads = torch.autograd.grad(loss, list(live.values()))
     return loss.detach(), dict(zip(live, grads))
 
 
-def fool_loss(disc, d_params: dict, trg_ent):
+def fool_loss(disc, d_params: dict, trg_ent, world: int = 1):
     """The student's adversarial BCE: target maps toward SOURCE through the
     discriminator's current weights, which take no gradient."""
-    return L.bce_with_logits(functional_call(disc, d_params, (trg_ent,)), SOURCE_LABEL)
+    return _bce(functional_call(disc, d_params, (trg_ent,)), SOURCE_LABEL, world)
+
+
+def sum_grads(*grads: dict) -> tuple:
+    """The discriminators' gradient dicts summed over the ranks, in one
+    all-reduce (`torch.autograd.grad` bypasses `optim.grads`' bucket); the
+    dicts themselves at world size 1."""
+    flat = dist.all_sum(*(g for d in grads for g in d.values()))
+    out, i = [], 0
+    for d in grads:
+        out.append(dict(zip(d, flat[i:i + len(d)])))
+        i += len(d)
+    return tuple(out)
 
 
 def run_adversarial(adapter, step, trainloader, targetloader, validation_loaders,
@@ -147,6 +180,8 @@ class AdventAdapter:
     _predict = ProtoOnlineAdapter._predict
     test_on_samples = ProtoOnlineAdapter.test_on_samples
     load_newest = ProtoOnlineAdapter.load_newest
+    load_agreed = ProtoOnlineAdapter.load_agreed
+    read_checkpoint = ProtoOnlineAdapter.read_checkpoint
     _log = ProtoOnlineAdapter._log
 
     def __init__(self, model, variables, cfg, cfg_spec, num_classes: int, logger=None,
@@ -193,9 +228,13 @@ class AdventAdapter:
         labels = self.param_labels
         trainable = [k for k, lab in labels.items() if lab != optim.FROZEN]
         r0, r1 = self._lr_ratios()
+        world = dist.world()
 
         def step(state: AdventState, src_images, src_labels, trg_images, lr_base: float,
                  lr_d: float):
+            # the source CEs' denominator: the global batch's valid pixels
+            # (None: the CE counts its own batch, as on one device)
+            src_count = dist.all_sum(L.valid_count(src_labels))[0] if world > 1 else None
             live = dict(state.params)
             for k in trainable:
                 live[k] = state.params[k].detach().requires_grad_(True)
@@ -210,29 +249,33 @@ class AdventAdapter:
             # the running statistics come from the target slice alone
             src_aux, src_main = forward(src_images, False)
             trg_aux, trg_main = forward(trg_images, True)
-            seg = l_seg_main * L.cross_entropy_2d(src_main, src_labels)
+            seg = l_seg_main * L.cross_entropy_2d(src_main, src_labels, count=src_count)
             ent_main = entropy_map(trg_main)
-            adv = l_adv_main * fool_loss(disc, state.d_main, ent_main)
+            adv = l_adv_main * fool_loss(disc, state.d_main, ent_main, world)
             if multi:
-                seg = seg + l_seg_aux * L.cross_entropy_2d(src_aux, src_labels)
+                seg = seg + l_seg_aux * L.cross_entropy_2d(src_aux, src_labels, count=src_count)
                 ent_aux = entropy_map(trg_aux)
-                adv = adv + l_adv_aux * fool_loss(disc, state.d_aux, ent_aux)
+                adv = adv + l_adv_aux * fool_loss(disc, state.d_aux, ent_aux, world)
             grads = optim.grads(seg + adv, live, trainable)
             del live
 
             d_loss, d_main_g = discriminator_loss(disc, state.d_main, entropy_map(src_main.detach()),
-                                                  ent_main)
+                                                  ent_main, world)
             if multi:
-                loss_aux, d_aux_g = discriminator_loss(disc, state.d_aux,
-                                                       entropy_map(src_aux.detach()), ent_aux)
+                loss_aux, d_aux_g = discriminator_loss(
+                    disc, state.d_aux, entropy_map(src_aux.detach()), ent_aux, world)
                 d_loss = d_loss + loss_aux
+                d_main_g, d_aux_g = sum_grads(d_main_g, d_aux_g)
+            else:
+                (d_main_g,) = sum_grads(d_main_g)
             optim.update(state.params, grads, state.opt_momentum, labels, lr_base * r0,
                          lr_base * r1, momentum, weight_decay)
             optim.adam_update(state.d_main, d_main_g, state.d_main_opt, lr_d)
             if multi:  # without MULTI_LEVEL d_aux and its Adam state stay as they are
                 optim.adam_update(state.d_aux, d_aux_g, state.d_aux_opt, lr_d)
-            logs = {"Discriminator loss": d_loss, "Segmentation loss": seg.detach(),
-                    "Adversarial loss": adv.detach()}
+            # the ranks' shares summed: the global batch's losses
+            logs = dict(zip(("Discriminator loss", "Segmentation loss", "Adversarial loss"),
+                            dist.all_sum(d_loss, seg.detach(), adv.detach())))
             return dataclasses.replace(state, step=state.step + 1), LazyLogs(logs)
 
         return step
@@ -265,9 +308,11 @@ class AdventAdapter:
         ckpt.save_atomic(payload, os.path.join(str(self.cfg.OTHERS.SNAPSHOT_DIR), "advent_state.pt"),
                          wait=not value_or(self.cfg.OTHERS.ASYNC_SAVE, False))
 
-    def load_model(self, path: str) -> None:
-        """Restore a whole `advent_state.pt` (an exact resume)."""
-        payload = ckpt.load(path, map_location=self.device, weights_only=False)
+    def load_model(self, path: str, payload=None) -> None:
+        """Restore a whole `advent_state.pt` (an exact resume); `payload`: its
+        contents, if already read. A file that is not one raises before the
+        state changes."""
+        payload = self.read_checkpoint(path) if payload is None else payload
         missing = {f.name for f in dataclasses.fields(self.state)} - set(payload)
         if missing:
             raise KeyError(f"{path} is not an ADVENT snapshot: it lacks {sorted(missing)}")

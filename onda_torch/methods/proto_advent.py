@@ -20,6 +20,15 @@ It feeds no "model" monitor sample and has no AUTO_DYNAMIC, no buffer
 insertions and no PREDICTION_SAVE. `save_model` is the prototype adapter's:
 the discriminators are not in `adapt_state.pt`, so a resumed run restarts
 them from their seeded init, and the snapshot is written once, at the end.
+
+Under OTHERS.DATA_PARALLEL across ranks the step is the global batch's, as
+in both methods it joins: the teachers, the prototype EMA and the monitor
+are the PROTO_ONLINE step's (global confidences and moments); the source
+CEs divide by the global valid count, the target losses by the global
+pseudo-label count or pixel count, the BCEs by the global number of
+discriminator outputs; the student's and the discriminators' gradients are
+summed in a bucket each, and the logs that are shares or counts in a third.
+Every rank ends the step with the same bits.
 """
 
 from __future__ import annotations
@@ -33,10 +42,11 @@ from ..config import value_or
 from ..models.discriminator import FCDiscriminator
 from ..ops import losses as L
 from ..ops.interp import upsample_bilinear_ac
+from ..parallel import distributed as dist
 from . import optim
 from .advent import (_logits, discriminator_loss, entropy_map, fool_loss, init_discriminators,
-                     run_adversarial)
-from .proto_online import MONITOR_KEYS, LazyLogs, ProtoOnlineAdapter
+                     run_adversarial, sum_grads)
+from .proto_online import MONITOR_KEYS, LazyLogs, ProtoOnlineAdapter, global_counts
 from .state import AdaptState
 
 
@@ -66,11 +76,13 @@ class ProtoAdventAdapter(ProtoOnlineAdapter):
         r0, r1 = self.lr_ratios
         monitor = self.monitor
         teachers = self._build_teachers()
+        world = dist.world()
 
         def step(state: AdaptState, d_state: dict, src_images, src_labels, trg_images,
                  lr_base: float, lr_d: float):
             zero = torch.zeros((), device=trg_images.device)
             mon, switch, _, pseudolabels, soft_nchw, proto = teachers(state, trg_images)
+            trg_count, (src_count,), all_pixels = global_counts(pseudolabels, src_labels)
 
             live = dict(state.params)
             for k in trainable:
@@ -88,31 +100,37 @@ class ProtoAdventAdapter(ProtoOnlineAdapter):
             src_aux, src_main = forward(state.alt_batch_stats, src_images)
             trg_aux, out_t = forward(state.batch_stats, trg_images)
             src_main_up = up(src_main)
-            seg = l_seg_main * L.cross_entropy_2d(src_main_up, src_labels)
+            seg = l_seg_main * L.cross_entropy_2d(src_main_up, src_labels, count=src_count)
             if multi:
                 src_aux_up = up(src_aux)
-                seg = seg + l_seg_aux * L.cross_entropy_2d(src_aux_up, src_labels)
+                seg = seg + l_seg_aux * L.cross_entropy_2d(src_aux_up, src_labels, count=src_count)
             trg_target = soft_nchw if soft_labels else pseudolabels
-            ce = L.cross_entropy_2d(out_t, trg_target, soft=soft_labels) if rce_alpha > 0 else zero
-            rce_l = L.rce(out_t, trg_target, soft=soft_labels) if rce_beta > 0 else zero
+            n_trg = all_pixels if soft_labels else trg_count
+            ce = (L.cross_entropy_2d(out_t, trg_target, soft=soft_labels, count=n_trg)
+                  if rce_alpha > 0 else zero)
+            rce_l = (L.rce(out_t, trg_target, soft=soft_labels, count=n_trg)
+                     if rce_beta > 0 else zero)
             sym = rce_alpha * ce + rce_beta * rce_l
-            reg = L.regular_loss(regularizer, out_t) if reg_weight > 0 else zero
-            js = L.js_divergence(out_t, pseudolabels) if js_d > 0 else zero
+            reg = L.regular_loss(regularizer, out_t, count=all_pixels) if reg_weight > 0 else zero
+            js = L.js_divergence(out_t, pseudolabels, count=trg_count) if js_d > 0 else zero
             total_t = sym + reg_weight * reg + js_d * js
             ent_main = entropy_map(up(out_t))
-            adv = l_adv_main * fool_loss(disc, d_state["main"], ent_main)
+            adv = l_adv_main * fool_loss(disc, d_state["main"], ent_main, world)
             if multi:
                 ent_aux = entropy_map(up(trg_aux))
-                adv = adv + l_adv_aux * fool_loss(disc, d_state["aux"], ent_aux)
+                adv = adv + l_adv_aux * fool_loss(disc, d_state["aux"], ent_aux, world)
             grads = optim.grads(seg + total_t + adv, live, trainable)
             del live
 
-            d_loss, d_main_g = discriminator_loss(disc, d_state["main"],
-                                                  entropy_map(src_main_up.detach()), ent_main)
+            d_loss, d_main_g = discriminator_loss(
+                disc, d_state["main"], entropy_map(src_main_up.detach()), ent_main, world)
             if multi:
-                loss_aux, d_aux_g = discriminator_loss(disc, d_state["aux"],
-                                                       entropy_map(src_aux_up.detach()), ent_aux)
+                loss_aux, d_aux_g = discriminator_loss(
+                    disc, d_state["aux"], entropy_map(src_aux_up.detach()), ent_aux, world)
                 d_loss = d_loss + loss_aux
+                d_main_g, d_aux_g = sum_grads(d_main_g, d_aux_g)
+            else:
+                (d_main_g,) = sum_grads(d_main_g)
             with torch.no_grad():
                 optim.update(state.params, grads, state.opt_momentum, labels, lr_base * r0,
                              lr_base * r1, momentum, weight_decay)
@@ -122,15 +140,16 @@ class ProtoAdventAdapter(ProtoOnlineAdapter):
                     optim.adam_update(d_state["aux"], d_aux_g, d_state["aux_opt"], lr_d)
                 for k, e in state.ema_params.items():
                     e.mul_(ema_update).add_(state.params[k], alpha=1.0 - ema_update)
-                logs = {
+                # the losses' shares and the pseudo-label count, summed over the ranks
+                shares = {
                     "Segmentation loss": seg, "Adversarial loss": adv, "ce_loss": ce,
                     "rce_loss": rce_l, "sym_loss": sym, "regularization_loss": reg,
                     "JS Divergance loss": js, "Total target loss": total_t,
                     "Discriminator loss": d_loss,
-                    "pseudolabel_pixel_num":
-                        ((pseudolabels >= 0) & (pseudolabels != 255)).float().sum(),
-                    "mean_prototype_intensity_values": (proto.mean**2).mean(),
+                    "pseudolabel_pixel_num": L.valid_count(pseudolabels),
                 }
+                logs = dict(zip(shares, dist.all_sum(*shares.values())))
+                logs["mean_prototype_intensity_values"] = (proto.mean**2).mean()
                 for key in MONITOR_KEYS:
                     logs[f"{key} confidence ma"] = monitor.avg(mon, key)
                 logs["dev avg prior static"] = monitor.dev_avg(mon, "prior static")

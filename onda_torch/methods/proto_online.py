@@ -48,6 +48,7 @@ import dataclasses
 import json
 import os
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -91,6 +92,18 @@ def dump_logits_batch(base: str, index: int, logits_nchw: torch.Tensor) -> None:
     adaptation_model.py:218-232)."""
     torch.save(logits_nchw.detach().float().to("cpu", copy=True).contiguous(),
                os.path.join(base, f"batch-{index}.pt"))
+
+
+def global_counts(pseudolabels, *src_labels):
+    """The losses' denominators under data parallelism, in one all-reduce:
+    the global batch's valid pseudo-labels, each source batch's valid
+    pixels, and the target's pixel count. At world size 1 all None: each
+    loss counts its own batch, as on one device."""
+    world = dist.world()
+    if world == 1:
+        return None, [None] * len(src_labels), None
+    trg, *src = dist.all_sum(L.valid_count(pseudolabels), *map(L.valid_count, src_labels))
+    return trg, src, world * pseudolabels.numel()
 
 
 def _softmax(x):
@@ -387,14 +400,8 @@ class ProtoOnlineAdapter:
             dev = trg_images.device
             zero = torch.zeros((), device=dev)
             mon, switch, calc_dyn, pseudolabels, soft_nchw, proto = teachers(state, trg_images)
-            # the losses' denominators: the global batch's pixel counts (None:
-            # each loss counts its own batch, as on one device)
-            trg_count = src_counts = all_pixels = None
-            if world > 1:
-                src_valid = [L.valid_count(src_labels[s]) for s in range(source_repeat)
-                             ] if have_src else []
-                trg_count, *src_counts = dist.all_sum(L.valid_count(pseudolabels), *src_valid)
-                all_pixels = world * pseudolabels.numel()
+            trg_count, src_counts, all_pixels = global_counts(
+                pseudolabels, *(src_labels[s] for s in range(source_repeat) if have_src))
 
             # ---- student: source slices (BN stats frozen) + target slice --
             live = dict(state.params)
@@ -411,12 +418,12 @@ class ProtoOnlineAdapter:
                 for s in range(source_repeat):
                     out_s = fwd(live, src_stats, src_images[s], train=True,
                                 update_stats=bn_policy != "freeze")["out"].float()
-                    n_src = src_counts[s] if src_counts else None
                     if buff_ce_w > 0:
-                        buff_ce_last = L.cross_entropy_2d(out_s, src_labels[s], count=n_src)
+                        buff_ce_last = L.cross_entropy_2d(out_s, src_labels[s],
+                                                          count=src_counts[s])
                         buff_ce = buff_ce + buff_ce_last
                     if buff_rce_w > 0:
-                        buff_rce_last = L.rce(out_s, src_labels[s], count=n_src)
+                        buff_rce_last = L.rce(out_s, src_labels[s], count=src_counts[s])
                         buff_rce = buff_rce + buff_rce_last
             out_t = fwd(live, state.batch_stats, trg_images, train=True,
                         update_stats=True)["out"].float()
@@ -904,22 +911,51 @@ class ProtoOnlineAdapter:
         """Load the newest of `candidates` (paths, oldest first) that loads,
         printing `<skip> skip: <name> (...)` for each newer one that does not
         (a crash while writing can leave one behind); returns its path, or
-        None when none loads."""
-        for cand in reversed(candidates):
-            try:
-                self.load_model(str(cand))
-            except Exception as exc:  # noqa: BLE001 - an unloadable file: try the next older
-                print(f"{skip} skip: {cand.name} (unloadable: {type(exc).__name__}: {exc})")
-                continue
-            return cand
+        None when none loads. Under data parallelism the candidates are rank
+        0's list, and every rank loads the same file (`load_agreed`)."""
+        for cand in reversed(dist.from_primary([str(c) for c in candidates])):
+            if self.load_agreed(Path(cand), skip):
+                return Path(cand)
         return None
 
-    def load_model(self, path: str) -> None:
+    def load_agreed(self, path: Path, skip: str) -> bool:
+        """Load `path` on every rank or on none, printing `<skip> skip: ...`
+        when it does not load; returns whether it loaded. The ranks agree
+        twice: after reading the file (a rank that cannot read it, say one
+        that sees a file still being written, makes every rank skip it,
+        before any state changed) and after applying it, which checks the
+        contents before it changes the state, so that a file unfit on one
+        rank is unfit on all. At world size 1: one try of `load_model`."""
+        payload = error = None
+        try:
+            payload = self.read_checkpoint(str(path))
+        except Exception as exc:  # noqa: BLE001 - an unreadable file: the caller tries the next
+            error = exc
+        if not dist.any_true(error is not None):
+            try:
+                self.load_model(str(path), payload)
+            except Exception as exc:  # noqa: BLE001 - contents this adapter cannot take
+                error = exc
+            if not dist.any_true(error is not None):
+                return True
+            if error is None:
+                raise RuntimeError(f"{path} loaded on this rank but not on another: the ranks' "
+                                   "states now differ")
+        why = f"{type(error).__name__}: {error}" if error is not None else "on another rank"
+        print(f"{skip} skip: {path.name} (unloadable: {why})")
+        return False
+
+    def read_checkpoint(self, path: str):
+        """A checkpoint's contents, its tensors on this adapter's device."""
+        return ckpt.load(path, map_location=self.device, weights_only=False)
+
+    def load_model(self, path: str, payload=None) -> None:
         """`adapt_state.pt` restores the full state (exact resume); an ADVENT
         run's `advent_state.pt` lends the student (params and BN buffers, as
         the JAX runner lifts them); any other file is a model state_dict and
-        restores the student only."""
-        payload = ckpt.load(path, map_location=self.device, weights_only=False)
+        restores the student only. `payload`: the file's contents, if already
+        read. A file this adapter cannot take raises before the state changes."""
+        payload = self.read_checkpoint(path) if payload is None else payload
         s = self.state
         if "params" in payload and "proto" in payload:
             gen_state = payload.pop("generator")
@@ -934,6 +970,10 @@ class ProtoOnlineAdapter:
         missing = (set(s.params) | set(s.batch_stats)) - set(payload)
         if missing:
             raise KeyError(f"state_dict is missing {sorted(missing)[:8]}")
+        shapes = [k for tree in (s.params, s.batch_stats) for k, v in tree.items()
+                  if tuple(payload[k].shape) != tuple(v.shape)]
+        if shapes:
+            raise ValueError(f"state_dict shapes differ from the model's at {shapes[:8]}")
         for tree in (s.params, s.batch_stats):
             for k, v in tree.items():
                 v.copy_(payload[k])

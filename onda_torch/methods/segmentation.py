@@ -11,6 +11,17 @@ under SCHEME.ORIGINAL_RES), then the student as `model_train_{SOURCE}.pth`.
 
 The step's loss stays on the device; the host reads the window of losses once
 per log, every 10 steps.
+
+Under OTHERS.DATA_PARALLEL across ranks (each rank trains on its shard of the
+source at the local batch size) the step is the global batch's, as on the
+JAX package's `data` mesh: global BatchNorm statistics, both CEs divided by
+the global valid count, the gradients summed in one bucket, so every rank
+ends the step with the same bits. The logged loss is the global window mean
+(one all-reduce per log); the evaluation sums the ranks' confusion matrices
+and takes the entropy as the mean over the ranks of their batch means, which
+is the global batch's where the shards are whole (a padded final batch
+counts each rank's padding rows, as a multi-process JAX run's does). Only
+rank 0 writes `model_train_{SOURCE}.pth`.
 """
 
 from __future__ import annotations
@@ -42,10 +53,6 @@ def _logits(out):
 class SegmentTrainer:
     def __init__(self, model, variables, cfg, cfg_spec, num_classes: int, logger=None,
                  device="cuda"):
-        if dist.world() > 1:
-            raise NotImplementedError("SEGMENT training runs on one rank only: OTHERS."
-                                      "DATA_PARALLEL across ranks covers the PROTO_ONLINE "
-                                      "family (ROADMAP M17)")
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -67,7 +74,8 @@ class SegmentTrainer:
         return int(h), int(w)
 
     def step(self, images, labels, lr: float) -> torch.Tensor:
-        """One training step in place; returns the loss, on the device."""
+        """One training step in place; returns the loss (this rank's share of
+        the global batch's under data parallelism), on the device."""
         live = dict(self.params)
         for k in self.trainable:
             live[k] = self.params[k].detach().requires_grad_(True)
@@ -75,10 +83,14 @@ class SegmentTrainer:
                                     {"train": True, "update_stats": True,
                                      "generator": self.generator})
         hw = self.resolution_hw
-        loss = L.cross_entropy_2d(upsample_bilinear_ac(_logits(main).float(), hw), labels)
+        # under data parallelism both CEs divide by the global valid count,
+        # so the ranks' losses sum to the global batch's
+        count = dist.all_sum(L.valid_count(labels))[0] if dist.world() > 1 else None
+        loss = L.cross_entropy_2d(upsample_bilinear_ac(_logits(main).float(), hw), labels,
+                                  count=count)
         if aux is not None:
             loss = loss + AUX_WEIGHT * L.cross_entropy_2d(
-                upsample_bilinear_ac(_logits(aux).float(), hw), labels)
+                upsample_bilinear_ac(_logits(aux).float(), hw), labels, count=count)
         grads = optim.grads(loss, live, self.trainable)
         del live
         optim.update(self.params, grads, self.momentum_buf, self.param_labels, lr,
@@ -115,7 +127,9 @@ class SegmentTrainer:
                 pred = torch.softmax(upsample_bilinear_ac(out, org_hw), dim=1).argmax(dim=1)
                 hist_org += M.fast_hist(self._labels(batch["label_raw"], valid), pred, C)
             n += 1
-        iou, mean_ent = M.per_class_iu(hist), float(ent) / max(n, 1)
+        # every rank evaluated its shard: sum the counts, average the entropy
+        hist, hist_org = dist.all_sum(hist, hist_org)
+        iou, mean_ent = M.per_class_iu(hist), float(dist.all_mean(ent)[0]) / max(n, 1)
         if org_hw is not None and saw_raw:
             # reported only when the batches carried label_raw: an empty
             # histogram would log a meaningless 0.0
@@ -150,7 +164,9 @@ class SegmentTrainer:
                 window.append(self.step(batch["image"].float(), batch["label"].long(), lr))
                 meter.mark("Fused Step (fwd+loss+bwd+update)")
                 if step_i % 10 == 0:
-                    self._log({"Segmentation loss": float(torch.stack(window).mean()),
+                    # the ranks' shares summed: the global batch's mean loss
+                    loss = dist.all_sum(torch.stack(window).mean())[0]
+                    self._log({"Segmentation loss": float(loss),
                                "learning_rate": optim.lr_poly(base_lr, step_i, total, power),
                                **meter.averages()})
                     window = []

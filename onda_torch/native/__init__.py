@@ -34,6 +34,7 @@ ERRORS = {
     -4: "a label id outside the remap table",
     -5: "the image data does not inflate to the size its header gives",
     -6: "the decoded size differs from the buffer",
+    -7: "the prep pool stopped before the batch was made",
 }
 
 _lock = threading.Lock()

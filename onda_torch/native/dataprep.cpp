@@ -43,6 +43,7 @@ enum {
     kLabelRange = -4,    // a label id outside the remap table
     kInflate = -5,       // the IDAT stream does not inflate to the expected size
     kSize = -6,          // the decoded size differs from the caller's buffer
+    kStopped = -7,       // the executor was destroyed before the job was done
 };
 
 namespace {
@@ -460,6 +461,12 @@ class Executor {
         }
         cv_.notify_all();
         for (auto& t : pool_) t.join();
+        // a thread may still wait on a job whose tasks will now never run (a
+        // loader thread when the process exits): wake it, and let it leave
+        // before the condition variable it waits on is destroyed
+        std::unique_lock<std::mutex> g(mu_);
+        done_cv_.notify_all();
+        done_cv_.wait(g, [this] { return waiters_ == 0; });
         for (auto& kv : jobs_) delete kv.second;
     }
 
@@ -480,7 +487,13 @@ class Executor {
         auto it = jobs_.find(id);
         if (it == jobs_.end()) return kCorrupt;
         Job* job = it->second;
-        done_cv_.wait(g, [job] { return job->remaining.load() == 0; });
+        ++waiters_;
+        done_cv_.wait(g, [this, job] { return stop_ || job->remaining.load() == 0; });
+        --waiters_;
+        if (job->remaining.load() != 0) {  // stopped: the destructor reaps the job
+            done_cv_.notify_all();
+            return kStopped;
+        }
         int status = job->status.load();
         *failed = job->failed.load();
         jobs_.erase(it);
@@ -523,6 +536,7 @@ class Executor {
     std::unordered_map<int, Job*> jobs_;
     std::vector<std::thread> pool_;
     int next_id_ = 1;
+    int waiters_ = 0;  // threads inside wait()
     bool stop_ = false;
 };
 

@@ -112,9 +112,11 @@ def prob_2_entropy(probs):
     return -probs * torch.log2(probs + 1e-30) / math.log2(probs.shape[1])
 
 
-def bce_with_logits(logits, label: float):
-    """Mean BCE-with-logits against a constant label map (reference func.py:28-32)."""
-    return (logits.clamp(min=0) - logits * label + torch.log1p(torch.exp(-logits.abs()))).mean()
+def bce_with_logits(logits, label: float, count=None):
+    """Mean BCE-with-logits against a constant label map (reference func.py:28-32);
+    `count` replaces the number of outputs it divides by."""
+    per = logits.clamp(min=0) - logits * label + torch.log1p(torch.exp(-logits.abs()))
+    return per.mean() if count is None else per.sum() / count
 
 
 def ewc_loss(lamda: float, anchor_params: dict, current_params: dict, fishers: dict | None = None):

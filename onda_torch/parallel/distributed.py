@@ -21,6 +21,12 @@ with the same bits.
 * `all_sum` and `all_mean` reduce any number of tensors of one type in one
   all-reduce (a flat bucket). At world size 1 they return their arguments and
   make no collective call. `COUNTS` counts the calls and their bytes.
+* Host decisions that steer collectives agree across ranks: `from_primary`
+  gives every rank rank 0's value of a small host object (the checkpoints
+  that EVALUATION lists, the sweep's "keep polling"), and `any_true` makes a
+  failure on any rank a failure on every rank (a checkpoint that one rank
+  cannot load is skipped by all). Both work under gloo (host tensors) and
+  NCCL (card tensors), and make no collective call at world size 1.
 
 Only rank 0 writes files (`is_primary`): metrics, checkpoints, prototype
 pickles, samples and prediction dumps. Every rank computes the same state.
@@ -29,13 +35,15 @@ pickles, samples and prediction dumps. Every rank computes the same state.
 from __future__ import annotations
 
 import datetime
+import json
 import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-# all-reduce calls made and the bytes they reduced, since the last reset
+# collective calls made (all-reduces and broadcasts) and the bytes they moved,
+# since the last reset
 COUNTS = {"collectives": 0, "bytes": 0}
 TIMEOUT = datetime.timedelta(minutes=10)  # a rank that stops waits this long, then fails
 
@@ -153,6 +161,44 @@ def all_mean(*tensors: torch.Tensor):
     if w == 1:
         return tensors
     return tuple(t / w for t in all_sum(*tensors))
+
+
+def _host_side_device() -> torch.device:
+    """Where a collective's small host-side values travel: the rank's card
+    under NCCL (which moves card tensors only), the host under gloo."""
+    if backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _broadcast(t: torch.Tensor) -> torch.Tensor:
+    COUNTS["collectives"] += 1
+    COUNTS["bytes"] += t.numel() * t.element_size()
+    dist.broadcast(t, 0)
+    return t
+
+
+def from_primary(obj):
+    """Rank 0's value of `obj`, a JSON-able host object, on every rank: two
+    broadcasts, its length and its bytes. `obj` itself at world size 1."""
+    if world() == 1:
+        return obj
+    dev = _host_side_device()
+    data = json.dumps(obj).encode() if is_primary() else b""
+    size = _broadcast(torch.tensor([len(data)], dtype=torch.int64, device=dev))
+    buf = torch.zeros(int(size.item()), dtype=torch.uint8, device=dev)
+    if is_primary():
+        buf.copy_(torch.frombuffer(bytearray(data), dtype=torch.uint8))
+    return json.loads(bytes(_broadcast(buf).cpu().numpy()).decode())
+
+
+def any_true(flag: bool) -> bool:
+    """Whether `flag` is true on any rank, on every rank (one all-reduce of a
+    count). `flag` itself at world size 1."""
+    if world() == 1:
+        return bool(flag)
+    count = torch.tensor([int(bool(flag))], dtype=torch.int32, device=_host_side_device())
+    return int(all_sum(count)[0].item()) > 0
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""OTHERS.DATA_PARALLEL and the options the port runs on one device only
+"""OTHERS.DATA_PARALLEL, and the one option the port does not run
 (`onda_tpu/parallel/mesh.py`).
 
 The JAX package resolves OTHERS.DATA_PARALLEL into a 1-D `data` mesh over its
@@ -9,11 +9,12 @@ int n must equal the world size, the global batch must split evenly, and the
 multi-process guards hold because every rank is a process. At world size 1
 every value resolves to the one-device path, as JAX's `n <= 1 → None` does.
 
-Where the port differs: DATA_PARALLEL false under a world size above 1 raises
-(JAX would let each process train alone on its shard), and `refuse_unported`
-stops what the port does not run across ranks yet (ROADMAP M17): ADVENT,
-PROTO_ADVENT, EVALUATION mode and SEGMENT training under more than one rank,
-and OTHERS.TENSOR_PARALLEL (`tensor_parallel_shardings`) everywhere.
+Every path of the CLI runs across ranks: the PROTO_ONLINE family, ADVENT and
+PROTO_ADVENT, SEGMENT training and EVALUATION mode. Where the port differs:
+DATA_PARALLEL false under a world size above 1 raises (JAX would let each
+process train alone on its shard), and `refuse_unported` stops
+OTHERS.TENSOR_PARALLEL (`tensor_parallel_shardings`, ROADMAP M17) on any
+number of ranks.
 """
 
 from __future__ import annotations
@@ -57,28 +58,12 @@ def data_parallel_size(option, batch_size: int | None = None, world: int | None 
 
 def refuse_unported(cfg) -> int:
     """Raise, before anything trains or is written, for what the port does
-    not run: OTHERS.TENSOR_PARALLEL, an OTHERS.DATA_PARALLEL that does not
-    resolve against this run's ranks, and, under more than one rank, every
-    path but the PROTO_ONLINE family's adaptation. Returns the data-parallel
-    size (1: one device)."""
+    not run: OTHERS.TENSOR_PARALLEL, and an OTHERS.DATA_PARALLEL that does
+    not resolve against this run's ranks. Returns the data-parallel size
+    (1: one device)."""
     tp = cfg.OTHERS.TENSOR_PARALLEL
     if tp is True or (not unset(tp) and tp not in (None, False) and int(tp) > 1):
         raise NotImplementedError("OTHERS.TENSOR_PARALLEL: the port does not shard the model "
                                   "(channel-wise tensor parallelism is ROADMAP M17)")
     dp = cfg.OTHERS.DATA_PARALLEL
-    size = data_parallel_size(None if unset(dp) else dp, int(cfg.TRAINING.BATCH_SIZE))
-    if size == 1:
-        return 1
-    where = f"OTHERS.DATA_PARALLEL across {size} ranks"
-    pretrain = cfg.METHOD.PRETRAIN.NAME
-    if pretrain == "EVALUATION":
-        raise NotImplementedError(f"{where}: EVALUATION mode runs on one rank only "
-                                  "(ROADMAP M17)")
-    if pretrain == "SEGMENT" and int(cfg.METHOD.PRETRAIN.SEGMENT.EPOCHS) > 0:
-        raise NotImplementedError(f"{where}: SEGMENT training (EPOCHS > 0) runs on one rank "
-                                  "only (ROADMAP M17)")
-    method = cfg.METHOD.ADAPTATION.NAME
-    if method in ("ADVENT", "PROTO_ADVENT"):
-        raise NotImplementedError(f"{where}: METHOD.ADAPTATION.NAME {method} runs on one rank "
-                                  "only (ROADMAP M17)")
-    return size
+    return data_parallel_size(None if unset(dp) else dp, int(cfg.TRAINING.BATCH_SIZE))

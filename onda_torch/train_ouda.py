@@ -25,11 +25,14 @@ process per rank, TRAINING.BATCH_SIZE the global batch. Each rank loads its
 disjoint shard of every metadata table at the local batch size (every
 world-th row, the uneven tail dropped on every rank) and, under
 BUFFER_DYNAMIC, keeps its own replay buffer over its shard of the sample,
-seeded with the seed plus its rank; rank 0 alone writes metrics, checkpoints
-and pickles. The PROTO_ONLINE family runs across ranks; ADVENT,
-PROTO_ADVENT, EVALUATION mode and SEGMENT training stop before anything is
-written, as OTHERS.TENSOR_PARALLEL does on any number of ranks
-(`parallel.mesh.refuse_unported`).
+seeded with the seed plus its rank; rank 0 alone writes metrics, checkpoints,
+pickles and prediction dumps. Every path runs across ranks: the PROTO_ONLINE
+family, ADVENT and PROTO_ADVENT, SEGMENT training (every rank trains on its
+source shard; `_after_src_training.pth` is written once and adaptation goes
+on from the weights in memory on every rank) and EVALUATION mode (the
+checkpoint to load, the sweep's list and AUTO_RESUME's pick are rank 0's,
+taken on every rank). OTHERS.TENSOR_PARALLEL stops before anything is
+written, on any number of ranks (`parallel.mesh.refuse_unported`).
 
 Under OTHERS.ASYNC_SAVE the checkpoints are written in the background;
 `main` waits for every write, and raises a failed one, before it returns. It
@@ -233,15 +236,16 @@ def resume(adapter, cfg):
     """AUTO_RESUME, crash recovery: restore the newest whole snapshot of
     SNAPSHOT_DIR that the adapter's own state tree holds (an exact resume:
     `advent_state*.pt` for ADVENT, `adapt_state*.pt` otherwise); returns its
-    path, or None. An adapter with prototypes then skips their bootstrap."""
+    path, or None. An adapter with prototypes then skips their bootstrap.
+    Under data parallelism every rank restores rank 0's pick."""
     from .utils.checkpoint import checkpoints_by_mtime
 
     snap_dir = str(cfg.OTHERS.SNAPSHOT_DIR)
-    if not os.path.isdir(snap_dir):
-        return None
     prefixes = ("advent_state",) if cfg.METHOD.ADAPTATION.NAME == "ADVENT" else ("adapt_state",)
-    cand = adapter.load_newest(checkpoints_by_mtime(snap_dir, prefixes, allow_pth=False),
-                               "AUTO_RESUME")
+    listed = (checkpoints_by_mtime(snap_dir, prefixes, allow_pth=False)
+              if os.path.isdir(snap_dir) else [])
+    # rank 0's list, loaded on every rank or skipped on every rank
+    cand = adapter.load_newest(listed, "AUTO_RESUME")
     if cand is not None:
         print(f"AUTO_RESUME: restoring {cand}")
         if hasattr(adapter, "skip_proto"):

@@ -297,6 +297,43 @@ def test_prepare_batch_names_the_file_it_cannot_read(root, label2train, executor
         ds.prepare_batch([0, 1, 2])
 
 
+EXIT_WHILE_WAITING = """
+import sys, threading, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from onda_torch.native import BatchExecutor
+paths = sys.argv[2:]
+ex = BatchExecutor(1)
+dst = np.empty((len(paths), 3, 256, 512), np.float32)
+def wait():
+    job = ex.submit_images(paths, (256, 512), np.zeros(3), np.ones(3), dst)
+    try:
+        ex.wait(job, paths)
+    except RuntimeError as exc:
+        assert "stopped" in str(exc)
+threading.Thread(target=wait, daemon=True).start()
+time.sleep(0.1)
+"""
+
+
+def test_process_exits_while_a_thread_waits_on_a_prep_job(tmp_path):
+    """A loader's daemon thread still waits on a batch when the process
+    exits (a rank whose run ends right after its loaders started): the
+    executor's finalizer wakes it and the process ends, where it used to
+    hang in the condition variable's destruction."""
+    import subprocess
+    import sys
+
+    data = str(tmp_path / "ds")
+    make_synthetic_dataset(data, intensities=(0,), per_domain=4, size_wh=(1024, 512))
+    paths = [os.path.join(data, p) for p in load_table(
+        os.path.join(data, "metadata.json")).column("image_path")] * 16
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    done = subprocess.run([sys.executable, "-c", EXIT_WHILE_WAITING, root, *paths],
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0, done.stderr[-2000:]
+
+
 def test_native_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):
     broken = tmp_path / "broken.cpp"
     broken.write_text("int f() { return undeclared_name; }\n")

@@ -18,10 +18,8 @@ import json
 import math
 import os
 import shutil
-import socket
 import subprocess
 import sys
-import time
 
 import jax
 import jax.numpy as jnp
@@ -45,7 +43,8 @@ from onda_torch.ops import kernels as K
 from onda_torch.parallel import distributed, mesh
 
 from .synthetic import make_synthetic_dataset
-from .torch_parallel_worker import SELECTED, make_adapter, nchw, record, val_loader
+from .torch_parallel_worker import (SELECTED, finish_ranks, make_adapter, nchw, record,
+                                    start_ranks, val_loader)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_parallel_worker.py")
@@ -83,12 +82,6 @@ def _torch_threads():
     torch.set_num_threads(old)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _batch(rng, n):
     return {"image": rng.normal(size=(n, H, W, 3)).astype(np.float32),
             "label": rng.integers(0, C, size=(n, H, W)).astype(np.int32),
@@ -122,34 +115,11 @@ def _scenario(inputs, config, spec):
 def run_ranks(tmp, payload, argv=None, world=WORLD):
     """Run `world` gloo ranks of the worker (or of `argv`) under a deadline;
     their output goes to files. Returns the ranks' outputs."""
-    env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world),
-               LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="2")
-    if payload is not None:
-        torch.save(payload, tmp / "payload.pt")
-    cmd = argv or [sys.executable, WORKER, str(tmp / "payload.pt"), str(tmp)]
-    logs = [open(tmp / f"rank{r}.log", "w+") for r in range(world)]
-    procs = [subprocess.Popen(cmd, stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT, text=True,
-                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
-             for r in range(world)]
-    deadline = time.monotonic() + DEADLINE
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
+    rcs, outs, timed_out = finish_ranks(start_ranks(tmp, payload, argv, world), DEADLINE)
+    if timed_out:
         pytest.fail(f"ranks still running after {DEADLINE} s (a collective deadlock?)")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        outs = []
-        for f in logs:
-            f.seek(0)
-            outs.append(f.read())
-            f.close()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed (rc {p.returncode}):\n{out[-4000:]}"
+    for r, (rc, out) in enumerate(zip(rcs, outs)):
+        assert rc == 0, f"rank {r} failed (rc {rc}):\n{out[-4000:]}"
     return outs
 
 
@@ -635,14 +605,10 @@ def test_two_rank_cli_keys_and_evaluation_match_one_process(cli_runs):
 
 
 @pytest.mark.parametrize("config, over, option", [
-    ("advent", {}, "ADVENT"),
-    ("proto_advent", {}, "PROTO_ADVENT"),
-    ("validation", {}, "EVALUATION"),
-    ("training_fog", {"METHOD.PRETRAIN.SEGMENT.EPOCHS": 1}, "SEGMENT"),
     ("hybrid_switch", {"OTHERS.TENSOR_PARALLEL": 2}, "TENSOR_PARALLEL")])
 def test_unported_paths_refuse_under_two_ranks(tmp_path, monkeypatch, config, over, option):
-    """Under two ranks each path the port does not run across ranks stops
-    before anything is written, naming the option and ROADMAP M17. The
+    """Under two ranks the option the port does not run (OTHERS.TENSOR_PARALLEL)
+    stops before anything is written, naming the option and ROADMAP M17. The
     refusal is taken from the world size before any collective, so the
     world is set here without a process group."""
     monkeypatch.setattr(distributed, "world", lambda: 2)
