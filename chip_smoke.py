@@ -12,9 +12,10 @@
                                          # against this tree's, in turns
     python3 chip_smoke.py --aux-cost     # also time phase 8.2's step with the
                                          # aux head computed and thrown away
-    python3 chip_smoke.py --parallel-only  # phases 1-4, phase 7's dataset and
+    python3 chip_smoke.py --parallel-only  # phases 1-4, phase 7's dataset,
                                          # phase 12 (the data-parallel ranks:
-                                         # 12.1-12.5)
+                                         # 12.1-12.5) and phase 13 (the
+                                         # tensor-parallel grids: 13.1-13.3)
 
 Phases:
  1. card name and power limit; the TF32 settings of each phase;
@@ -131,6 +132,33 @@ Phases:
     its EVAL_SWEEP and validation.yml (PREDICTION_SAVE) on 12.4's SEGMENT
     snapshots, the ranks against one process on the same files (`Val
     mIoU*`, the swept files, the dumps in rank-major order, the confidence).
+    Ranks that share one card (gloo) move their card tensors through the
+    card's memory (CUDA IPC, `onda_torch/parallel/shared_card.py`).
+ 13. OTHERS.TENSOR_PARALLEL 2 on a (data x model) grid of ranks, each run
+    through `python -m torch.distributed.run` (NCCL with a card per rank,
+    else all ranks on the one card through gloo and CUDA IPC; the phase's
+    lines name the backend and the layout): 13.0, where ranks share the
+    card (on 13.1's ranks), the sum and the gather of seeded random card
+    tensors of 4 KB to 275 MB (over the channel's 256 MB buffer: two pieces)
+    between two ranks through the card's memory, equal bit for bit to the
+    ranks' tensors added in rank order and stacked, and both ways timed
+    against gloo; 13.1 hybrid_switch.yml in memory
+    at b4 1024x512 on a (1 x 2) grid, one process at b4 against the grid
+    after a bootstrap and one step in both of 12.1's modes (losses,
+    prototypes, every parameter's update with the shards gathered; whole
+    leaves equal bit for bit on every rank, shards on the ranks of a model
+    index), and batch-invariant against a witness, one process whose
+    sharded layers compute in the grid's blocks (its own gap to one
+    process is printed and sets the plain comparison's backbone bound),
+    then 6 timed steps (per-rank step ms, K1 2 and K2 159 a step
+    per rank, collectives and bytes a step by group, host syncs, peak
+    memory, the bytes of params + momentum + teachers a rank holds against
+    one process's); 13.2 the same on a (2 x 2) grid, 4 ranks of b2, 3 timed
+    steps; 13.3 `onda_torch.train_ouda.main` on phase 7's files on a (1 x 2)
+    grid (two domains): exit 0, one writer, every file once, a one-process
+    `load_model` of its `adapt_state.pt` equal to each rank's shards bit for
+    bit, then an AUTO_RESUME rerun that restores it on both ranks. Phase 4
+    checks and times K2 at the grid's shard shapes.
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
@@ -305,17 +333,23 @@ def check_k1(torch, K, P):
 # ---------------------------------------------------------------------------
 
 
-def bn_input_shapes(torch, batch=4, hw=(512, 1024)):
-    """Input shape of every BatchNorm call of one R50 forward (meta tensors)."""
+def bn_input_shapes(torch, batch=4, hw=(512, 1024), tp=1):
+    """Input shape of every BatchNorm call of one R50 forward (meta tensors),
+    as K2 meets it on a rank of a grid with a model axis of `tp`: the
+    channel shard of each BatchNorm the plan shards (`parallel.tensor`)."""
     from onda_torch.models import build_deeplab_v2
     from onda_torch.models.layers import TorchBatchNorm
+    from onda_torch.parallel import tensor as T
 
     with torch.device("meta"):
         model = build_deeplab_v2(19, (3, 4, 6, 3), "ProDA")
+    plan = T.tensor_parallel_plan(dict(model.named_parameters()), tp) if tp > 1 else {}
     shapes = []
-    for mod in model.modules():
+    for name, mod in model.named_modules():
         if isinstance(mod, TorchBatchNorm):
-            mod.register_forward_pre_hook(lambda m, args: shapes.append(tuple(args[0].shape)))
+            cut = tp if f"{name}.weight" in plan else 1
+            mod.register_forward_pre_hook(lambda m, args, cut=cut: shapes.append(
+                (args[0].shape[0], args[0].shape[1] // cut, *args[0].shape[2:])))
     model(torch.empty(batch, 3, *hw, device="meta"))
     return shapes
 
@@ -399,9 +433,13 @@ def check_k2(torch, K, layers, out_dir):
     check(len(shapes) == 53, f"expected 53 BatchNorm calls in R50, got {len(shapes)}")
     distinct = sorted(set(shapes), key=lambda s: -math.prod(s))
     # checked, not timed: phase 8.1's shapes, a phase-12 rank's batch of 2 and
-    # phase 10.2's batch of 8
+    # phase 10.2's batch of 8; checked and timed in f32: phase 13's ranks, a
+    # (1 x 2) grid's at b4 and a (2 x 2) grid's at b2 (channel shards)
+    grids = {"(1 x 2) b4": bn_input_shapes(torch, batch=4, tp=TP_SIZE),
+             "(2 x 2) b2": bn_input_shapes(torch, batch=2, tp=TP_SIZE)}
+    grid_shapes = set(grids["(1 x 2) b4"]) | set(grids["(2 x 2) b2"])
     extra = (set(segment_bn_shapes(torch)) | set(bn_input_shapes(torch, batch=2))
-             | set(bn_input_shapes(torch, batch=8)))
+             | set(bn_input_shapes(torch, batch=8)) | grid_shapes)
     others = sorted(extra - set(distinct), key=lambda s: -math.prod(s))
     g = torch.Generator(device="cuda").manual_seed(2)
     rows, max_err, raw_err = [], 0.0, 0.0
@@ -416,7 +454,7 @@ def check_k2(torch, K, layers, out_dir):
             e_mean, e_var, e_var_abs, e_raw = check_k2_once(torch, K, x, f"{shape} {dtype}")
             rows.append({"shape": shape, "dtype": str(dtype), "mean_abs_err": e_mean,
                          "var_rel_err": e_var, "raw_moments_abs_err": e_raw})
-            if shape not in distinct:
+            if shape not in distinct and (shape not in grid_shapes or dtype != torch.float32):
                 continue
             if dtype == torch.float32:
                 max_err = max(max_err, e_mean, e_var_abs)
@@ -447,6 +485,17 @@ def check_k2(torch, K, layers, out_dir):
           f"plain {tot[1]:.4f} ms, torch.var_mean {tot[2]:.4f} ms, bound {tot[3]:.4f} ms, "
           f"{100 * share(tot[3], tot[0]):.1f}% of the bound; the raw-moments output "
           f"{moments_ms:.4f} ms (max abs err against its plain version {raw_err:.3e})")
+    tp_totals = {}
+    for grid, fed in grids.items():
+        t = [sum(per_shape[(s, "torch.float32")][i] for s in fed) for i in range(4)]
+        tp_totals[grid] = {"ms": t[0], "plain_ms": t[1], "library_ms": t[2], "bound_ms": t[3],
+                           "moments_ms": sum(raw_ms[s] for s in fed),
+                           "shapes": sorted(set(fed) - set(distinct))}
+        print(f"K2 over the 53 BN inputs a rank of phase 13's {grid} grid feeds one forward "
+              f"(f32, {len(set(fed) - set(distinct))} shard shapes no one-process forward has): "
+              f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, torch.var_mean {t[2]:.4f} ms, bound "
+              f"{t[3]:.4f} ms, {100 * share(t[3], t[0]):.1f}% of the bound; raw moments "
+              f"{tp_totals[grid]['moments_ms']:.4f} ms")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "k2_shapes.json"), "w") as f:
         json.dump({"checks": rows, "timings": [
@@ -479,7 +528,8 @@ def check_k2(torch, K, layers, out_dir):
             "checked_shapes": [list(s) for s in distinct + others + K2_ODD_SHAPES],
             "max_abs_err": max_err, "ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[3],
             "bound_by": "bytes", "bound_share": share(tot[3], tot[0]), "library_ms": tot[2],
-            "moments_ms": moments_ms, "moments_max_abs_err": raw_err, "check": "pass"}
+            "moments_ms": moments_ms, "moments_max_abs_err": raw_err,
+            "tensor_parallel_ranks": tp_totals, "check": "pass"}
 
 
 # ---------------------------------------------------------------------------
@@ -2336,19 +2386,20 @@ def dp_layout(torch):
 
     cards = torch.cuda.device_count()
     backend = D.choose_backend("cuda", DP_RANKS, cards)
-    where = (f"one card each (cards 0-{DP_RANKS - 1})" if backend == "nccl"
-             else f"both on card 0 ({cards} card(s) here)")
-    return backend, f"{DP_RANKS} ranks, {where}, {backend}"
+    where = (f"one card each (cards 0-{DP_RANKS - 1}), nccl" if backend == "nccl"
+             else f"both on card 0 ({cards} card(s) here), gloo, card tensors through the card's "
+                  f"memory (CUDA IPC)")
+    return backend, f"{DP_RANKS} ranks, {where}"
 
 
-def run_ranks(args, log_path, deadline=DP_DEADLINE):
-    """`python -m torch.distributed.run --standalone --nproc-per-node 2 args`,
-    its output into log_path; every process it started is killed at the
-    deadline. Returns (exit code, output, seconds)."""
+def run_ranks(args, log_path, deadline=DP_DEADLINE, nproc=DP_RANKS):
+    """`python -m torch.distributed.run --standalone --nproc-per-node nproc
+    args`, its output into log_path; every process it started is killed at
+    the deadline. Returns (exit code, output, seconds)."""
     import signal
 
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(DP_RANKS), *args]
+           str(nproc), *args]
     t = time.perf_counter()
     with open(log_path, "w+") as log:
         # unbuffered: a rank killed at the deadline leaves all it printed
@@ -2402,21 +2453,29 @@ def batch_invariant(torch):
         K.bn_stats, K.bn_moments, torch.backends.cudnn.enabled = saved
 
 
-def dp_compare_step(torch, device, batch, exact, rank=0, world=1):
+def dp_compare_step(torch, device, batch, exact, others=None, split=False):
     """The adapter of hybrid_switch.yml at b`batch` 1024x512 (seeded
-    weights) on `device`, bootstrapped on this rank's rows of two seeded
-    source batches, after one step on its rows of a seeded target batch,
-    with TF32 off and deterministic cuDNN (`exact`: `batch_invariant`);
-    returns (adapter, step, logs, local batch fn, the parameters before the
-    step on the host)."""
-    b = batch // world
-
-    def local(bt):
-        return {k: v[rank * b:(rank + 1) * b] for k, v in bt.items()}
+    weights, OTHERS overrides `others`) on `device`, bootstrapped on this
+    rank's rows of two seeded source batches (those of its data index), after
+    one step on its rows of a seeded target batch, with TF32 off and
+    deterministic cuDNN (`exact`: `batch_invariant`; `split`: the layers a
+    grid shards compute in its blocks, `split_sharded_layers`); returns
+    (adapter, step, logs, local batch fn, the parameters before the step on
+    the host)."""
+    from onda_torch.parallel import distributed as D
 
     torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
     with batch_invariant(torch) if exact else contextlib.nullcontext():
-        ad = make_adapter(torch, device, MAIN_HW, batch)
+        ad = make_adapter(torch, device, MAIN_HW, batch, others=others)
+        if split:
+            n = split_sharded_layers(torch, ad)
+            check(n == TP_SHARDED_LAYERS, f"the witness split {n} layers, expected "
+                                          f"{TP_SHARDED_LAYERS}")
+        d, b = D.data_rank(), batch // D.data_world()
+
+        def local(bt):
+            return {k: v[d * b:(d + 1) * b] for k, v in bt.items()}
+
         ad.cfg_spec.PSEUDO_THRESH = 0.06  # random weights: keep pseudo-labels, so CE and RCE count
         start = {k: v.detach().to("cpu", copy=True) for k, v in ad.state.params.items()}
         ad.calculate_prototypes([local(x) for x in make_batches(torch, 2, batch, MAIN_HW, 10)])
@@ -2456,8 +2515,7 @@ def dp_rank(work):
     batch = 4
     out = {"rank": rank, "world": world, "backend": D.backend(), "device": str(device)}
     for mode in DP_BOUNDS:  # "exact", then "kernels", whose adapter goes on to the timed steps
-        ad, step, logs, local, _ = dp_compare_step(torch, device, batch, mode == "exact", rank,
-                                                   world)
+        ad, step, logs, local, _ = dp_compare_step(torch, device, batch, mode == "exact")
         out[mode] = {"logs": logs, "digests": digests(torch, ad.state)}
         if rank == 0:
             torch.save(compared_state(torch, ad), os.path.join(work, f"rank0_{mode}.pt"))
@@ -2477,13 +2535,13 @@ def dp_rank(work):
         ad.state, step_logs = step(ad.state, img, s_img, s_lbl, 1e-5)
         finite &= math.isfinite(step_logs["Total target loss"])  # the step ends at its log read
         times.append(1e3 * (time.perf_counter() - t))
-    out.update(step_ms=times, finite=finite, launches=dict(K.launches), collectives=dict(D.COUNTS),
+    out.update(step_ms=times, finite=finite, launches=dict(K.launches), collectives=D.counts(),
                peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
     img, s_img, s_lbl = feed[0]
     D.reset_counts()
     (ad.state, step_logs), syncs = count_syncs(
         torch, lambda: step(ad.state, img, s_img, s_lbl, 1e-5))
-    out.update(debug_syncs=len(syncs), sync_collectives=D.COUNTS["collectives"])
+    out.update(debug_syncs=len(syncs), sync_collectives=D.counts()["collectives"])
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     D.destroy()
@@ -2501,10 +2559,14 @@ def cli_rank(work, argv):
 
     rank = int(os.environ.get("RANK", "0"))
     K.reset_launches()
-    train_ouda.main(argv)
+    ad = train_ouda.main(argv)
     torch.cuda.synchronize()
+    out = {"rank": rank, "launches": dict(K.launches), "collectives": D.counts()}
+    if getattr(ad, "plan", None):  # a grid (phase 13.3): this rank's tensors, its shards
+        out["digests"] = digests_of(torch, {f"{t}/{k}": v for t in TP_TREES
+                                            for k, v in getattr(ad.state, t).items()})
     with open(os.path.join(work, f"cli_rank{rank}.json"), "w") as f:
-        json.dump({"rank": rank, "launches": dict(K.launches), "collectives": dict(D.COUNTS)}, f)
+        json.dump(out, f)
 
 
 def update_gap(got, want, start, keys):
@@ -2515,22 +2577,15 @@ def update_gap(got, want, start, keys):
     return diff / max(update, 1e-30)
 
 
-def data_parallel_path(torch, K, out_dir, work, root, rows):
+def data_parallel_path(torch, K, out_dir, work, root, rows, one):
     """Phase 12: 12.1 hybrid_switch.yml in memory at full width, one process
-    at b4 against two ranks at b2 each (bootstrap and one step compared, the
-    ranks bit for bit), then timed; 12.2 the CLI under torch.distributed.run
-    on phase 7's files. Returns launch counts by path and the numbers."""
+    at b4 (`one`, `one_process_references`) against two ranks at b2 each
+    (bootstrap and one step compared, the ranks bit for bit), then timed;
+    12.2 the CLI under torch.distributed.run on phase 7's files. Returns
+    launch counts by path and the numbers."""
     t_phase = time.perf_counter()
     backend, layout = dp_layout(torch)
     summary = {"backend": backend, "layout": layout}
-    # 12.1: the one-process references first, then the two ranks
-    release(torch)
-    one = {}
-    for mode in DP_BOUNDS:
-        ad, _, logs, _, start = dp_compare_step(torch, "cuda", 4, mode == "exact")
-        one[mode] = {**compared_state(torch, ad), "logs": logs}
-        del ad
-        release(torch)
     dp_dir = os.path.join(work, "dp")
     os.makedirs(dp_dir, exist_ok=True)
     rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--dp-rank", dp_dir],
@@ -2553,27 +2608,12 @@ def data_parallel_path(torch, K, out_dir, work, root, rows):
         check(all(r[mode]["logs"] == r0[mode]["logs"] for r in ranks),
               f"phase 12.1 {mode}: the ranks' logs differ")
         got = torch.load(os.path.join(dp_dir, f"rank0_{mode}.pt"), weights_only=False)
-        want = one[mode]
-        logs = r0[mode]["logs"]
-        gaps[mode] = {
-            "loss": max(abs(logs[k] - want["logs"][k]) / max(abs(want["logs"][k]), 1e-12)
-                        for k in DP_LOSS_KEYS),
-            "proto": max((got["proto"][k] - want["proto"][k]).abs().max().item()
-                         for k in ("mean", "sq_mean")),
-            **{group: update_gap(got["params"], want["params"], start,
-                                 [k for k in start if k.startswith("layer6") == (group == "head")])
-               for group in ("head", "backbone")}}
-        check(torch.equal(got["proto"]["count"], want["proto"]["count"])
-              and logs["pseudolabel_pixel_num"] == want["logs"]["pseudolabel_pixel_num"]
-              and logs["dynamic forward fired"] == want["logs"]["dynamic forward fired"],
-              f"phase 12.1 {mode}: prototype counts, pseudo-labels or the gate differ from one "
-              f"process's")
+        gaps[mode] = grid_gaps(torch, f"phase 12.1 {mode}", one[mode], got, r0[mode]["logs"])
         print(f"phase 12.1 {mode}: hybrid_switch.yml in memory, b4 1024x512 ({layout}), one "
               f"process at b4 against the ranks at b2 after a bootstrap and one step (TF32 off): "
               + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.0e})" for k, v in gaps[mode].items())
               + f"; the ranks' {len(r0[mode]['digests'])} state tensors equal bit for bit")
-        for key, gap in gaps[mode].items():
-            check(gap <= bounds[key], f"phase 12.1 {mode}: {key} gap {gap:.3e} > {bounds[key]}")
+    check_gaps("phase 12.1", gaps, DP_BOUNDS)
     steps, n_bn = DP_TIMED_STEPS, r0["n_bn"]  # 53 BatchNorms in the R50
     for r in ranks:
         check(r["finite"], f"phase 12.1 rank {r['rank']}: a non-finite loss")
@@ -2591,8 +2631,8 @@ def data_parallel_path(torch, K, out_dir, work, root, rows):
                    bytes_per_step=r0["collectives"]["bytes"] / steps,
                    debug_syncs=r0["debug_syncs"], sync_collectives=r0["sync_collectives"],
                    gaps=gaps, seconds_12_1=seconds)
-    staged = (f", and each of its {r0['sync_collectives']} gloo all-reduces of card tensors "
-              f"stages through the host" if backend == "gloo" else "")
+    staged = (f", two of them for each of its {r0['sync_collectives']} collectives of card "
+              f"tensors through the card's memory" if backend == "gloo" else "")
     print(f"phase 12.1 timed ({steps} steps, TF32 on, {layout}): median step ms per rank "
           + ", ".join(f"{v:.3f}" for v in step_ms) + " (steps 1..): "
           + "; ".join(", ".join(f"{v:.3f}" for v in r["step_ms"]) for r in ranks)
@@ -2802,11 +2842,11 @@ def adv_rank(work):
             finite &= math.isfinite(one(src, trg)["Adversarial loss"])  # ends at its log read
             times.append(1e3 * (time.perf_counter() - t))
         res.update(step_ms=times, finite=finite, launches=dict(K.launches),
-                   collectives=dict(D.COUNTS),
+                   collectives=D.counts(),
                    peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
         D.reset_counts()
         _, syncs = count_syncs(torch, lambda: one(*feed[0]))
-        res.update(debug_syncs=len(syncs), sync_collectives=D.COUNTS["collectives"])
+        res.update(debug_syncs=len(syncs), sync_collectives=D.counts()["collectives"])
         del ad, one, feed
         release(torch)
     # a SEGMENT step of training_fog.yml's multi-level R50 at the same size
@@ -2824,7 +2864,7 @@ def adv_rank(work):
         times.append(1e3 * (time.perf_counter() - t))
     out["segment"] = {
         "step_ms": times, "finite": finite, "launches": dict(K.launches),
-        "collectives": dict(D.COUNTS), "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+        "collectives": D.counts(), "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
         "digests": digests_of(torch, {**{f"params/{k}": v for k, v in trainer.params.items()},
                                       **{f"stats/{k}": v for k, v in trainer.batch_stats.items()},
                                       **{f"momentum/{k}": v
@@ -2951,8 +2991,8 @@ def data_parallel_families_path(torch, K, out_dir, work, root, rows):
                   f"{n_steps} steps, expected {want_collectives} a step")
             paths[f"data_parallel_{config}_in_memory_rank{r['rank']}"] = res["launches"]
         step_ms = [statistics.median(r[config]["step_ms"][1:]) for r in ranks]
-        staged = (f" and {r0['sync_collectives']} gloo collectives staged through the host"
-                  if backend == "gloo" else "")
+        staged = (f", two for each of its {r0['sync_collectives']} collectives of card tensors "
+                  f"through the card's memory" if backend == "gloo" else "")
         print(f"phase 12.3 {config} timed ({ADV_TIMED_STEPS} steps after 1, TF32 on, {layout}): "
               f"median step ms per rank " + ", ".join(f"{v:.3f}" for v in step_ms) + " ("
               + "; ".join(", ".join(f"{v:.3f}" for v in r[config]["step_ms"]) for r in ranks)
@@ -3201,8 +3241,446 @@ def data_parallel_families_path(torch, K, out_dir, work, root, rows):
     return paths, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 13: OTHERS.TENSOR_PARALLEL on a (data x model) grid (the PROTO_ONLINE
+# family)
+# ---------------------------------------------------------------------------
+
+TP_SIZE = 2
+TP_GRIDS = {"13.1": (2, 6), "13.2": (4, 3)}  # sub-phase: (ranks, timed steps)
+# the trees of the state that hold the model's tensors (13.3 compares them)
+TP_TREES = ("params", "batch_stats", "alt_batch_stats", "opt_momentum", "ema_params",
+            "static_params", "static_batch_stats", "dynamic_params", "dynamic_batch_stats")
+TP_SHARDED_LAYERS = 60  # the Conv2d/Linear a grid shards: 46 of R50, 7 in each ProDA head
+# one process at b4 against the grid after a bootstrap and one step, in
+# DP_BOUNDS' two modes. Batch-invariance does not make the grid's arithmetic
+# one process's: each sharded layer computes its output channels in tp
+# blocks (other GEMM shapes) and its input gradient as the sum of their
+# partial products. "exact_split" holds the grid batch-invariant against a
+# witness that does just that in one process (`split_sharded_layers`), at
+# DP_BOUNDS' "exact" bounds (read ≤1.430e-05 on an NVIDIA H100); "exact"
+# against the plain one process, whose backbone bound is 3x the witness's own
+# gap to it (read 1.005e-02 on an NVIDIA H100, as the grid's: BatchNorms of
+# near-constant channels amplify the blocks' last bits).
+TP_BOUNDS = {"exact": {**DP_BOUNDS["exact"], "backbone": 3e-2},
+             "exact_split": DP_BOUNDS["exact"], "kernels": DP_BOUNDS["kernels"]}
+
+
+def split_sharded_layers(torch, ad):
+    """Phase 13's witness: every Conv2d and Linear of the adapter's model
+    that a (1 x TP_SIZE) grid shards computes its output channels in
+    TP_SIZE blocks, as the grid's ranks do, and (through autograd) its
+    input gradient as the sum of the blocks' partial products, in one
+    process with no collective. Returns how many layers."""
+    import types
+
+    import torch.nn.functional as F
+
+    from onda_torch.models.layers import Conv2d, Linear
+    from onda_torch.parallel import tensor as T
+
+    def blocks(m):
+        biases = [None] * TP_SIZE if m.bias is None else m.bias.chunk(TP_SIZE)
+        return zip(m.weight.chunk(TP_SIZE), biases)
+
+    def conv(m, x):
+        return torch.cat([m._conv_forward(x, w, b) for w, b in blocks(m)], dim=1)
+
+    def linear(m, x):
+        return torch.cat([F.linear(x, w, b) for w, b in blocks(m)], dim=-1)
+
+    plan = T.tensor_parallel_plan({k: v.shape for k, v in ad.state.params.items()}, TP_SIZE)
+    modules = dict(ad.model.named_modules())
+    n = 0
+    for name in plan:
+        m = modules.get(name.rsplit(".", 1)[0])
+        if name.endswith(".weight") and isinstance(m, (Conv2d, Linear)):
+            m.forward = types.MethodType(conv if isinstance(m, Conv2d) else linear, m)
+            n += 1
+    return n
+
+
+def tp_layout(torch, world):
+    """The backend the grid's ranks will pick here, and the layout in words."""
+    from onda_torch.parallel import distributed as D
+
+    cards = torch.cuda.device_count()
+    backend = D.choose_backend("cuda", world, cards)
+    where = (f"one card each (cards 0-{world - 1})" if backend == "nccl"
+             else f"all on card 0 ({cards} card(s) here): gloo, card tensors through the card's "
+                  f"memory (CUDA IPC)")
+    return backend, (f"{world // TP_SIZE} data x {TP_SIZE} model, {world} ranks, {where}")
+
+
+def whole_state(torch, ad):
+    """The adapter's parameters (whole: its shards gathered over the model
+    group, a collective every rank joins) and prototypes, on the host."""
+    return {"params": {k: v.detach().to("cpu", copy=True)
+                       for k, v in ad._whole(ad.state.params).items()},
+            "proto": {k: v.detach().to("cpu", copy=True) for k, v in vars(ad.state.proto).items()}}
+
+
+TRANSPORT_MB = (0.004, 1, 16, 64, 256, 275)  # phase 13.0's sizes; 275 MB: two pieces
+
+
+def transport_rows(torch):
+    """Phase 13.0, on the ranks of 13.1 (every rank on one card): the sum
+    and the gather of a card tensor among the ranks, through the card
+    channel (`shared_card`) and through gloo, at TRANSPORT_MB (one size
+    above the channel's buffer: pieces). Each rank's tensor is seeded
+    random; the channel's sum must equal the ranks' tensors added in rank
+    order and its gather their stack, bit for bit. Then both are timed
+    (host wall time a call, the ranks meeting before and after)."""
+    import torch.distributed as dist
+
+    from onda_torch.parallel import distributed as D
+    from onda_torch.parallel import shared_card
+
+    rank, world = D.rank(), D.world()
+    card = shared_card.channel(None, world, rank, "world")
+    check(card is not None, "phase 13.0: the ranks did not form a card channel")
+
+    def timed(fn, iters):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        return 1e3 * (time.perf_counter() - t) / iters
+
+    rows = []
+    for i, mb in enumerate(TRANSPORT_MB):
+        n = max(1, int(mb * 2**20) // 4)
+        xs = [torch.randn(n, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(100 * i + j))
+              for j in range(world)]
+        x, want = xs[rank], xs[0].clone()
+        for y in xs[1:]:
+            want += y
+        check(torch.equal(card.all_sum(x), want) and torch.equal(card.gather(x), torch.stack(xs)),
+              f"phase 13.0: the card channel's sum or gather differs from the ranks' tensors "
+              f"added in rank order or stacked at {mb} MB")
+        del xs, want
+        bucket = torch.zeros((world, n), device="cuda")
+        y = x.clone()
+
+        def gloo_gather():
+            bucket.zero_()
+            bucket[rank] = x
+            dist.all_reduce(bucket)
+
+        iters = 20 if mb < 64 else 5
+        rows.append({"mb": mb, "card_sum_ms": timed(lambda: card.all_sum(x), iters),
+                     "card_gather_ms": timed(lambda: card.gather(x), iters),
+                     "gloo_sum_ms": timed(lambda: dist.all_reduce(y), max(2, iters // 4)),
+                     "gloo_gather_ms": timed(gloo_gather, max(2, iters // 4))})
+    return rows
+
+
+def tp_rank(work, steps, transport=False):
+    """One rank of phases 13.1-13.2 (run under torch.distributed.run): with
+    `transport`, phase 13.0 first; the compared step in both modes on the
+    grid (OTHERS.TENSOR_PARALLEL TP_SIZE), the digests of its state, rank 0
+    the whole parameters; then `steps` timed steps with TF32 on; writes
+    rank<r>.json into `work`."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from onda_torch.ops import kernels as K
+    from onda_torch.parallel import distributed as D
+    from onda_torch.parallel import shared_card
+
+    device = D.initialize("cuda")
+    rank, world, batch = D.rank(), D.world(), 4
+    out = {"rank": rank, "world": world, "backend": D.backend(), "device": str(device)}
+    if transport and D.backend() == "gloo":
+        out["transport"] = transport_rows(torch)
+    for mode in DP_BOUNDS:  # "exact", then "kernels", whose adapter goes on to the timed steps
+        ad, step, logs, local, _ = dp_compare_step(torch, device, batch, mode == "exact",
+                                                   others={"TENSOR_PARALLEL": TP_SIZE})
+        out[mode] = {"logs": logs, "digests": digests(torch, ad.state)}
+        whole = whole_state(torch, ad)
+        if rank == 0:
+            torch.save(whole, os.path.join(work, f"rank0_{mode}.pt"))
+        del whole
+    out.update(position=[D.data_rank(), D.model_rank()], grid=[D.data_world(), D.model_world()],
+               plan=sorted(ad.plan))
+    trees = ("params", "opt_momentum", "ema_params", "static_params", "dynamic_params")
+    out["state_bytes"] = sum(v.numel() * v.element_size() for t in trees
+                             for v in getattr(ad.state, t).values())
+    out["one_process_state_bytes"] = sum(4 * math.prod(ad.full_shapes[k]) for t in trees
+                                         for k in getattr(ad.state, t))
+    batches = [(local(s), local(t)) for s, t in zip(
+        make_batches(torch, steps, batch, MAIN_HW, 20),
+        make_batches(torch, steps, batch, MAIN_HW, 21))]
+    feed = [(t["image"].to(device), s["image"][None].to(device), s["label_res"][None].to(device))
+            for s, t in batches]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    D.reset_counts()
+    waits = shared_card.STATS["host_waits"]
+    torch.cuda.reset_peak_memory_stats(device)
+    times, finite, fired = [], True, 0
+    for img, s_img, s_lbl in feed:
+        t = time.perf_counter()
+        ad.state, step_logs = step(ad.state, img, s_img, s_lbl, 1e-5)
+        finite &= math.isfinite(step_logs["Total target loss"])  # the step ends at its log read
+        times.append(1e3 * (time.perf_counter() - t))
+        fired += int(step_logs["dynamic forward fired"])
+    out.update(step_ms=times, finite=finite, launches=dict(K.launches), dynamic_fired=fired,
+               collectives={g: dict(c) for g, c in D.COUNTS.items()},
+               card_waits=shared_card.STATS["host_waits"] - waits,
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    img, s_img, s_lbl = feed[0]
+    (ad.state, step_logs), syncs = count_syncs(
+        torch, lambda: step(ad.state, img, s_img, s_lbl, 1e-5))
+    out.update(debug_syncs=len(syncs))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    D.destroy()
+
+
+def one_process_references(torch):
+    """Phase 12.1's and 13's one-process references: hybrid_switch.yml at b4
+    after a bootstrap and one step, in both modes, and batch-invariant with
+    the sharded layers split in blocks (phase 13's witness, "exact_split")
+    (the parameters and prototypes on the host, the logs, the parameters
+    before the step)."""
+    release(torch)
+    one = {}
+    for mode in (*DP_BOUNDS, "exact_split"):
+        ad, _, logs, _, start = dp_compare_step(torch, "cuda", 4, mode != "kernels",
+                                                split=mode == "exact_split")
+        one[mode] = {**compared_state(torch, ad), "logs": logs, "start": start}
+        del ad
+        release(torch)
+    return one
+
+
+def grid_gaps(torch, tag, one, got, logs):
+    """The ranks' losses, prototypes and parameter updates against one
+    process's (`check_gaps` holds them to their bounds); the prototype
+    counts, pseudo-labels and the gate must be equal."""
+    want, start = one, one["start"]
+    gaps = {
+        "loss": max(abs(logs[k] - want["logs"][k]) / max(abs(want["logs"][k]), 1e-12)
+                    for k in DP_LOSS_KEYS),
+        "proto": max((got["proto"][k] - want["proto"][k]).abs().max().item()
+                     for k in ("mean", "sq_mean")),
+        **{group: update_gap(got["params"], want["params"], start,
+                             [k for k in start if k.startswith("layer6") == (group == "head")])
+           for group in ("head", "backbone")}}
+    check(torch.equal(got["proto"]["count"], want["proto"]["count"])
+          and logs["pseudolabel_pixel_num"] == want["logs"]["pseudolabel_pixel_num"]
+          and logs["dynamic forward fired"] == want["logs"]["dynamic forward fired"],
+          f"{tag}: prototype counts, pseudo-labels or the gate differ from one process's")
+    return gaps
+
+
+def check_gaps(tag, gaps, bounds):
+    """Each mode's gaps against its bounds (after every mode is printed)."""
+    for mode, got in gaps.items():
+        for key, gap in got.items():
+            check(gap <= bounds[mode][key], f"{tag} {mode}: {key} gap {gap:.3e} > "
+                                            f"{bounds[mode][key]}")
+
+
+def tensor_parallel_path(torch, K, out_dir, work, root, rows, one):
+    """Phase 13: 13.1 and 13.2 hybrid_switch.yml in memory at full width on a
+    (1 x 2) and a (2 x 2) grid, one process at b4 against the grid (both
+    modes; whole leaves bit for bit across the ranks, shards across the
+    ranks of a model index), then timed; 13.3 the CLI on a (1 x 2) grid on
+    phase 7's files, its file loaded by one process, then an AUTO_RESUME
+    rerun. Returns launch counts by path and the numbers."""
+    from onda_torch.parallel import tensor as T
+
+    t_phase = time.perf_counter()
+    summary, paths = {}, {}
+    n_bn, n_sharded_bn, n_sharded_convs = 53, 46, 46  # R50; the convs' inputs that sum
+    witness = grid_gaps(torch, "phase 13 witness", one["exact"],
+                        {k: one["exact_split"][k] for k in ("params", "proto")},
+                        one["exact_split"]["logs"])
+    summary["witness"] = witness
+    print(f"phase 13 witness: one process at b4 with its {TP_SHARDED_LAYERS} sharded layers in "
+          f"{TP_SIZE} blocks (the grid's GEMMs and input-gradient sums, no collective), "
+          f"batch-invariant, against one process after a bootstrap and one step: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in witness.items()))
+    check(witness["backbone"] <= TP_BOUNDS["exact"]["backbone"],
+          f"phase 13 witness: backbone {witness['backbone']:.3e} > the bound it sets, "
+          f"{TP_BOUNDS['exact']['backbone']}")
+    for sub, (world, steps) in TP_GRIDS.items():
+        backend, layout = tp_layout(torch, world)
+        tp_dir = os.path.join(work, f"tp{sub}")
+        os.makedirs(tp_dir, exist_ok=True)
+        release(torch)
+        rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--tp-rank", tp_dir,
+                                       str(steps), str(int(sub == "13.1"))],
+                                      os.path.join(out_dir, f"tp{sub}_ranks.log"), nproc=world)
+        check(rc == 0, f"phase {sub}: a rank failed (exit {rc}):\n{text[-3000:]}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tp_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        r0 = ranks[0]
+        if "transport" in r0:  # 13.0: what a collective of card tensors costs ranks on one card
+            summary["13.0"] = r0["transport"]
+            print(f"phase 13.0 {world} ranks on card 0, a card tensor's sum and gather, ms a call "
+                  f"(card channel / gloo): " + "; ".join(
+                      f"{r['mb']} MB sum {r['card_sum_ms']:.3f} / {r['gloo_sum_ms']:.3f}, gather "
+                      f"{r['card_gather_ms']:.3f} / {r['gloo_gather_ms']:.3f}"
+                      for r in r0["transport"]))
+        check(all(r["world"] == world and r["backend"] == backend
+                  and r["position"] == [r["rank"] // TP_SIZE, r["rank"] % TP_SIZE]
+                  and r["grid"] == [world // TP_SIZE, TP_SIZE] for r in ranks),
+              f"phase {sub}: ranks report {[(r['world'], r['backend'], r['position']) for r in ranks]}")
+        plan = set(r0["plan"])
+        gaps = {}
+        for mode in DP_BOUNDS:
+            differ = sorted(k for r in ranks for k, v in r[mode]["digests"].items()
+                            if v != (ranks[r["position"][1]] if k.split("/", 1)[-1] in plan
+                                     else r0)[mode]["digests"][k])
+            check(not differ, f"phase {sub} {mode}: whole leaves differ across the ranks, or "
+                              f"shards across the ranks of a model index: {differ[:6]}")
+            check(all(r[mode]["logs"] == r0[mode]["logs"] for r in ranks),
+                  f"phase {sub} {mode}: the ranks' logs differ")
+            got = torch.load(os.path.join(tp_dir, f"rank0_{mode}.pt"), weights_only=False)
+            for ref in (mode, "exact_split") if mode == "exact" else (mode,):
+                gaps[ref] = grid_gaps(torch, f"phase {sub} {ref}", one[ref], got,
+                                      r0[mode]["logs"])
+                against = ("the witness (one process at b4, its sharded layers in the grid's "
+                           "blocks)" if ref == "exact_split" else "one process at b4")
+                print(f"phase {sub} {ref}: hybrid_switch.yml in memory, b4 1024x512 ({layout}), "
+                      f"{against} against the grid after a bootstrap and one step (TF32 off; "
+                      f"the grid's shards gathered): " + ", ".join(
+                          f"{k} {v:.3e} (bound {TP_BOUNDS[ref][k]:.0e})"
+                          for k, v in gaps[ref].items())
+                      + f"; the ranks' {len(r0[mode]['digests'])} state tensors: {len(plan)} "
+                        f"planned names sharded, every whole one equal bit for bit on all ranks")
+        check_gaps(f"phase {sub}", gaps, TP_BOUNDS)
+        # the model group: a gather after each of the 46 sharded BatchNorms and
+        # the head's 7 sharded norms and SE in each forward (EMA, static and
+        # target teachers, the gated dynamic one, the source and target
+        # slices), a sum of the input gradient of each of the 46 sharded
+        # convs' inputs in each of the 2 backwards
+        fired = r0["dynamic_fired"]
+        want_coll = {"data": 0 if world == TP_SIZE else 5 * n_bn + 6,
+                     "model": ((4 * steps + fired) * (n_sharded_bn + 7)
+                               + 2 * steps * n_sharded_convs) / steps, "world": 1}
+        for r in ranks:
+            check(r["finite"], f"phase {sub} rank {r['rank']}: a non-finite loss")
+            check(r["launches"] == {"pseudo_labels_kernel": 2 * steps,
+                                    "bn_stats_kernel": 3 * n_bn * steps},
+                  f"phase {sub} rank {r['rank']}: launches {r['launches']}, expected K1 2 and "
+                  f"K2 {3 * n_bn} a step")
+            per_step = {g: c["collectives"] / steps for g, c in r["collectives"].items()}
+            check(per_step == want_coll, f"phase {sub} rank {r['rank']}: collectives a step "
+                                         f"{per_step}, expected {want_coll}")
+            check(r["state_bytes"] < 0.6 * r["one_process_state_bytes"],
+                  f"phase {sub} rank {r['rank']}: state {r['state_bytes']} bytes against one "
+                  f"process's {r['one_process_state_bytes']}")
+        step_ms = [statistics.median(r["step_ms"][1:]) for r in ranks]
+        mb = {g: c["bytes"] / steps / 1e6 for g, c in r0["collectives"].items()}
+        summary[sub] = {"layout": layout, "backend": backend, "step_ms": step_ms,
+                        "peak_gib": [r["peak_gib"] for r in ranks], "gaps": gaps,
+                        "collectives_per_step": want_coll, "mb_per_step": mb,
+                        "debug_syncs": r0["debug_syncs"], "card_waits": r0["card_waits"] / steps,
+                        "state_bytes": r0["state_bytes"],
+                        "one_process_state_bytes": r0["one_process_state_bytes"],
+                        "seconds": seconds}
+        print(f"phase {sub} timed ({steps} steps after the compared ones, TF32 on, {layout}): "
+              f"median step ms per rank " + ", ".join(f"{v:.3f}" for v in step_ms)
+              + " (steps 1..): " + "; ".join(", ".join(f"{v:.3f}" for v in r["step_ms"])
+                                             for r in ranks)
+              + f"; per rank and step K1 {r0['launches']['pseudo_labels_kernel'] // steps}, K2 "
+              f"{r0['launches']['bn_stats_kernel'] // steps}; collectives a step by group "
+              + ", ".join(f"{g} {want_coll[g]} of {mb[g]:.3f} MB" for g in want_coll)
+              + f"; host syncs the CUDA sync debug mode counts in one step: {r0['debug_syncs']}, "
+              f"and the card channel's stream waits {r0['card_waits'] / steps:.0f} a step; peak "
+              f"memory per rank " + ", ".join(f"{r['peak_gib']:.3f} GiB" for r in ranks)
+              + f"; params + momentum + teachers per rank {r0['state_bytes'] / 2**20:.3f} MiB "
+              f"against one process's {r0['one_process_state_bytes'] / 2**20:.3f} MiB "
+              f"({r0['state_bytes'] / r0['one_process_state_bytes']:.3f}); {seconds:.3f} s with "
+              f"start-up")
+        for r in ranks:
+            paths[f"tensor_parallel_{sub}_rank{r['rank']}"] = r["launches"]
+
+    # 13.3: the CLI on a (1 x 2) grid on phase 7's files, then AUTO_RESUME
+    backend, layout = tp_layout(torch, TP_SIZE)
+    snap = os.path.join(work, "tp_cli")
+    run_dir = os.path.join(work, "tp_cli_ranks")
+    os.makedirs(run_dir, exist_ok=True)
+    cfg_path = os.path.join(work, "tp_cli.yml")
+    cfg = cli_config(root, snap, cfg_path, [[25], [50]], **{"OTHERS.TENSOR_PARALLEL": TP_SIZE})
+    batch, n_train = int(cfg["TRAINING"]["BATCH_SIZE"]), CLI_FRAMES["train"]
+    rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--cli-rank", run_dir,
+                                   "--", "--cfg", cfg_path], os.path.join(out_dir, "tp_cli.log"),
+                                  nproc=TP_SIZE)
+    check(rc == 0, f"phase 13.3: the CLI on the grid failed (exit {rc}):\n{text[-3000:]}")
+    steps = 2 * n_train // batch
+    boot = min(int(cfg["TRAINING"]["REPLAY_BUFFER"]), n_train) // batch
+    want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": n_bn * (3 * steps + boot)}
+    cli = []
+    for r in range(TP_SIZE):
+        with open(os.path.join(run_dir, f"cli_rank{r}.json")) as f:
+            cli.append(json.load(f))
+        check(cli[r]["launches"] == want, f"phase 13.3 rank {r}: launches {cli[r]['launches']}, "
+                                          f"expected {want}")
+        paths[f"tensor_parallel_cli_rank{r}"] = cli[r]["launches"]
+    records = read_records(snap)
+    step_records = [rec for rec in records if "Total target loss" in rec]
+    check(len(step_records) == steps, f"phase 13.3: {len(step_records)} step records for {steps} "
+                                      f"steps (one writer)")
+    check(all(math.isfinite(v) for rec in step_records for k, v in rec.items() if "loss" in k),
+          "phase 13.3: a non-finite loss")
+    files = check_one_writer("phase 13.3", snap, ["adapt_state.pt", "metrics.jsonl",
+                                                  "proto_current.pickle", "proto_(25,).pickle",
+                                                  "proto_(50,).pickle"])
+    # one process loads the grid's file: cut into each rank's shards, its
+    # state is each rank's, bit for bit
+    release(torch)
+    ad = make_adapter(torch, "cuda", MAIN_HW, batch)
+    ad.load_model(os.path.join(snap, "adapt_state.pt"))
+    plan = T.tensor_parallel_plan(ad.full_shapes, TP_SIZE)
+    for r in range(TP_SIZE):
+        mine = {f"{t}/{k}": v for t in TP_TREES
+                for k, v in T.shard_state(getattr(ad.state, t), plan, r, TP_SIZE).items()}
+        differ = sorted(k for k, v in digests_of(torch, mine).items()
+                        if cli[r]["digests"][k] != v)
+        check(not differ, f"phase 13.3: one process's load of the grid's file differs from rank "
+                          f"{r}'s state at {differ[:6]}")
+    del ad
+    release(torch)
+    summary["13.3"] = {"seconds": seconds, "files": files}
+    print(f"phase 13.3 configs/hybrid_switch.yml (phase 7's cuts, DOMAIN_ORDER [[25], [50]], "
+          f"OTHERS.TENSOR_PARALLEL {TP_SIZE}) through torch.distributed.run ({layout}): "
+          f"{seconds:.3f} s with start-up; per rank launches "
+          + "; ".join(str(c["launches"]) for c in cli)
+          + f"; {len(step_records)} step records from rank 0, every loss finite; files {files} "
+          f"(each once); one process's load_model of adapt_state.pt, cut into shards, equals "
+          f"each rank's state bit for bit")
+    resumed = os.path.join(work, "tp_cli_resume.yml")
+    cli_config(root, snap, resumed, [[25], [50]], **{"OTHERS.TENSOR_PARALLEL": TP_SIZE,
+                                                     "OTHERS.AUTO_RESUME": True})
+    rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--cli-rank", run_dir,
+                                   "--", "--cfg", resumed],
+                                  os.path.join(out_dir, "tp_cli_resume.log"), nproc=TP_SIZE)
+    check(rc == 0, f"phase 13.3 AUTO_RESUME: failed (exit {rc}):\n{text[-3000:]}")
+    restored = re.findall(r"AUTO_RESUME: restoring \S*adapt_state\.pt", text)
+    check(len(restored) == TP_SIZE, f"phase 13.3 AUTO_RESUME: {len(restored)} ranks restored "
+                                    f"adapt_state.pt, expected {TP_SIZE}")
+    print(f"phase 13.3 AUTO_RESUME rerun on the grid: both ranks restored adapt_state.pt; "
+          f"{seconds:.3f} s with start-up")
+    shutil.rmtree(snap, ignore_errors=True)
+    summary["13.3"]["resume_seconds"] = seconds
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 13: {summary['phase_seconds']:.3f} s")
+    return paths, summary
+
+
 def main() -> int:
-    if sys.argv[1:2] in (["--dp-rank"], ["--cli-rank"], ["--adv-rank"]):
+    if sys.argv[1:2] in (["--dp-rank"], ["--cli-rank"], ["--adv-rank"], ["--tp-rank"]):
         import faulthandler
 
         # a rank still running shortly before the deadline prints where it waits
@@ -3213,6 +3691,8 @@ def main() -> int:
         return cli_rank(sys.argv[2], sys.argv[4:])
     if sys.argv[1:2] == ["--adv-rank"]:  # a rank of phase 12.3, under torch.distributed.run
         return adv_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--tp-rank"]:  # phase 13.1-13.2: --tp-rank DIR STEPS TRANSPORT
+        return tp_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4] == "1")
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--skip-main", action="store_true", help="kernel phases only")
     parser.add_argument("--profile", action="store_true")
@@ -3221,7 +3701,7 @@ def main() -> int:
     parser.add_argument("--aux-cost", action="store_true",
                         help="also time phase 8.2's step with the aux head computed, in turns")
     parser.add_argument("--parallel-only", action="store_true",
-                        help="phases 1-4, phase 7's dataset and phase 12 only")
+                        help="phases 1-4, phase 7's dataset and phases 12-13 only")
     parser.add_argument("--out-dir", default=os.path.join(HERE, "build", "chip_smoke"),
                         help="where the per-shape K2 table, the profile and the comparison go")
     args = parser.parse_args()
@@ -3295,13 +3775,18 @@ def main() -> int:
                     {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]})
                 paths.update(shipped)
             t_12 = time.perf_counter()
+            one = one_process_references(torch)  # of 12.1 and 13.1-13.2
             parallel, summary["data_parallel"] = data_parallel_path(
-                torch, K, args.out_dir, work, root, rows)
+                torch, K, args.out_dir, work, root, rows, one)
             paths.update(parallel)
             families, summary["data_parallel_families"] = data_parallel_families_path(
                 torch, K, args.out_dir, work, root, rows)
             paths.update(families)
             print(f"phase 12 (12.1-12.5): {time.perf_counter() - t_12:.3f} s")
+            grid, summary["tensor_parallel"] = tensor_parallel_path(
+                torch, K, args.out_dir, work, root, rows, one)
+            paths.update(grid)
+            del one
         finally:
             shutil.rmtree(work, ignore_errors=True)
     for k in (k1, k2):

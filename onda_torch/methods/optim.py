@@ -66,6 +66,12 @@ def lr_poly(base_lr: float, step, total_steps: int, power: float) -> float:
     return base_lr * (1.0 - step / total_steps) ** power
 
 
+def _local_grads(loss: torch.Tensor, live: dict, names: list, unused) -> dict:
+    used = [k for k in names if k not in unused]
+    got = dict(zip(used, torch.autograd.grad(loss, [live[k] for k in used])))
+    return {k: got[k] if k in got else torch.zeros_like(live[k]) for k in names}
+
+
 def grads(loss: torch.Tensor, live: dict, names: list, unused=()) -> dict:
     """d loss / d live[name] for each name. The names in `unused` are those no
     loss reaches by design (the multi-level aux head where its forward is
@@ -78,10 +84,26 @@ def grads(loss: torch.Tensor, live: dict, names: list, unused=()) -> dict:
     global loss is the sum over the ranks: one all-reduce of a flat bucket
     of every gradient, one f32 copy of the trainable parameters, before the
     update. Every rank then updates with the same bits."""
-    used = [k for k in names if k not in unused]
-    got = dict(zip(used, torch.autograd.grad(loss, [live[k] for k in used])))
-    out = {k: got[k] if k in got else torch.zeros_like(live[k]) for k in names}
+    out = _local_grads(loss, live, names, unused)
     return dict(zip(out, dist.all_sum(*out.values())))
+
+
+def grid_grads(loss: torch.Tensor, live: dict, names: list, unused, sharded) -> dict:
+    """`grads` on a (data × model) grid, where the names in `sharded` hold
+    this rank's channel shard: their bucket is summed over the data group.
+    The others are whole on every rank, their gradients alike on the ranks
+    of a data index: their bucket is summed over every rank and divided by
+    the model axis's size, which gives the same sum, and the same bits on
+    every rank even where the card's backward kernels are not deterministic."""
+    out = _local_grads(loss, live, names, unused)
+    part = [k for k in names if k in sharded]
+    whole = [k for k in names if k not in sharded]
+    summed = dict(zip(part, dist.all_sum(*(out[k] for k in part)) if part else ()))
+    if whole:
+        tp = dist.model_world()
+        summed.update(zip(whole, (g / tp for g in dist.all_sum(*(out[k] for k in whole),
+                                                                group="world"))))
+    return {k: summed[k] for k in names}
 
 
 @torch.no_grad()

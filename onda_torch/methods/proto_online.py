@@ -39,6 +39,21 @@ gradients are summed in one bucket. Every rank ends the step with the same
 bits: parameters, prototypes, monitor and switch. Only rank 0 writes files;
 each rank inserts its own frames into its own replay buffer. At world size
 1 none of this makes a collective call.
+
+OTHERS.TENSOR_PARALLEL = tp arranges the ranks as a (data × model) grid
+(`parallel.mesh.resolve`): every tree of the state that holds the model's
+tensors (student, momentum, BN buffers, teachers) keeps, on each rank, its
+model index's channel shard of the leaves JAX's rule shards
+(`parallel.tensor`), and the model gathers whole activations where a layer
+needs every channel. The batch is split over the data axis only: the model
+ranks of one data index take the same rows, and every reduction above runs
+over the data group. The gradients of the sharded leaves are summed over
+the data group; those of the whole (replicated) leaves, alike on every model
+rank up to the card's nondeterministic backward kernels, over every rank and
+divided by tp, so that the whole leaves keep the same bits on every rank.
+Checkpoints hold the whole tensors, gathered by every rank and written by
+rank 0, so a file moves freely between one process and a grid; a load keeps
+this rank's shard.
 """
 
 from __future__ import annotations
@@ -64,7 +79,8 @@ from ..ops import prototypes as P
 from ..ops.interp import resize_nearest, upsample_bilinear_ac
 from ..ops.monitor import Monitor
 from ..parallel import distributed as dist
-from ..parallel.mesh import refuse_unported
+from ..parallel import tensor as T
+from ..parallel.mesh import resolve
 from ..utils import checkpoint as ckpt
 from . import optim
 from .prior_policy import POLICY_BY_METHOD, compute_prior
@@ -97,9 +113,9 @@ def dump_logits_batch(base: str, index: int, logits_nchw: torch.Tensor) -> None:
 def global_counts(pseudolabels, *src_labels):
     """The losses' denominators under data parallelism, in one all-reduce:
     the global batch's valid pseudo-labels, each source batch's valid
-    pixels, and the target's pixel count. At world size 1 all None: each
+    pixels, and the target's pixel count. On a data axis of 1 all None: each
     loss counts its own batch, as on one device."""
-    world = dist.world()
+    world = dist.data_world()
     if world == 1:
         return None, [None] * len(src_labels), None
     trg, *src = dist.all_sum(L.valid_count(pseudolabels), *map(L.valid_count, src_labels))
@@ -206,7 +222,7 @@ class ProtoOnlineAdapter:
 
     def __init__(self, model, variables, cfg, cfg_spec, num_classes: int, logger=None,
                  device="cuda"):
-        refuse_unported(cfg)
+        _, tp = resolve(cfg)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -230,6 +246,12 @@ class ProtoOnlineAdapter:
             self.skip_proto = loaded
             if loaded:
                 print("Prototypes loaded!")
+        # the whole shapes of the model's tensors, and those of them each rank
+        # holds as a channel shard (none at tp 1)
+        self.full_shapes = {k: tuple(v.shape) for tree in variables.values()
+                            for k, v in tree.items()}
+        self.plan = T.tensor_parallel_plan(self.full_shapes, tp) if tp > 1 else {}
+        variables = {name: self._shard(tree) for name, tree in variables.items()}
         self.state = make_adapt_state(variables, proto, self.monitor.init(),
                                       seed=int(cfg.TRAINING.RANDOM_SEED), device=self.device)
         self.param_labels = optim.label_params(self.state.params, aux_grad=bool(model.multi_level))
@@ -277,6 +299,17 @@ class ProtoOnlineAdapter:
         self.lr_ratios = self._lr_ratios()
         if changed:
             self._step_cache.clear()
+
+    def _shard(self, tree: dict) -> dict:
+        """This rank's tensors of a tree of whole ones (the tree itself at tp 1)."""
+        if not self.plan:
+            return tree
+        return T.shard_state(tree, self.plan, dist.model_rank(), dist.model_world())
+
+    def _whole(self, tree: dict) -> dict:
+        """The whole tensors of one of the state's trees: a gather over the
+        model group that every rank joins (the tree itself at tp 1)."""
+        return T.gather_state(tree, self.plan) if self.plan else tree
 
     @property
     def resolution_hw(self):
@@ -365,7 +398,7 @@ class ProtoOnlineAdapter:
             onehot = P.onehot_assign(_flat(ema_main["out"]).float())
             conf_soft, vect, sq, sums = dist.all_sum(_conf(soft, dim=-1),
                                                      *P.class_moments(feat, onehot))
-            mon = monitor.add(mon, "pseudolabel confidence", conf_soft / dist.world())
+            mon = monitor.add(mon, "pseudolabel confidence", conf_soft / dist.data_world())
             proto = P.ma(state.proto.replace(tau=new_tau), vect, sq, sums, ma_lambda)
             return (mon, switch, calc_dyn, hard.view(b, hh, ww),
                     soft.view(b, hh, ww, C).permute(0, 3, 1, 2), proto)
@@ -394,7 +427,8 @@ class ProtoOnlineAdapter:
         r0, r1 = self.lr_ratios
         fwd = self._forward
         teachers = self._build_teachers()
-        world = dist.world()
+        world = dist.data_world()
+        sharded = set(self.plan)
 
         def step(state: AdaptState, trg_images, src_images, src_labels, lr_base: float):
             dev = trg_images.device
@@ -435,12 +469,19 @@ class ProtoOnlineAdapter:
             sym = rce_alpha * ce + rce_beta * rce_l
             reg = L.regular_loss(regularizer, out_t, count=all_pixels) if reg_weight > 0 else zero
             js = L.js_divergence(out_t, pseudolabels, count=trg_count) if js_d > 0 else zero
-            # a term of the parameters alone enters once: on rank 0
-            mreg = (L.ewc_loss(model_reg, state.static_params, live)
-                    if model_reg > 0 and dist.is_primary() else zero)
+            # a term of the parameters alone enters once: on the ranks of data
+            # index 0, each with its shards and the whole leaves
+            mreg = mreg_log = zero
+            if model_reg > 0 and dist.data_rank() == 0:
+                mreg = mreg_log = L.ewc_loss(model_reg, state.static_params, live)
+                if sharded:  # its value: the shards' terms summed over the model group
+                    part = L.ewc_loss(model_reg, state.static_params,
+                                      {k: v for k, v in live.items() if k in sharded}).detach()
+                    mreg_log = mreg.detach() - part + dist.all_sum(part, group="model")[0]
             total_t = sym + reg_weight * reg + js_d * js + mreg
             total = total_t + buff_ce_w * buff_ce + buff_rce_w * buff_rce
-            grads = optim.grads(total, live, trainable, unused=aux_head)
+            grads = (optim.grid_grads(total, live, trainable, aux_head, sharded) if sharded
+                     else optim.grads(total, live, trainable, unused=aux_head))
             del live
 
             # ---- SGD + EMA ----------------------------------------------
@@ -450,7 +491,8 @@ class ProtoOnlineAdapter:
                 shares = {
                     "ce_loss": ce, "rce_loss": rce_l, "sym_loss": sym,
                     "regularization_loss": reg, "JS Divergance loss": js,
-                    "Total target loss": total_t, "model regularization": mreg,
+                    "Total target loss": total_t if mreg_log is mreg else total_t - mreg + mreg_log,
+                    "model regularization": mreg_log,
                     "buff_ce_loss": buff_ce_last, "buff_rce_loss": buff_rce_last,
                     "buff_loss": buff_ce_w * buff_ce_last + buff_rce_w * buff_rce_last,
                     "pseudolabel_pixel_num": L.valid_count(pseudolabels),
@@ -633,7 +675,7 @@ class ProtoOnlineAdapter:
                 images = self._to_device(batch["image"], torch.float32)
                 preds = self._predict(images).int()
                 label = batch.get("label")
-                if dist.world() > 1:  # the global batch's rows
+                if dist.data_world() > 1:  # the global batch's rows
                     preds, images = dist.gather_rows(preds), dist.gather_rows(images)
                     if label is not None:
                         label = dist.gather_rows(self._to_device(label, torch.int32)).cpu()
@@ -893,11 +935,14 @@ class ProtoOnlineAdapter:
         """The full state as one `torch.save` (`adapt_state.pt`, replaced only
         once the new file is whole; written in the background under
         OTHERS.ASYNC_SAVE) plus the prototype pickle, always written at once
-        (reference adaptation_model.py:202-216). Rank 0 writes both."""
+        (reference adaptation_model.py:202-216). Rank 0 writes both. Under
+        tensor parallelism the file holds the whole tensors, in one
+        process's layout: every rank joins their gather."""
         root = str(self.cfg.OTHERS.SNAPSHOT_DIR)
         s = self.state
         payload = {f.name: getattr(s, f.name) for f in dataclasses.fields(s)
                    if f.name not in ("proto", "monitor", "switch", "generator")}
+        payload.update({k: self._whole(v) for k, v in payload.items() if isinstance(v, dict)})
         payload["proto"] = vars(s.proto)
         payload["monitor"] = vars(s.monitor)
         payload["switch"] = vars(s.switch)
@@ -954,12 +999,15 @@ class ProtoOnlineAdapter:
         run's `advent_state.pt` lends the student (params and BN buffers, as
         the JAX runner lifts them); any other file is a model state_dict and
         restores the student only. `payload`: the file's contents, if already
-        read. A file this adapter cannot take raises before the state changes."""
+        read. A file this adapter cannot take raises before the state changes.
+        Files hold whole tensors; under tensor parallelism each rank keeps its
+        shards."""
         payload = self.read_checkpoint(path) if payload is None else payload
         s = self.state
         if "params" in payload and "proto" in payload:
             gen_state = payload.pop("generator")
             proto, mon, switch = (payload.pop(k) for k in ("proto", "monitor", "switch"))
+            payload = {k: self._shard(v) if isinstance(v, dict) else v for k, v in payload.items()}
             self.state = dataclasses.replace(
                 s, **payload, proto=P.ProtoState(**proto), monitor=type(s.monitor)(**mon),
                 switch=type(s.switch)(**switch))
@@ -970,10 +1018,11 @@ class ProtoOnlineAdapter:
         missing = (set(s.params) | set(s.batch_stats)) - set(payload)
         if missing:
             raise KeyError(f"state_dict is missing {sorted(missing)[:8]}")
-        shapes = [k for tree in (s.params, s.batch_stats) for k, v in tree.items()
-                  if tuple(payload[k].shape) != tuple(v.shape)]
+        shapes = [k for tree in (s.params, s.batch_stats) for k in tree
+                  if tuple(payload[k].shape) != self.full_shapes[k]]
         if shapes:
             raise ValueError(f"state_dict shapes differ from the model's at {shapes[:8]}")
+        payload = self._shard({k: payload[k] for tree in (s.params, s.batch_stats) for k in tree})
         for tree in (s.params, s.batch_stats):
             for k, v in tree.items():
                 v.copy_(payload[k])

@@ -27,6 +27,15 @@ import torch
 _BN_LEAF = {"scale": "weight", "bias": "bias", "running_mean": "running_mean",
             "running_var": "running_var"}
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+# the torch axes of a converted leaf, as axes of the JAX leaf, by rank: conv
+# kernels HWIO → OIHW, dense kernels (I, O) → (O, I), vectors as they are
+_AXES = {4: (3, 2, 0, 1), 2: (1, 0), 1: (0,)}
+
+
+def channel_axis(ndim: int) -> int:
+    """The torch axis of a converted leaf of rank `ndim` that holds the JAX
+    leaf's last (channel, C_out) axis: axis 0 at every rank."""
+    return _AXES[ndim].index(ndim - 1)
 
 
 def torch_key(path: tuple[str, ...]) -> str | None:
@@ -74,7 +83,7 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             raise KeyError(f"no state_dict key for flax path {path}")
         value = np.array(value, np.float32)  # a writable copy
         if path[-1] == "kernel":
-            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+            value = value.transpose(_AXES[value.ndim])
         out[key] = torch.from_numpy(np.ascontiguousarray(value))
     return _with_bn_counters(out)
 
@@ -95,7 +104,7 @@ def flax_disc_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Ten
     for (_, *scope, leaf), value in _flatten(variables):
         value = np.array(value, np.float32)
         if leaf == "kernel":
-            value = value.transpose(3, 2, 0, 1)
+            value = value.transpose(_AXES[4])
         key = ".".join(scope + [{**_BN_LEAF, "kernel": "weight"}[leaf]])
         out[key] = torch.from_numpy(np.ascontiguousarray(value))
     return _with_bn_counters(out)

@@ -16,6 +16,15 @@ reference model_handler.py:31-40), Microsoft ProDA's layout
 head at `layer5`, an optional bn_clr `bn_pretrain` BatchNorm(2048) before it),
 a compute dtype (bf16 over f32 parameters) and per-bottleneck activation
 rematerialisation.
+
+Under OTHERS.TENSOR_PARALLEL the parameter dicts hold channel shards of the
+wide layers (`parallel.tensor`): each sharded conv takes its whole input
+through `fan_in`, its norm returns the whole output, and the rest (ReLU,
+residual add, concat, SE, dropout, classifier) runs on whole tensors, alike
+on every model rank. The stem's conv (64 channels), the SE's squeeze (80)
+and the classifiers (one channel a class) are narrower than JAX's 128 and
+never sharded, so they take their input as it is. With whole parameters
+none of it does anything.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor as T
 from .layers import (Conv2d, Dropout2d, GroupNorm, Linear, TorchBatchNorm, max_pool_ceil,
                      rematerialized)
 
@@ -58,12 +68,12 @@ class Bottleneck(nn.Module):
             ])
 
     def forward(self, x, train=False, update_stats=True):
-        out = F.relu(self.bn1(self.conv1(x), train, update_stats))
-        out = F.relu(self.bn2(self.conv2(out), train, update_stats))
-        out = self.bn3(self.conv3(out), train, update_stats)
-        residual = x
-        if self.downsample is not None:
-            residual = self.downsample[1](self.downsample[0](x), train, update_stats)
+        ds = self.downsample
+        x1, xd = T.fan_in(x, self.conv1, None if ds is None else ds[0])
+        out = F.relu(self.bn1(self.conv1(x1), train, update_stats))
+        out = F.relu(self.bn2(self.conv2(T.fan_in(out, self.conv2)[0]), train, update_stats))
+        out = self.bn3(self.conv3(T.fan_in(out, self.conv3)[0]), train, update_stats)
+        residual = x if ds is None else ds[1](ds[0](xd), train, update_stats)
         return F.relu(out + residual)
 
 
@@ -115,7 +125,11 @@ class SEBlock(nn.Module):
                                 nn.Sigmoid())
 
     def forward(self, x):
-        return x * self.se(x.mean(dim=(2, 3)))[:, :, None, None]
+        fc1, relu, fc2, sigmoid = self.se
+        s = fc2(T.fan_in(relu(fc1(x.mean(dim=(2, 3)))), fc2)[0])
+        if T.shards(fc2) > 1:
+            s = T.gather_channels(s)
+        return x * sigmoid(s)[:, :, None, None]
 
 
 class ProDAClassifier(nn.Module):
@@ -141,8 +155,10 @@ class ProDAClassifier(nn.Module):
         self.head = nn.ModuleList([Dropout2d(droprate), conv(256, num_classes, 1, dtype=dtype)])
 
     def forward(self, x, train=False, generator=None):
-        out = torch.cat([branch(x) for branch in self.conv2d_list], dim=1)
-        out = self.bottleneck(out)
+        xs = T.fan_in(x, *(branch[0] for branch in self.conv2d_list))
+        out = torch.cat([branch(xb) for branch, xb in zip(self.conv2d_list, xs)], dim=1)
+        se, conv, norm = self.bottleneck
+        out = norm(conv(T.fan_in(se(out), conv)[0]))
         feat = self.head[0](out, train, generator)
         return {"feat": feat, "out": self.head[1](feat)}
 

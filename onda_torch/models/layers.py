@@ -5,11 +5,16 @@ K2 (`ops/kernels.bn_stats`) inside a `torch.autograd.Function` whose backward
 is the closed form of `_bn_train_bwd` in plain torch. Under data parallelism
 (`parallel.distributed`) the statistics are those of the global batch, as
 GSPMD computes them for the JAX step on a `data` mesh: K2 gives each rank's
-raw moments in f64 (`kernels.bn_moments`), one all-reduce sums them, and
-the variance is taken once from the global moments; the backward all-reduces
-the per-channel sums of dy and dy·x̂ before its closed form, and the
-running update uses the global count. Dropout draws its mask for the global
-batch and keeps this rank's rows.
+raw moments in f64 (`kernels.bn_moments`), one all-reduce over the data
+group sums them, and the variance is taken once from the global moments; the
+backward all-reduces the per-channel sums of dy and dy·x̂ before its closed
+form, and the running update uses the global count. Dropout draws its mask
+for the global batch and keeps this rank's rows.
+
+Under tensor parallelism (`parallel.tensor`) a norm whose weight is a
+channel shard normalises its shard (K2 at (N, C/tp, H, W)) and gathers the
+result over the model group; a sharded GroupNorm does so when its groups
+fall within a shard, and otherwise gathers its input and affine first.
 
 Convolutions and dense layers compute in an optional `compute_dtype` (bf16)
 over f32 parameters, cast on entry as flax's `nn.Conv(dtype=bf16,
@@ -27,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
 from ..parallel import distributed as dist
+from ..parallel import tensor as T
 
 def rematerialized(block, x, train: bool, update_stats: bool):
     """block(x, train, update_stats) with its activations dropped after the
@@ -114,7 +120,7 @@ class _BNTrain(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             sum_dy, sum_dy_xhat = dist.all_sum(dbeta, dgamma)
-            n *= dist.world()
+            n *= dist.data_world()
             dx = (weight * inv).view(shape) * (
                 dy - (sum_dy / n).view(shape) - x_hat * (sum_dy_xhat / n).view(shape))
             dx = dx.to(x.dtype)
@@ -125,7 +131,7 @@ class _BNTrain(torch.autograd.Function):
 def bn_train(x, weight, bias, eps: float = 1e-5):
     """Train-mode batch norm: returns (y, batch mean, biased batch var), the
     statistics of the global batch under data parallelism."""
-    if dist.world() == 1:
+    if dist.data_world() == 1:
         mean, var = kernels.bn_stats(x.detach())
     else:
         mean, mean_sq = dist.all_mean(kernels.bn_moments(x.detach()))[0]
@@ -141,7 +147,10 @@ class TorchBatchNorm(nn.Module):
     * running statistics in eval mode;
     * the running update uses the unbiased batch variance n/(n−1), with a
       per-module momentum (0.1 by default); n counts the global batch under
-      data parallelism.
+      data parallelism;
+    * with a channel shard of its weight (tensor parallelism) it normalises
+      those channels of its input (cut from a whole input when it gets one)
+      and returns the whole output, gathered over the model group.
 
     The running buffers are updated in place. State names follow
     `torch.nn.BatchNorm2d` (`num_batches_tracked` included, never advanced),
@@ -149,6 +158,7 @@ class TorchBatchNorm(nn.Module):
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
+        self.num_features = features
         self.momentum = momentum
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
@@ -158,19 +168,23 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
     def forward(self, x, train: bool = False, update_stats: bool = True):
+        sharded = T.shards(self) > 1
+        if sharded and x.shape[1] == self.num_features:
+            x = T.split_channels(x)
         if train:
             y, mean, var = bn_train(x, self.weight, self.bias, self.eps)
             if update_stats:
-                n = x.shape[0] * x.shape[2] * x.shape[3] * dist.world()
+                n = x.shape[0] * x.shape[2] * x.shape[3] * dist.data_world()
                 with torch.no_grad():
                     m = self.momentum
                     self.running_mean.mul_(1 - m).add_(m * mean)
                     self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
-            return y
-        shape = (1, -1, 1, 1)
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        else:
+            shape = (1, -1, 1, 1)
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = ((x.float() - self.running_mean.view(shape)) * inv.view(shape)
+                 + self.bias.view(shape)).to(x.dtype)
+        return T.gather_channels(y) if sharded else y
 
 
 class GroupNorm(nn.GroupNorm):
@@ -188,8 +202,17 @@ class GroupNorm(nn.GroupNorm):
         self.f32_out = f32_out
 
     def forward(self, x, train: bool = False, update_stats: bool = True):
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
-        return y if self.f32_out else y.to(x.dtype)
+        n = T.shards(self)
+        weight, bias, groups = self.weight, self.bias, self.num_groups
+        local = n > 1 and groups % n == 0
+        if local:
+            groups //= n
+        elif n > 1:
+            x = T.gather_channels(x)
+            weight, bias = T.gather_channels(weight, 0), T.gather_channels(bias, 0)
+        y = F.group_norm(x.float(), groups, weight, bias, self.eps)
+        y = y if self.f32_out else y.to(x.dtype)
+        return T.gather_channels(y) if local else y
 
 
 def max_pool_ceil(x, window: int, stride: int, padding: int):
@@ -202,12 +225,14 @@ def dropout2d(x, rate: float, train: bool, generator=None):
     """Channel-wise dropout (torch nn.Dropout2d) drawing from `generator`; a
     None generator in train mode disables it, as a None rng does in JAX.
     Under data parallelism every rank draws the global batch's mask and keeps
-    its own rows, so the ranks' generators stay equal."""
+    its own rows, so the ranks' generators stay equal; the model ranks of one
+    data index, which hold the same rows of the whole tensor, draw the same
+    mask."""
     if not train or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    n, r = x.shape[0], dist.rank()
-    probs = torch.full((n * dist.world(), x.shape[1], 1, 1), keep, device=x.device)
+    n, r = x.shape[0], dist.data_rank()
+    probs = torch.full((n * dist.data_world(), x.shape[1], 1, 1), keep, device=x.device)
     mask = torch.bernoulli(probs, generator=generator)[r * n:(r + 1) * n].to(x.dtype)
     return x * mask / keep
 

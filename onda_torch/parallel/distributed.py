@@ -1,4 +1,4 @@
-"""Data parallelism across ranks: one process per rank under `torchrun`
+"""The ranks under `torchrun`, their (data × model) grid and the collectives
 (`onda_tpu/parallel/distributed.py`).
 
 The JAX package scales out with its multi-process recipe: every process runs
@@ -16,11 +16,13 @@ with the same bits.
 * The backend is decided from the layout, before any collective
   (`choose_backend`): NCCL where every rank has a card of its own, gloo on the
   CPU and where ranks share a card (NCCL refuses two ranks on one card). Under
-  gloo on a card the tensors stay on the card; gloo stages them through the
-  host, which synchronises the host with the card at every call.
+  gloo on a card the tensors stay on the card: a group whose ranks all hold
+  one card sums and gathers them through the card's memory
+  (`shared_card`), any other group through gloo, which stages them through
+  the host. Either way the host waits for the card at every call.
 * `all_sum` and `all_mean` reduce any number of tensors of one type in one
   all-reduce (a flat bucket). At world size 1 they return their arguments and
-  make no collective call. `COUNTS` counts the calls and their bytes.
+  make no collective call. `counts()` counts the calls and their bytes.
 * Host decisions that steer collectives agree across ranks: `from_primary`
   gives every rank rank 0's value of a small host object (the checkpoints
   that EVALUATION lists, the sweep's "keep polling"), and `any_true` makes a
@@ -28,8 +30,20 @@ with the same bits.
   cannot load is skipped by all). Both work under gloo (host tensors) and
   NCCL (card tensors), and make no collective call at world size 1.
 
+Under OTHERS.TENSOR_PARALLEL = tp the ranks form a (data × model) grid
+(`form_grid`, JAX's 2-D mesh): rank r sits at (r // tp, r % tp), as JAX
+reshapes its device list. The data group holds the ranks of one model index
+(they split the batch), the model group the ranks of one data index (they
+split the channels, `parallel.tensor`, and load the same rows). Whatever
+means "how the batch is split" reads the data axis (`data_world`,
+`data_rank`), and `all_sum`/`all_mean` reduce over the data group unless
+told otherwise; at tp 1 it is the world, so data parallelism makes the same
+calls as before. `gather_model` concatenates the model ranks' channel
+shards. `COUNTS` counts the calls and bytes by group.
+
 Only rank 0 writes files (`is_primary`): metrics, checkpoints, prototype
-pickles, samples and prediction dumps. Every rank computes the same state.
+pickles, samples and prediction dumps. The ranks of one model index compute
+the same state; under tensor parallelism each holds its own channel shards.
 """
 
 from __future__ import annotations
@@ -42,15 +56,31 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-# collective calls made (all-reduces and broadcasts) and the bytes they moved,
-# since the last reset
-COUNTS = {"collectives": 0, "bytes": 0}
+from . import shared_card
+
+# collective calls made (all-reduces, broadcasts, all-gathers) and the bytes
+# they moved since the last reset, by group (`counts()` adds the groups up)
+COUNTS = {name: {"collectives": 0, "bytes": 0} for name in ("data", "model", "world")}
 TIMEOUT = datetime.timedelta(minutes=10)  # a rank that stops waits this long, then fails
+# the grid: the model axis's size and this rank's data and model groups (none
+# at tp 1: the data group is then the world)
+_GRID = {"tp": 1, "data": None, "model": None}
 
 
 def reset_counts() -> None:
-    for key in COUNTS:
-        COUNTS[key] = 0
+    for group in COUNTS.values():
+        for key in group:
+            group[key] = 0
+
+
+def counts() -> dict:
+    """The collective calls and bytes of every group together."""
+    return {key: sum(group[key] for group in COUNTS.values()) for key in ("collectives", "bytes")}
+
+
+def _count(group: str, nbytes: int) -> None:
+    COUNTS[group]["collectives"] += 1
+    COUNTS[group]["bytes"] += nbytes
 
 
 def choose_backend(device_type: str, ranks_on_host: int, cards_on_host: int) -> str:
@@ -87,8 +117,10 @@ def initialize(device: str | torch.device = "cuda") -> torch.device:
 
 
 def destroy() -> None:
-    """Leave the process group, if this process joined one."""
+    """Leave the process group, if this process joined one, and its grid."""
+    _GRID.update(tp=1, data=None, model=None)
     if dist.is_initialized():
+        shared_card.close_all()
         dist.destroy_process_group()
 
 
@@ -98,6 +130,60 @@ def rank() -> int:
 
 def world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def form_grid(tp: int) -> None:
+    """Arrange the ranks as a (world // tp) × tp grid: rank r at data index
+    r // tp and model index r % tp. Every rank makes every group, in the same
+    order (`dist.new_group` is a collective). tp 1 is the plain world; a grid
+    already formed at tp is kept."""
+    w = world()
+    if tp < 1 or w % tp:
+        raise ValueError(f"a model axis of {tp} does not divide the {w} ranks")
+    if tp == _GRID["tp"]:
+        return
+    data = model = None
+    if tp > 1:
+        r = rank()
+        for d in range(w // tp):
+            ranks = [d * tp + m for m in range(tp)]
+            group = dist.new_group(ranks)
+            model = group if r in ranks else model
+        for m in range(tp):
+            ranks = [d * tp + m for d in range(w // tp)]
+            group = dist.new_group(ranks)
+            data = group if r in ranks else data
+    _GRID.update(tp=tp, data=data, model=model)
+
+
+def model_world() -> int:
+    """The model axis's size: the ranks that share one data index."""
+    return _GRID["tp"]
+
+
+def model_rank() -> int:
+    return rank() % _GRID["tp"]
+
+
+def data_world() -> int:
+    """The data axis's size: the ranks that split the global batch."""
+    return world() // _GRID["tp"]
+
+
+def data_rank() -> int:
+    return rank() // _GRID["tp"]
+
+
+def _group(name: str):
+    """(process group, size, this rank's index in it) of "data", "model" or
+    "world"; the group None is the world."""
+    if name == "data":
+        return _GRID["data"], data_world(), data_rank()
+    if name == "model":
+        return _GRID["model"], model_world(), model_rank()
+    if name == "world":
+        return None, world(), rank()
+    raise ValueError(f"no group {name!r}")
 
 
 def is_primary() -> bool:
@@ -110,12 +196,13 @@ def backend() -> str | None:
 
 
 def shard_rows(n_rows: int) -> range:
-    """This rank's rows of a table of n_rows: every world-th row from its
-    rank, cut to n_rows // world so that every rank has as many (the tail
-    that does not split evenly is dropped on every rank, as the JAX CLI's
-    per-host split drops it)."""
-    w = world()
-    return range(rank(), w * (n_rows // w), w)
+    """This rank's rows of a table of n_rows: every n-th row from its data
+    index, n the data axis's size, cut to n_rows // n so that every rank has
+    as many (the tail that does not split evenly is dropped on every rank, as
+    the JAX CLI's per-host split drops it). The model ranks of one data index
+    load the same rows."""
+    n = data_world()
+    return range(data_rank(), n * (n_rows // n), n)
 
 
 def host_local_batch_indices(n_samples: int, global_batch: int, process_index: int | None = None,
@@ -123,10 +210,11 @@ def host_local_batch_indices(n_samples: int, global_batch: int, process_index: i
                              shuffle: bool = True):
     """Per-epoch sample indices of this rank's slice of every global batch
     (`onda_tpu/parallel/distributed.py::host_local_batch_indices`): one
-    permutation from `seed` on every rank, rank p taking the p-th contiguous
-    block of each global batch; the last partial global batch is dropped."""
-    p = rank() if process_index is None else process_index
-    n = world() if process_count is None else process_count
+    permutation from `seed` on every rank, data index p taking the p-th
+    contiguous block of each global batch; the last partial global batch is
+    dropped."""
+    p = data_rank() if process_index is None else process_index
+    n = data_world() if process_count is None else process_count
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by {n} hosts")
     local = global_batch // n
@@ -135,32 +223,46 @@ def host_local_batch_indices(n_samples: int, global_batch: int, process_index: i
         yield order[start + p * local: start + (p + 1) * local]
 
 
-def all_sum(*tensors: torch.Tensor):
-    """The elementwise sums of `tensors` over the ranks, in one all-reduce of
-    a flat bucket (the tensors must share a dtype and a device). Returns a
-    tuple of new tensors, views of the bucket; at world size 1 the arguments
+def all_sum(*tensors: torch.Tensor, group: str = "data"):
+    """The elementwise sums of `tensors` over the ranks of `group` ("data",
+    the default, "model" or "world"), in one all-reduce of a flat bucket
+    (the tensors must share a dtype and a device). Returns a tuple of new
+    tensors, views of the bucket; in a group of one rank the arguments
     themselves, with no collective call."""
-    if world() == 1:
+    handle, size, _ = _group(group)
+    if size == 1:
         return tensors
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1:
         raise TypeError(f"all_sum: one dtype per bucket, got {sorted(map(str, dtypes))}")
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    COUNTS["collectives"] += 1
-    COUNTS["bytes"] += flat.numel() * flat.element_size()
-    dist.all_reduce(flat)
+    _count(group, flat.numel() * flat.element_size())
+    card = _card_channel(flat, handle, size, group)
+    if card is not None:
+        flat = card.all_sum(flat)
+    else:
+        dist.all_reduce(flat, group=handle)
     return tuple(part.view(t.shape) for part, t in zip(flat.split([t.numel() for t in tensors]),
                                                        tensors))
 
 
-def all_mean(*tensors: torch.Tensor):
-    """The means over the ranks of per-rank means over equal shares of the
-    global batch: the global means. One all-reduce; the arguments themselves
-    at world size 1."""
-    w = world()
-    if w == 1:
+def all_mean(*tensors: torch.Tensor, group: str = "data"):
+    """The means over the ranks of `group` of per-rank means over equal
+    shares of the global batch: the global means. One all-reduce; the
+    arguments themselves in a group of one rank."""
+    _, size, _ = _group(group)
+    if size == 1:
         return tensors
-    return tuple(t / w for t in all_sum(*tensors))
+    return tuple(t / size for t in all_sum(*tensors, group=group))
+
+
+def _card_channel(t: torch.Tensor, handle, size: int, group: str):
+    """The card-memory channel for a card tensor under gloo (the ranks share
+    cards), or None: NCCL, the CPU, or a group whose ranks hold different
+    cards (it stays on gloo)."""
+    if t.device.type != "cuda" or backend() != "gloo":
+        return None
+    return shared_card.channel(handle, size, _group(group)[2], group)
 
 
 def _host_side_device() -> torch.device:
@@ -172,8 +274,7 @@ def _host_side_device() -> torch.device:
 
 
 def _broadcast(t: torch.Tensor) -> torch.Tensor:
-    COUNTS["collectives"] += 1
-    COUNTS["bytes"] += t.numel() * t.element_size()
+    _count("world", t.numel() * t.element_size())
     dist.broadcast(t, 0)
     return t
 
@@ -198,16 +299,39 @@ def any_true(flag: bool) -> bool:
     if world() == 1:
         return bool(flag)
     count = torch.tensor([int(bool(flag))], dtype=torch.int32, device=_host_side_device())
-    return int(all_sum(count)[0].item()) > 0
+    return int(all_sum(count, group="world")[0].item()) > 0
+
+
+def _gather(x: torch.Tensor, group: str, dim: int) -> torch.Tensor:
+    """The ranks of `group`'s x (equal shapes), concatenated along `dim` in
+    their order: a group that shares a card gathers them through its memory
+    (`shared_card`); otherwise an all-reduce of a zero-filled bucket (every
+    rank's slot but its own zero: the sum is exact) gathers them, which gloo
+    can do for card tensors too (it moves them by all-reduce and broadcast
+    only). `x` itself in a group of one rank."""
+    handle, size, index = _group(group)
+    if size == 1:
+        return x
+    card = _card_channel(x, handle, size, group)
+    if card is not None:
+        _count(group, size * x.numel() * x.element_size())
+        out = card.gather(x)
+    else:
+        out = torch.zeros((size, *x.shape), dtype=x.dtype, device=x.device)
+        out[index] = x
+        out = all_sum(out, group=group)[0]
+    out = out.movedim(0, dim)
+    return out.reshape(*x.shape[:dim], size * x.shape[dim], *x.shape[dim + 1:])
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's x (equal shapes), concatenated along the first axis in
-    rank order: the global batch of per-rank slices. An all-reduce of a
-    zero-filled bucket, so that gloo can gather card tensors too."""
-    w = world()
-    if w == 1:
-        return x
-    bucket = torch.zeros((w, *x.shape), dtype=x.dtype, device=x.device)
-    bucket[rank()] = x
-    return all_sum(bucket)[0].reshape(w * x.shape[0], *x.shape[1:])
+    """Every data index's x (equal shapes), concatenated along the first
+    axis in data order: the global batch of per-rank slices (the model ranks
+    of a data index hold the same rows)."""
+    return _gather(x, "data", 0)
+
+
+def gather_model(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The model ranks' channel shards of x, concatenated along `dim` in
+    model order: the whole tensor, on every rank of the model group."""
+    return _gather(x, "model", dim)

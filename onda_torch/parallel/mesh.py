@@ -1,26 +1,40 @@
-"""OTHERS.DATA_PARALLEL, and the one option the port does not run
+"""OTHERS.DATA_PARALLEL and OTHERS.TENSOR_PARALLEL: the grid of ranks
 (`onda_tpu/parallel/mesh.py`).
 
 The JAX package resolves OTHERS.DATA_PARALLEL into a 1-D `data` mesh over its
-devices (`data_parallel_mesh`). A port rank is a JAX process with one device
-(see `distributed`), so the mesh is the world of ranks and its size the world
-size, under the same rules: unset means auto, False off, True all ranks, an
-int n must equal the world size, the global batch must split evenly, and the
-multi-process guards hold because every rank is a process. At world size 1
-every value resolves to the one-device path, as JAX's `n <= 1 → None` does.
+devices (`data_parallel_mesh`), and OTHERS.TENSOR_PARALLEL = tp into a 2-D
+(data × model) mesh (`data_parallel_setup`) whose model axis shards the
+channels (`tensor_parallel_shardings`). A port rank is a JAX process with one
+device (see `distributed`), so the mesh is the world of ranks:
 
-Every path of the CLI runs across ranks: the PROTO_ONLINE family, ADVENT and
-PROTO_ADVENT, SEGMENT training and EVALUATION mode. Where the port differs:
-DATA_PARALLEL false under a world size above 1 raises (JAX would let each
-process train alone on its shard), and `refuse_unported` stops
-OTHERS.TENSOR_PARALLEL (`tensor_parallel_shardings`, ROADMAP M17) on any
-number of ranks.
+* DATA_PARALLEL, under the JAX rules: unset means auto, False off, True all
+  ranks, an int n must equal the world size, the global batch must split
+  evenly, and the multi-process guards hold because every rank is a process.
+  At world size 1 every value resolves to the one-device path, as JAX's
+  `n <= 1 → None` does.
+* TENSOR_PARALLEL = tp ≥ 2: a (world // tp) × tp grid, rank r at
+  (r // tp, r % tp) (`distributed.form_grid`); DATA_PARALLEL is then ignored,
+  as JAX ignores it. True raises, and so does a tp that does not divide the
+  ranks, with JAX's words. 1, False or unset is the data-parallel path.
+
+Where the port differs: DATA_PARALLEL false under a world size above 1 raises
+(JAX would let each process train alone on its shard); where JAX would cap the
+data axis to divide the batch and leave devices idle, the port raises (an idle
+rank is a process that trains nothing); JAX's single-process rule for
+TENSOR_PARALLEL is its runtime's, not the maths', and the port has none.
+TENSOR_PARALLEL runs for the PROTO_ONLINE family (PROTO_ONLINE, HSWITCH,
+VSWITCH, HYBRIDSWITCH); `refuse_unported` stops it for ADVENT, PROTO_ADVENT,
+SEGMENT training and EVALUATION mode (ROADMAP M17) on any number of ranks.
 """
 
 from __future__ import annotations
 
 from ..config import unset
 from . import distributed
+
+# the adaptation methods whose step runs on the grid (one adapter)
+TENSOR_PARALLEL_METHODS = ("PROTO_ONLINE", "PROTO_ONLINE_HSWITCH", "PROTO_ONLINE_VSWITCH",
+                           "PROTO_ONLINE_HYBRIDSWITCH")
 
 
 def data_parallel_size(option, batch_size: int | None = None, world: int | None = None) -> int:
@@ -56,14 +70,70 @@ def data_parallel_size(option, batch_size: int | None = None, world: int | None 
     return min(want, n)
 
 
+def grid_shape(option, batch_size: int | None = None,
+               world: int | None = None) -> tuple[int, int]:
+    """(data, model) axis sizes under OTHERS.TENSOR_PARALLEL = option (None
+    for unset) with `world` ranks (default: this run's); (world, 1) when the
+    option asks for no model axis. Raises ValueError where JAX's
+    `data_parallel_setup` does, and where JAX would cap the data axis."""
+    n = distributed.world() if world is None else world
+    if option is True:
+        raise ValueError("TENSOR_PARALLEL must be an integer ≥ 2 (the number of model-axis "
+                         "shards), not a boolean")
+    tp = 0 if option in (None, False) else int(option)
+    if tp <= 1:
+        return n, 1
+    if n % tp:
+        raise ValueError(f"TENSOR_PARALLEL={tp} does not divide the {n} ranks")
+    data = n // tp
+    if batch_size and batch_size % data:
+        raise ValueError(f"TENSOR_PARALLEL={tp}: BATCH_SIZE={batch_size} does not divide the "
+                         f"data axis of {data} ({n} ranks); JAX would leave ranks idle")
+    return data, tp
+
+
+def _tensor_parallel_option(cfg):
+    tp = cfg.OTHERS.TENSOR_PARALLEL
+    return None if unset(tp) else tp
+
+
+def unported_path(cfg) -> str | None:
+    """The part of cfg's run that does not run under OTHERS.TENSOR_PARALLEL,
+    or None: EVALUATION mode, SEGMENT training, or an adaptation method
+    outside the PROTO_ONLINE family."""
+    if cfg.METHOD.PRETRAIN.NAME == "EVALUATION":
+        return "EVALUATION mode"
+    if cfg.METHOD.PRETRAIN.NAME == "SEGMENT" and int(cfg.METHOD.PRETRAIN.SEGMENT.EPOCHS) > 0:
+        return "SEGMENT training"
+    if cfg.METHOD.ADAPTATION.NAME not in TENSOR_PARALLEL_METHODS:
+        return str(cfg.METHOD.ADAPTATION.NAME)
+    return None
+
+
 def refuse_unported(cfg) -> int:
     """Raise, before anything trains or is written, for what the port does
-    not run: OTHERS.TENSOR_PARALLEL, and an OTHERS.DATA_PARALLEL that does
-    not resolve against this run's ranks. Returns the data-parallel size
-    (1: one device)."""
-    tp = cfg.OTHERS.TENSOR_PARALLEL
-    if tp is True or (not unset(tp) and tp not in (None, False) and int(tp) > 1):
-        raise NotImplementedError("OTHERS.TENSOR_PARALLEL: the port does not shard the model "
-                                  "(channel-wise tensor parallelism is ROADMAP M17)")
+    not run: OTHERS.TENSOR_PARALLEL on a path outside the PROTO_ONLINE
+    family (NotImplementedError, naming the option and ROADMAP M17), and a
+    grid or an OTHERS.DATA_PARALLEL that does not resolve against this run's
+    ranks (ValueError). Returns the data axis's size (1: one device)."""
+    tp = _tensor_parallel_option(cfg)
+    path = unported_path(cfg)
+    if path is not None and tp not in (None, False) and (tp is True or int(tp) > 1):
+        raise NotImplementedError(f"OTHERS.TENSOR_PARALLEL: the port shards the model for the "
+                                  f"PROTO_ONLINE family only, not for {path} (ROADMAP M17)")
+    batch = int(cfg.TRAINING.BATCH_SIZE)
+    data, model = grid_shape(tp, batch)
+    if model > 1:
+        return data
     dp = cfg.OTHERS.DATA_PARALLEL
-    return data_parallel_size(None if unset(dp) else dp, int(cfg.TRAINING.BATCH_SIZE))
+    return data_parallel_size(None if unset(dp) else dp, batch)
+
+
+def resolve(cfg) -> tuple[int, int]:
+    """`refuse_unported`, then the grid of this run's ranks formed
+    (`distributed.form_grid`, a collective every rank joins); returns the
+    (data, model) axis sizes."""
+    data = refuse_unported(cfg)
+    model = grid_shape(_tensor_parallel_option(cfg))[1]
+    distributed.form_grid(model)
+    return data, model

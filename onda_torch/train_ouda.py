@@ -31,8 +31,20 @@ family, ADVENT and PROTO_ADVENT, SEGMENT training (every rank trains on its
 source shard; `_after_src_training.pth` is written once and adaptation goes
 on from the weights in memory on every rank) and EVALUATION mode (the
 checkpoint to load, the sweep's list and AUTO_RESUME's pick are rank 0's,
-taken on every rank). OTHERS.TENSOR_PARALLEL stops before anything is
-written, on any number of ranks (`parallel.mesh.refuse_unported`).
+taken on every rank).
+
+Tensor parallelism (OTHERS.TENSOR_PARALLEL = tp ≥ 2, the PROTO_ONLINE family:
+PROTO_ONLINE, HSWITCH, VSWITCH, HYBRIDSWITCH): the same launch, the ranks
+arranged as a (world // tp) × tp grid (`parallel.mesh.resolve`; DATA_PARALLEL
+is then ignored). The batch splits over the data axis only: the local batch
+is TRAINING.BATCH_SIZE // (world // tp), the model ranks of one data index
+load the same rows and seed their replay buffers alike, and each rank holds
+its channel shards of the model's wide layers (`parallel.tensor`). The files
+hold whole tensors in one process's layout, written by rank 0, so they load
+into one process and back. On one card the ranks share it through gloo; with
+a card per rank they use NCCL. ADVENT, PROTO_ADVENT, SEGMENT training and
+EVALUATION mode stop under the option before anything is written, on any
+number of ranks (`parallel.mesh.refuse_unported`).
 
 Under OTHERS.ASYNC_SAVE the checkpoints are written in the background;
 `main` waits for every write, and raises a failed one, before it returns. It
@@ -85,7 +97,7 @@ def _main(argv):
     from .data import Loader, ReplayBuffer, SegmentationDataset, Table
     from .native import BatchExecutor
     from .parallel import distributed
-    from .parallel.mesh import refuse_unported
+    from .parallel.mesh import resolve
     from .registry import get_adapt_method, get_db, get_model
     from .utils.logging_ import Logger
 
@@ -98,9 +110,11 @@ def _main(argv):
     if distributed.is_primary():
         print("Using config:")
         pprint(cfg.to_dict())
-    # before anything trains: SEGMENT pretraining would otherwise run in full
-    world = refuse_unported(cfg)
-    rank = distributed.rank()
+    # before anything trains: SEGMENT pretraining would otherwise run in full.
+    # `data`: the ranks that split the batch; a data index's model ranks
+    # load the same rows
+    data, _ = resolve(cfg)
+    data_rank = distributed.data_rank()
     np.random.seed(int(cfg.TRAINING.RANDOM_SEED))
 
     datasets = get_db(cfg)
@@ -113,7 +127,7 @@ def _main(argv):
     print("Model has been Loaded")
 
     logger = Logger(project="OUDA", config=cfg.to_dict(), log_dir=str(cfg.OTHERS.SNAPSHOT_DIR),
-                    use_wandb=args.wandb)
+                    use_wandb=args.wandb or None)
 
     # db_std is gated on SCHEME.MEAN, not on STD, as in the reference
     # (reference train_ouda.py:101-110): STD without MEAN is ignored
@@ -133,7 +147,7 @@ def _main(argv):
         # this rank's shard at the local batch size: every rank has as many rows
         # and batches, so their collective calls pair up
         frame = frame.take(distributed.shard_rows(len(frame)))
-        return Loader(ds(frame, raw_labels), batch_size=int(cfg.TRAINING.BATCH_SIZE) // world,
+        return Loader(ds(frame, raw_labels), batch_size=int(cfg.TRAINING.BATCH_SIZE) // data,
                       shuffle=shuffle, seed=int(cfg.TRAINING.RANDOM_SEED), drop_last=train,
                       pad_last=not train, num_threads=workers, pin_memory=device.type == "cuda")
 
@@ -185,10 +199,10 @@ def _main(argv):
     if buff_size == 0:
         src_loader = None
     elif isinstance(cfg.TRAINING.BUFFER_DYNAMIC, bool) and cfg.TRAINING.BUFFER_DYNAMIC:
-        # each rank keeps a disjoint buffer and draws its slice of every global
-        # replay batch (JAX's per-host buffer)
+        # each data index keeps a disjoint buffer and draws its slice of every
+        # global replay batch (JAX's per-host buffer)
         src_loader = ReplayBuffer(ds(src_sample.take(distributed.shard_rows(len(src_sample)))),
-                                  int(cfg.TRAINING.BATCH_SIZE) // world, seed=seed + rank)
+                                  int(cfg.TRAINING.BATCH_SIZE) // data, seed=seed + data_rank)
         print(f"Buffer size: {src_loader.nbytes() / 1024**2:.1f} MB")
     else:
         src_loader = dl(src_sample, True)

@@ -3,9 +3,11 @@
 The reference logs every step to wandb under fixed key names (reference
 train_ouda.py:75-78, methods/prototypes.py:519). Here the same keys always go
 to `metrics.jsonl` in the log directory, one JSON record per call with
-`_step` and `_t` (seconds since the logger started); wandb is used only when
-asked for, and then it must be importable. Under data parallelism only rank
-0 logs: the other ranks' loggers write nothing and start no wandb run.
+`_step` and `_t` (seconds since the logger started). wandb is used when
+asked for (`use_wandb`, or `ONDA_WANDB=1` when that is None); if it cannot
+be imported or its run cannot start, the logger keeps `metrics.jsonl` alone.
+Under data parallelism only rank 0 logs: the other ranks' loggers write
+nothing and start no wandb run.
 """
 
 from __future__ import annotations
@@ -19,17 +21,25 @@ from ..parallel import distributed as dist
 
 class Logger:
     def __init__(self, project: str = "OUDA", config: dict | None = None, log_dir: str = ".",
-                 use_wandb: bool = False):
+                 use_wandb: bool | None = None, run_name: str | None = None):
         self.step = 0
         self._wandb = None
         self._jsonl = None
         if not dist.is_primary():
             return
+        if use_wandb is None:
+            use_wandb = os.environ.get("ONDA_WANDB", "0") == "1"
         if use_wandb:
-            import wandb
+            try:
+                import wandb
 
-            self._wandb = wandb
-            wandb.init(project=project, config=config or {})
+                wandb.init(project=project, config=config or {})
+                if run_name:
+                    wandb.run.name = run_name
+                self._wandb = wandb
+            except Exception as exc:  # noqa: BLE001 - no wandb: metrics.jsonl alone
+                print(f"wandb unavailable ({type(exc).__name__}: {exc}); logging to "
+                      "metrics.jsonl only")
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a", buffering=1)
         self._t0 = time.time()

@@ -178,7 +178,7 @@ def single(inputs, tmp_path_factory):
         # the EWC term counted on both ranks: one process with twice the weight
         out["ewc_twice"] = one_process(inputs, "hybrid_switch",
                                        {"MODEL_REGULARIZATION": 2 * EWC}, snap)
-    out["collectives"] = dict(distributed.COUNTS)
+    out["collectives"] = distributed.counts()
     shutil.rmtree(snap, ignore_errors=True)
     return out
 
@@ -605,9 +605,10 @@ def test_two_rank_cli_keys_and_evaluation_match_one_process(cli_runs):
 
 
 @pytest.mark.parametrize("config, over, option", [
-    ("hybrid_switch", {"OTHERS.TENSOR_PARALLEL": 2}, "TENSOR_PARALLEL")])
+    ("advent", {"OTHERS.TENSOR_PARALLEL": 2}, "TENSOR_PARALLEL")])
 def test_unported_paths_refuse_under_two_ranks(tmp_path, monkeypatch, config, over, option):
-    """Under two ranks the option the port does not run (OTHERS.TENSOR_PARALLEL)
+    """Under two ranks an option the port does not run on a path
+    (OTHERS.TENSOR_PARALLEL outside the PROTO_ONLINE family: ADVENT here)
     stops before anything is written, naming the option and ROADMAP M17. The
     refusal is taken from the world size before any collective, so the
     world is set here without a process group."""

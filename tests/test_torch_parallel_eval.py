@@ -185,7 +185,7 @@ def _single(scenarios, state_dicts, tmp):
                    {**scenarios["evaluation"], "pred_dir": str(tmp / "pred_single"),
                     "fail_on_ranks": {0: [FAILS_ON_RANK1]}},
                    state_dicts["evaluation"], 0, 1, str(tmp / "single_evaluation"))}
-    out["collectives"] = dict(distributed.COUNTS)
+    out["collectives"] = distributed.counts()
     return out
 
 

@@ -14,8 +14,10 @@ JAX step takes them). The rank joins the gloo group through
 `onda_torch.parallel.distributed.initialize` (torchrun's environment), takes
 its rows of each global batch (rank-major: rows [r·b, (r+1)·b)) and runs the
 scenario's kind: `proto` (the default) bootstraps the prototypes, evaluates
-and takes PROTO_ONLINE steps; `adversarial` takes ADVENT or PROTO_ADVENT
-steps; `segment` runs `SegmentTrainer.train`; `evaluation` makes the
+and takes PROTO_ONLINE steps; `tensor_parallel` does so on a (data × model)
+grid (OTHERS.TENSOR_PARALLEL), then saves and loads whole-state files;
+`adversarial` takes ADVENT or PROTO_ADVENT steps; `segment` runs
+`SegmentTrainer.train`; `evaluation` makes the
 EVALUATION runner on a directory of checkpoints, evaluates, sweeps and dumps
 predictions, with a read failure injected on rank 1 where the scenario asks.
 It writes `rank<r>.pt`: per scenario the logs, a digest of every tensor of
@@ -45,6 +47,7 @@ from onda_torch.config import cfg_from_file  # noqa: E402
 from onda_torch.methods.proto_online import ProtoOnlineAdapter  # noqa: E402
 from onda_torch.methods.segmentation import SegmentTrainer  # noqa: E402
 from onda_torch.models import build_deeplab_v2  # noqa: E402
+from onda_torch.ops import kernels as K  # noqa: E402
 from onda_torch.ops import losses as L  # noqa: E402
 from onda_torch.parallel import distributed  # noqa: E402
 
@@ -85,9 +88,11 @@ def val_loader(val, b):
     return batches
 
 
-def make_adapter(state_dict, config, spec_over, snap, hw, batch):
+def make_adapter(state_dict, config, spec_over, snap, hw, batch, others=None):
     cfg, spec = configure(config, spec_over, snap, hw)
     cfg.TRAINING.BATCH_SIZE = batch
+    for key, value in (others or {}).items():
+        cfg.OTHERS[key] = value
     model = build_deeplab_v2(19, (1, 1, 1, 1), "ProDA", droprate=0.0)
     model.load_state_dict(state_dict, strict=True)
     return ProtoOnlineAdapter(model, registry.variables_of(model), cfg, spec, 19, device="cpu")
@@ -139,7 +144,7 @@ def run_scenario(sc, state_dict, rank, world, snap):
         distributed.reset_counts()
         ad.state, logs = step(ad.state, nchw(trg["image"][rows]), nchw(src["image"][rows])[None],
                               labels, sc["lr"])
-        out["collectives"].append(dict(distributed.COUNTS))
+        out["collectives"].append(distributed.counts())
         out["logs"].append(dict(logs.items()))
         out["valid_counts"].append(float(L.valid_count(labels[0])))
         digests, values = record(ad.state)
@@ -217,6 +222,151 @@ def model_of(state_dict, multi_level):
     model = build_deeplab_v2(19, (1, 1, 1, 1), "ProDA", multi_level=multi_level, droprate=0.0)
     model.load_state_dict(state_dict, strict=True)
     return model
+
+
+# ---- OTHERS.TENSOR_PARALLEL ------------------------------------------------
+
+def whole_state(ad):
+    """Every tensor of the adapter's state by a flat name, whole: the sharded
+    trees gathered over the model group (a collective every rank joins)."""
+    s = ad.state
+    out = {}
+    for tree in ("params", "batch_stats", "alt_batch_stats", "opt_momentum", "ema_params",
+                 "static_params", "static_batch_stats", "dynamic_params", "dynamic_batch_stats"):
+        out.update({f"{tree}.{k}": v for k, v in ad._whole(getattr(s, tree)).items()})
+    for name in ("proto", "monitor", "switch"):
+        out.update({f"{name}.{k}": v for k, v in vars(getattr(s, name)).items()})
+    return out
+
+
+def run_tensor_parallel(sc, state_dict, rank, world, snap):
+    """The scenario's bootstrap, evaluation and hybrid steps on a grid of
+    OTHERS.TENSOR_PARALLEL = sc["tp"] (each data index taking its rows of
+    every global batch); per step the logs, the collectives by group, the
+    digests of this rank's tensors, those of the whole-leaf gradients
+    before their reduction, and (rank 0) the whole parameters, BN buffers,
+    prototypes, monitor and switch. Then, unless sc["save"] is False,
+    `save_model`, and a load of sc["load"] (a whole-state file written by one
+    process), whose gathered state rank 0 returns. sc["evaluate"] False skips
+    the evaluation."""
+    if sc.get("card_bn"):  # the BatchNorm variance as K2 takes it on the card
+        K.bn_stats_plain = card_bn_stats
+    ad = make_adapter(state_dict, sc["config"], sc["spec"], snap, sc["hw"], sc["batch"],
+                      others={"TENSOR_PARALLEL": sc["tp"]})
+    d, dw = distributed.data_rank(), distributed.data_world()
+    b = sc["batch"] // dw
+    rows = slice(d * b, (d + 1) * b)
+    boot = sc["boot"]
+    ad.calculate_prototypes([{"image": nchw(boot["image"][rows]),
+                              "label": torch.tensor(boot["label"][rows])}])
+    n_val = len(sc["val"]["image"]) // dw
+    val = {k: v[d * n_val:(d + 1) * n_val] for k, v in sc["val"].items()}
+    out = {"grid": (dw, distributed.model_world()), "position": (d, distributed.model_rank()),
+           "plan": sorted(ad.plan), "eval": {k: v.tolist() for k, v in ad.evaluate(
+               val_loader(val, b)).items()} if sc.get("evaluate", True) else {},
+           "boot_proto": ad.state.proto.mean.clone(), "logs": [], "digests": [], "values": [],
+           "collectives": [], "whole_grads": []}
+    all_sum = distributed.all_sum
+
+    def recording_all_sum(*tensors, group="data"):
+        if group == "world":  # the whole leaves' gradient bucket, before its reduction
+            out["whole_grads"][-1].append(digest(torch.cat([t.reshape(-1) for t in tensors])))
+        return all_sum(*tensors, group=group)
+
+    step = ad.step_fn(True, 1, False)
+    distributed.all_sum = recording_all_sum
+    try:
+        for src, trg in sc["steps"]:
+            labels = torch.tensor(src["label_res"][rows][None]).long()
+            out["whole_grads"].append([])
+            distributed.reset_counts()
+            ad.state, logs = step(ad.state, nchw(trg["image"][rows]),
+                                  nchw(src["image"][rows])[None], labels, sc["lr"])
+            out["collectives"].append({"all": distributed.counts(), **{
+                g: dict(c) for g, c in distributed.COUNTS.items()}})
+            out["logs"].append(dict(logs.items()))
+            out["digests"].append(digests_of(state_tensors(ad.state)))
+            whole = whole_state(ad)
+            out["values"].append({k: v.clone() for k, v in whole.items()
+                                  if k.split(".", 1)[0] in ("params", "batch_stats", "proto",
+                                                            "monitor", "switch")}
+                                 if rank == 0 else {})
+    finally:
+        distributed.all_sum = all_sum
+    if sc.get("save", True):
+        ad.save_model()
+    if sc.get("load"):
+        ad.load_model(sc["load"])
+        loaded = whole_state(ad)
+        out["loaded"] = {k: digest(v) for k, v in loaded.items()} if rank == 0 else {}
+    out["files"] = sorted(os.listdir(snap)) if os.path.isdir(snap) else []
+    return out
+
+
+def digests_of(tensors):
+    return {k: digest(v) for k, v in tensors.items()}
+
+
+def card_bn_stats(x):
+    """K2's arithmetic on the card: the variance taken in f64 from the f64
+    moments, then rounded to f32 (what the ranks of a data axis above 1 take
+    from their all-reduced moments)."""
+    mean, mean_sq = K.bn_moments_plain(x)
+    return mean.float(), torch.clamp(mean_sq - mean * mean, min=0.0).float()
+
+
+def chain_modules():
+    """A small chain of the model's layers, each wide enough to shard on 2
+    ranks under a plan with min_dim 8: conv → BN → conv → GroupNorm (4
+    groups: each shard holds whole groups) → conv → GroupNorm (1 group: it
+    gathers first) → Linear over the pooled channels → BN of a whole input
+    (`split_channels`)."""
+    from onda_torch.models.layers import Conv2d, GroupNorm, Linear, TorchBatchNorm
+
+    torch.manual_seed(5)
+    return torch.nn.ModuleDict({
+        "conv_a": Conv2d(4, 8, 3, padding=1, bias=True), "bn": TorchBatchNorm(8),
+        "conv_b": Conv2d(8, 8, 1), "gn_local": GroupNorm(8, num_groups=4),
+        "conv_c": Conv2d(8, 8, 3, padding=1, bias=True), "gn_gathered": GroupNorm(8, num_groups=1),
+        "fc": Linear(8, 8), "bn_whole_in": TorchBatchNorm(8)})
+
+
+def chain_forward(m, x):
+    """The chain on x, every sharded layer entered through `fan_in`."""
+    from torch.nn import functional as F
+
+    from onda_torch.parallel import tensor as T
+
+    y = F.relu(m["bn"](m["conv_a"](T.fan_in(x, m["conv_a"])[0]), train=True))
+    y = F.relu(m["gn_local"](m["conv_b"](T.fan_in(y, m["conv_b"])[0])))
+    y = m["gn_gathered"](m["conv_c"](T.fan_in(y, m["conv_c"])[0]))
+    s = m["fc"](T.fan_in(y.mean(dim=(2, 3)), m["fc"])[0])
+    s = T.gather_channels(s) if T.shards(m["fc"]) > 1 else s
+    return m["bn_whole_in"](y * torch.sigmoid(s)[:, :, None, None], train=True)
+
+
+def run_chain(sc, state_dict, rank, world, snap):
+    """`chain_forward` with this model rank's shards of the chain's
+    parameters and buffers (every one planned at min_dim 8) on the whole
+    input; returns the output and the whole gradients of the input and of
+    every parameter (the shards' gathered over the model group)."""
+    from onda_torch.parallel import tensor as T
+
+    distributed.form_grid(world)
+    m = chain_modules()
+    tensors = {**dict(m.named_parameters()), **dict(m.named_buffers())}
+    plan = T.tensor_parallel_plan(tensors, world, min_dim=8)
+    for name, t in T.shard_state({k: v.detach() for k, v in tensors.items()}, plan,
+                                 distributed.model_rank(), world).items():
+        owner, leaf = name.split(".")
+        kind = "_parameters" if leaf in ("weight", "bias") else "_buffers"
+        getattr(m[owner], kind)[leaf] = torch.nn.Parameter(t) if kind == "_parameters" else t
+    params = dict(m.named_parameters())
+    x = torch.tensor(sc["x"]).requires_grad_(True)
+    y = chain_forward(m, x)
+    grads = torch.autograd.grad((y * torch.tensor(sc["weight"])).sum(), [x, *params.values()])
+    return {"y": y.detach(), "dx": grads[0], "plan": sorted(plan),
+            "grads": T.gather_state(dict(zip(params, grads[1:])), plan)}
 
 
 # ---- ADVENT and PROTO_ADVENT ---------------------------------------------
@@ -311,7 +461,7 @@ def run_adversarial(sc, state_dict, rank, world, snap):
                                               sc["lr"], sc["lr_d"])
         else:
             ad.state, logs = step(ad.state, s_img, s_lbl, t_img, sc["lr"], sc["lr_d"])
-        out["collectives"].append(dict(distributed.COUNTS))
+        out["collectives"].append(distributed.counts())
         out["logs"].append({k: float(v) for k, v in logs.items()})
         out["digests"].append({k: digest(v) for k, v in adversarial_tensors(ad).items()})
         out["values"].append(adversarial_values(ad, full=i == 0) if rank == 0 else {})
@@ -345,7 +495,7 @@ def run_segment(sc, state_dict, rank, world, snap):
     def recorded(images, labels, lr):
         distributed.reset_counts()
         loss = step(images, labels, lr)
-        out["collectives"].append(dict(distributed.COUNTS))
+        out["collectives"].append(distributed.counts())
         out["lr"].append(lr)
         out["loss"].append(float(loss))
         tensors = {**{f"params.{k}": v for k, v in tr.params.items()},
@@ -433,7 +583,8 @@ def _patched(owner, name, value):
             setattr(owner, name, saved)
 
 
-KINDS = {"adversarial": run_adversarial, "segment": run_segment, "evaluation": run_evaluation}
+KINDS = {"adversarial": run_adversarial, "segment": run_segment, "evaluation": run_evaluation,
+         "tensor_parallel": run_tensor_parallel, "chain": run_chain}
 
 
 def main():
