@@ -15,7 +15,7 @@
     python3 chip_smoke.py --parallel-only  # phases 1-4, phase 7's dataset,
                                          # phase 12 (the data-parallel ranks:
                                          # 12.1-12.5) and phase 13 (the
-                                         # tensor-parallel grids: 13.1-13.3)
+                                         # tensor-parallel grids: 13.1-13.5)
 
 Phases:
  1. card name and power limit; the TF32 settings of each phase;
@@ -106,7 +106,7 @@ Phases:
     next step timed) and through the CLI (confidence_switch.yml, SAVE_EVERY
     2). Every K1 and K2 shape these runs feed must be among those phases 3-4
     checked.
- 12. OTHERS.DATA_PARALLEL across two ranks, each run through `python -m
+ 12. OTHERS.DATA_PARALLEL across two ranks, in one run of `python -m
     torch.distributed.run --nproc-per-node 2` (NCCL with a card per rank
     where there are two cards, else both ranks on the one card through
     gloo; the phase's lines name the backend and the layout): 12.1
@@ -115,7 +115,7 @@ Phases:
     prototypes, every parameter's update; the ranks' whole states equal bit
     for bit), then timed steps (per-rank step ms, K1 2 and K2 159 a step,
     271 all-reduces a step and their bytes, host syncs, peak memory); 12.2
-    `onda_torch.train_ouda.main` on phase 7's files (two domains), rank 0
+    `onda_torch.train_ouda.main` on phase 7's files (one domain), rank 0
     the one writer: exit 0, finite losses, each rank's K1/K2 counts; 12.3
     advent.yml (multi-level) and proto_advent.yml (bootstrapped) in memory
     at b4 1024x512 the same way, one process at b4 against the ranks after
@@ -133,9 +133,11 @@ Phases:
     snapshots, the ranks against one process on the same files (`Val
     mIoU*`, the swept files, the dumps in rank-major order, the confidence).
     Ranks that share one card (gloo) move their card tensors through the
-    card's memory (CUDA IPC, `onda_torch/parallel/shared_card.py`).
- 13. OTHERS.TENSOR_PARALLEL 2 on a (data x model) grid of ranks, each run
-    through `python -m torch.distributed.run` (NCCL with a card per rank,
+    card's memory (CUDA IPC, `onda_torch/parallel/shared_card.py`). The
+    ranks of 12.1 and 12.3 and the CLI runs of 12.2, 12.4 and 12.5 (one
+    domain each, chained in one process group) are jobs of the one run.
+ 13. OTHERS.TENSOR_PARALLEL 2 on a (data x model) grid of ranks, in two runs
+    of `python -m torch.distributed.run` (NCCL with a card per rank,
     else all ranks on the one card through gloo and CUDA IPC; the phase's
     lines name the backend and the layout): 13.0, where ranks share the
     card (on 13.1's ranks), the sum and the gather of seeded random card
@@ -153,12 +155,33 @@ Phases:
     then 6 timed steps (per-rank step ms, K1 2 and K2 159 a step
     per rank, collectives and bytes a step by group, host syncs, peak
     memory, the bytes of params + momentum + teachers a rank holds against
-    one process's); 13.2 the same on a (2 x 2) grid, 4 ranks of b2, 3 timed
-    steps; 13.3 `onda_torch.train_ouda.main` on phase 7's files on a (1 x 2)
-    grid (two domains): exit 0, one writer, every file once, a one-process
-    `load_model` of its `adapt_state.pt` equal to each rank's shards bit for
-    bit, then an AUTO_RESUME rerun that restores it on both ranks. Phase 4
-    checks and times K2 at the grid's shard shapes.
+    one process's); 13.2 the same on a (2 x 2) grid, 4 ranks of b2, 2 timed
+    steps (its own run); 13.3 `onda_torch.train_ouda.main` on phase 7's
+    files on a (1 x 2) grid (one domain): exit 0, one writer, every file
+    once, then an AUTO_RESUME rerun that restores it on both ranks, and a
+    one-process `load_model` of its `adapt_state.pt` equal to each rank's
+    shards bit for bit; 13.4 advent.yml (multi-level, its discriminators'
+    conv1-conv3 sharded), proto_advent.yml (its discriminators whole) and
+    a SEGMENT step of training_fog.yml's model in memory at b4 1024x512 on
+    the (1 x 2) grid, one process at b4 against the grid after one step in
+    both of 12.1's modes and batch-invariant against each method's witness
+    (losses, the student's head and backbone updates and gradients, the
+    discriminators' gradients, each method's own bounds; whole leaves equal
+    bit for bit on both ranks), then 3 timed steps (per-rank step ms, K1/K2
+    a step, collectives and bytes by group, host syncs, peak, the state a
+    rank holds against one process's), and ADVENT's fool-only step (source
+    labels ignored: the student's gradient through the sharded
+    discriminators alone) against its witness;
+    13.5 the CLI on a (1 x 2) grid, one domain each: advent.yml, its
+    AUTO_RESUME rerun, validation_offline_advent.yml on its snapshot,
+    proto_advent.yml, training_fog.yml (SEGMENT 1 epoch),
+    validation_offline_fog.yml with
+    EVAL_SWEEP on its snapshots: exit 0, one writer, every file once, each
+    file's one-process load cut into shards equal to the ranks' bit for bit,
+    every K1/K2 shape fed among phases 3-4's. 13.1, 13.3, 13.4 and 13.5 are
+    jobs of the one run of the (1 x 2) grid. Phase 4 checks and times K2 at
+    the grid's shard shapes. Every phase prints its seconds, and the end
+    the whole script's.
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
@@ -199,6 +222,19 @@ MAIN_STEPS = 6              # one epoch; the median step skips the first and the
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+PHASE_SECONDS = {}  # phase → its own seconds, printed as each ends
+
+
+@contextlib.contextmanager
+def phase_clock(name):
+    """Time the phase `name` on the host clock and print its seconds on a line
+    of their own when it ends."""
+    t = time.perf_counter()
+    yield
+    PHASE_SECONDS[name] = time.perf_counter() - t
+    print(f"phase {name} seconds: {PHASE_SECONDS[name]:.3f}")
 
 
 def check(cond, msg):
@@ -418,27 +454,30 @@ def check_k2_once(torch, K, x, tag):
     return result
 
 
-def segment_bn_shapes(torch):
+def segment_bn_shapes(torch, tp=1):
     """The BatchNorm input shapes of configs/training_fog.yml's SEGMENT step,
-    at its own batch and resolution (phase 8.1)."""
+    at its own batch and resolution (phase 8.1), on a rank of a (1 x tp)
+    grid (phase 13.5: the channel shards)."""
     from onda_torch.config import cfg_from_file
 
     cfg = cfg_from_file(os.path.join(HERE, "configs", "training_fog.yml"))
     w, h = cfg.SCHEME.RESOLUTION
-    return bn_input_shapes(torch, batch=int(cfg.TRAINING.BATCH_SIZE), hw=(int(h), int(w)))
+    return bn_input_shapes(torch, batch=int(cfg.TRAINING.BATCH_SIZE), hw=(int(h), int(w)), tp=tp)
 
 
 def check_k2(torch, K, layers, out_dir):
     shapes = bn_input_shapes(torch)
     check(len(shapes) == 53, f"expected 53 BatchNorm calls in R50, got {len(shapes)}")
     distinct = sorted(set(shapes), key=lambda s: -math.prod(s))
-    # checked, not timed: phase 8.1's shapes, a phase-12 rank's batch of 2 and
-    # phase 10.2's batch of 8; checked and timed in f32: phase 13's ranks, a
-    # (1 x 2) grid's at b4 and a (2 x 2) grid's at b2 (channel shards)
+    # checked, not timed: phase 8.1's shapes and their shards on a (1 x 2)
+    # grid (13.5), a phase-12 rank's batch of 2 and phase 10.2's batch of 8;
+    # checked and timed in f32: phase 13's ranks, a (1 x 2) grid's at b4
+    # and a (2 x 2) grid's at b2 (channel shards)
     grids = {"(1 x 2) b4": bn_input_shapes(torch, batch=4, tp=TP_SIZE),
              "(2 x 2) b2": bn_input_shapes(torch, batch=2, tp=TP_SIZE)}
     grid_shapes = set(grids["(1 x 2) b4"]) | set(grids["(2 x 2) b2"])
-    extra = (set(segment_bn_shapes(torch)) | set(bn_input_shapes(torch, batch=2))
+    extra = (set(segment_bn_shapes(torch)) | set(segment_bn_shapes(torch, tp=TP_SIZE))
+             | set(bn_input_shapes(torch, batch=2))
              | set(bn_input_shapes(torch, batch=8)) | grid_shapes)
     others = sorted(extra - set(distinct), key=lambda s: -math.prod(s))
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -891,12 +930,15 @@ def small_adversarial_check(torch, src, trg):
           f"agree; both adversarial checks {time.perf_counter() - t:.3f} s")
 
 
-def make_trainer(torch, device, hw, layers=(3, 4, 6, 3), droprate=None):
-    """A SegmentTrainer of configs/training_fog.yml (multi-level R50) at hw."""
+def make_trainer(torch, device, hw, layers=(3, 4, 6, 3), droprate=None, others=None):
+    """A SegmentTrainer of configs/training_fog.yml (multi-level R50) at hw
+    (OTHERS overrides `others`)."""
     from onda_torch.config import Config, cfg_from_file
     from onda_torch.methods.segmentation import SegmentTrainer
 
     cfg = cfg_from_file(os.path.join(HERE, "configs", "training_fog.yml"))
+    for key, value in (others or {}).items():
+        cfg.OTHERS[key] = value
     cfg.SCHEME.RESOLUTION = [hw[1], hw[0]]
     cfg.MODEL.LOAD = Config()
     cfg.OTHERS.SNAPSHOT_DIR = tempfile.mkdtemp(prefix="onda_smoke_")
@@ -2364,7 +2406,7 @@ def shipped_configs_path(torch, K, out_dir, work, root, rows, checked):
 
 DP_RANKS = 2
 DP_TIMED_STEPS = 6
-DP_DEADLINE = 480  # seconds for a run of the two ranks; past it both are killed
+JOBS_DEADLINE = 900  # seconds for a phase's torchrun (`run_rank_jobs`); past it its ranks are killed
 # one process at b4 against two ranks at b2 each, after a bootstrap and one
 # step with TF32 off: losses relative, prototypes absolute, and the largest
 # difference of the updated parameters in the head and in the backbone
@@ -2392,7 +2434,7 @@ def dp_layout(torch):
     return backend, f"{DP_RANKS} ranks, {where}"
 
 
-def run_ranks(args, log_path, deadline=DP_DEADLINE, nproc=DP_RANKS):
+def run_ranks(args, log_path, nproc=DP_RANKS, deadline=JOBS_DEADLINE):
     """`python -m torch.distributed.run --standalone --nproc-per-node nproc
     args`, its output into log_path; every process it started is killed at
     the deadline. Returns (exit code, output, seconds)."""
@@ -2548,8 +2590,12 @@ def dp_rank(work):
 
 
 def cli_rank(work, argv):
-    """One rank of phase 12.2: `onda_torch.train_ouda.main(argv)` under
-    torch.distributed.run, then its K1/K2 launches into work/cli_rank<r>.json."""
+    """The CLI runs of a rank of phases 12-13 (a `rank_jobs` job): the runs
+    of argv, separated by `--then`, each `onda_torch.train_ouda.main(run)`
+    in turn in the job's process group (`one_process_group`); each run's
+    launches, the K1/K2 shapes it fed, its seconds, the records its snapshot
+    directory's metrics.jsonl then holds and (on a grid) its state's digests
+    go into work/cli_rank<r>_<i>.json."""
     import torch
 
     sys.path.insert(0, HERE)
@@ -2558,15 +2604,117 @@ def cli_rank(work, argv):
     from onda_torch.parallel import distributed as D
 
     rank = int(os.environ.get("RANK", "0"))
-    K.reset_launches()
-    ad = train_ouda.main(argv)
-    torch.cuda.synchronize()
-    out = {"rank": rank, "launches": dict(K.launches), "collectives": D.counts()}
-    if getattr(ad, "plan", None):  # a grid (phase 13.3): this rank's tensors, its shards
-        out["digests"] = digests_of(torch, {f"{t}/{k}": v for t in TP_TREES
-                                            for k, v in getattr(ad.state, t).items()})
-    with open(os.path.join(work, f"cli_rank{rank}.json"), "w") as f:
-        json.dump(out, f)
+    runs = [[]]
+    for arg in argv:
+        if arg == "--then":
+            runs.append([])
+        else:
+            runs[-1].append(arg)
+    for i, run in enumerate(runs):
+        K.reset_launches()
+        shapes = KernelShapes(K)
+        t = time.perf_counter()
+        with shapes:
+            ad = train_ouda.main(run)
+        torch.cuda.synchronize()
+        metrics = os.path.join(str(ad.cfg.OTHERS.SNAPSHOT_DIR), "metrics.jsonl")
+        out = {"rank": rank, "launches": dict(K.launches), "collectives": D.counts(),
+               "k1_shapes": sorted(shapes.k1), "k2_shapes": sorted(shapes.k2),
+               "seconds": time.perf_counter() - t,
+               "records_end": len(read_records(os.path.dirname(metrics)))
+               if os.path.exists(metrics) else 0}
+        if getattr(ad, "plan", None):  # a grid (13.3, 13.5): this rank's tensors, its shards
+            tensors = (family_tensors(torch, ad) if hasattr(ad.state, "d_main") else
+                       {f"{t}/{k}": v for t in TP_TREES for k, v in getattr(ad.state, t).items()})
+            out["digests"] = digests_of(torch, tensors)
+        with open(os.path.join(work, f"cli_rank{rank}_{i}.json"), "w") as f:
+            json.dump(out, f)
+        del ad
+        release(torch)
+
+
+@contextlib.contextmanager
+def one_process_group(D):
+    """Work that calls `D.destroy` more than once, in one process group: the
+    calls inside do nothing, and the group is left once, after the work
+    ends without an error."""
+    destroy, D.destroy = D.destroy, (lambda: None)
+    try:
+        yield
+    finally:
+        D.destroy = destroy
+    destroy()
+
+
+def rank_jobs(argv):
+    """One rank of a phase's torchrun (`run_rank_jobs`): the jobs of argv,
+    separated by `--job`, in turn in one process group, which the first
+    joins and which is left after the last (`one_process_group`); each
+    job's seconds printed when it ends."""
+    from onda_torch.parallel import distributed as D
+
+    jobs = [[]]
+    for arg in argv:
+        if arg == "--job":
+            jobs.append([])
+        else:
+            jobs[-1].append(arg)
+    run = {"--dp-rank": lambda d: dp_rank(d), "--adv-rank": lambda d: adv_rank(d),
+           "--tp-rank": lambda d, n, x: tp_rank(d, int(n), x == "1"),
+           "--tp-adv-rank": lambda d, n: tp_adv_rank(d, int(n)),
+           "--cli-rank": lambda d, _, *a: cli_rank(d, list(a))}
+    with one_process_group(D):
+        for i, (kind, *args) in enumerate(jobs):
+            t = time.perf_counter()
+            run[kind](*args)
+            print(f"chip_smoke rank {os.environ.get('RANK', '0')} job {i} {kind}: "
+                  f"{time.perf_counter() - t:.3f} s", flush=True)
+
+
+def run_rank_jobs(jobs, log_path, nproc=DP_RANKS):
+    """One torchrun of `nproc` ranks that runs `jobs` (lists of a rank mode's
+    arguments: `--dp-rank DIR`, `--adv-rank DIR`, `--tp-rank DIR STEPS
+    TRANSPORT`, `--tp-adv-rank DIR STEPS`, `--cli-rank DIR -- <CLI args>
+    [--then <CLI args>]...`) in turn in one process group: one start-up for
+    all of them. Returns (exit code, output, seconds, rank 0's seconds of
+    each job)."""
+    argv = [os.path.join(HERE, "chip_smoke.py"), "--rank-jobs"]
+    for i, job in enumerate(jobs):
+        argv += (["--job"] if i else []) + list(job)
+    rc, text, seconds = run_ranks(argv, log_path, nproc=nproc)
+    job_seconds = [float(v) for v in re.findall(r"chip_smoke rank 0 job \d+ \S+: (\S+) s", text)]
+    return rc, text, seconds, job_seconds
+
+
+def cli_chain(run_dir, runs):
+    """The `--cli-rank` job of the CLI runs `runs` ({name: config path}, in
+    order) chained in one torchrun."""
+    argv = []
+    for cfg_path in runs.values():
+        argv += (["--then"] if argv else []) + ["--cfg", cfg_path]
+    return ["--cli-rank", run_dir, "--", *argv]
+
+
+def chain_results(run_dir, runs, nproc=DP_RANKS):
+    """Each chained run's per-rank outputs (`cli_rank`), by name."""
+    out = {name: [] for name in runs}
+    for r in range(nproc):
+        for i, name in enumerate(runs):
+            with open(os.path.join(run_dir, f"cli_rank{r}_{i}.json")) as f:
+                out[name].append(json.load(f))
+    return out
+
+
+def chain_records(runs, results, snaps):
+    """Each chained run's records: its snapshot directory's metrics.jsonl
+    from where the run before it in that directory left it to where it left
+    it (rank 0's counts; `snaps`: {name: directory})."""
+    out, seen = {}, {}
+    for name in runs:
+        snap, end = snaps[name], results[name][0]["records_end"]
+        out[name] = read_records(snap)[seen.get(snap, 0):end] if end else []
+        seen[snap] = end
+    return out
 
 
 def update_gap(got, want, start, keys):
@@ -2577,20 +2725,80 @@ def update_gap(got, want, start, keys):
     return diff / max(update, 1e-30)
 
 
-def data_parallel_path(torch, K, out_dir, work, root, rows, one):
-    """Phase 12: 12.1 hybrid_switch.yml in memory at full width, one process
-    at b4 (`one`, `one_process_references`) against two ranks at b2 each
-    (bootstrap and one step compared, the ranks bit for bit), then timed;
-    12.2 the CLI under torch.distributed.run on phase 7's files. Returns
-    launch counts by path and the numbers."""
+def data_parallel_ranks(torch, out_dir, work, root, rows):
+    """Phase 12's one torchrun of two ranks: 12.1's ranks (`dp_rank`), 12.3's
+    (`adv_rank`), then the CLI runs of 12.2, 12.4 and 12.5 chained (one
+    domain each: hybrid_switch.yml, advent.yml and its AUTO_RESUME,
+    proto_advent.yml, training_fog.yml, then validation_offline_fog.yml, its
+    EVAL_SWEEP and validation.yml's PREDICTION_SAVE on the SEGMENT run's
+    snapshots). Returns what the phase's checks read."""
+    write_fog_metadata(root, rows)
+    dirs = {k: os.path.join(work, k) for k in ("dp", "adv", "dp_chain")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    snaps = {"hybrid": os.path.join(work, "dp_cli"), "advent": os.path.join(work, "dp_advent"),
+             "proto_advent": os.path.join(work, "dp_proto_advent"),
+             "segment": os.path.join(work, "dp_segment")}
+    snaps.update(advent_resume=snaps["advent"], eval_evaluation=snaps["segment"],
+                 eval_sweep=snaps["segment"], eval_predictions=snaps["segment"])
+    preds = os.path.join(work, "dp_predictions_ranks")
+    base = {"SCHEME.PATH": root, "MODEL.LOAD": None}
+    advent = {**base, "SCHEME.DOMAIN_ORDER": [[25]], "METHOD.ADAPTATION.ADVENT.EPOCHS": 1,
+              "OTHERS.SNAPSHOT_DIR": snaps["advent"]}
+    plan = {
+        "advent": ("advent", advent),
+        "advent_resume": ("advent", {**advent, "OTHERS.AUTO_RESUME": True}),
+        "proto_advent": ("proto_advent", {
+            **base, "SCHEME.DOMAIN_ORDER": [[25]], "OTHERS.SNAPSHOT_DIR": snaps["proto_advent"],
+            "METHOD.ADAPTATION.PROTO_ADVENT.LOAD_PROTO": None,
+            "METHOD.ADAPTATION.PROTO_ADVENT.EPOCHS": 1}),
+        "segment": ("training_fog", {
+            **base, "SCHEME.DOMAIN_ORDER": [[750]], "METHOD.PRETRAIN.SEGMENT.EPOCHS": 1,
+            "METHOD.ADAPTATION.PROTO_ONLINE_HYBRIDSWITCH.LOAD_PROTO": None,
+            "OTHERS.SNAPSHOT_DIR": snaps["segment"]}),
+        **{f"eval_{name}": (config, {**base, "OTHERS.SNAPSHOT_DIR": snaps["segment"], **cuts})
+           for name, (config, cuts) in dp_eval_runs(preds).items()},
+    }
+    runs = {"hybrid": os.path.join(work, "dp_cli.yml")}
+    cfgs = {"hybrid": cli_config(root, snaps["hybrid"], runs["hybrid"], [[25]])}
+    for name, (config, cuts) in plan.items():
+        runs[name] = os.path.join(work, f"dp_{name}.yml")
+        cfgs[name] = workflow_config(config, runs[name], **cuts)
+    rc, text, seconds, job_seconds = run_rank_jobs(
+        [["--dp-rank", dirs["dp"]], ["--adv-rank", dirs["adv"]],
+         cli_chain(dirs["dp_chain"], runs)], os.path.join(out_dir, "dp_ranks.log"))
+    check(rc == 0, f"phase 12: a rank failed (exit {rc}):\n{text[-3000:]}")
+    check(len(job_seconds) == 3, f"phase 12: rank 0 reports {job_seconds} job seconds")
+    results = chain_results(dirs["dp_chain"], runs)
+    print(f"phase 12 ranks: one torchrun of {DP_RANKS} ranks, {seconds:.3f} s with start-up: "
+          f"12.1's ranks {job_seconds[0]:.3f} s, 12.3's {job_seconds[1]:.3f} s, the {len(runs)} "
+          f"CLI runs of 12.2, 12.4 and 12.5 {job_seconds[2]:.3f} s (" + ", ".join(
+              f"{k} {v[0]['seconds']:.3f}" for k, v in results.items()) + ")")
+    return {"text": text, "seconds": seconds, "job_seconds": job_seconds, "dirs": dirs,
+            "runs": runs, "cfgs": cfgs, "snaps": snaps, "preds": preds, "results": results,
+            "records": chain_records(runs, results, snaps)}
+
+
+def dp_eval_runs(preds):
+    """12.5's EVALUATION runs: name → (config, cuts), PREDICTION_SAVE into `preds`."""
+    return {"evaluation": ("validation_offline_fog", {}),
+            "sweep": ("validation_offline_fog", {"OTHERS.EVAL_SWEEP": True}),
+            "predictions": ("validation", {"SCHEME.DOMAIN_ORDER": [[750]],
+                                           "METHOD.PRETRAIN.EVALUATION.PREDICTION_SAVE": preds})}
+
+
+def data_parallel_path(torch, K, out_dir, work, root, rows, one, launched):
+    """Phase 12.1-12.2 (`launched`: `data_parallel_ranks`): 12.1
+    hybrid_switch.yml in memory at full width, one process at b4 (`one`,
+    `one_process_references`) against two ranks at b2 each (bootstrap and
+    one step compared, the ranks bit for bit), then timed; 12.2 the CLI
+    under torch.distributed.run on phase 7's files. Returns launch counts by
+    path and the numbers."""
     t_phase = time.perf_counter()
     backend, layout = dp_layout(torch)
     summary = {"backend": backend, "layout": layout}
-    dp_dir = os.path.join(work, "dp")
-    os.makedirs(dp_dir, exist_ok=True)
-    rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--dp-rank", dp_dir],
-                                  os.path.join(out_dir, "dp_ranks.log"))
-    check(rc == 0, f"phase 12.1: a rank failed (exit {rc}):\n{text[-3000:]}")
+    dp_dir = launched["dirs"]["dp"]
+    seconds = launched["job_seconds"][0]
     ranks = []
     for r in range(DP_RANKS):
         with open(os.path.join(dp_dir, f"rank{r}.json")) as f:
@@ -2641,57 +2849,47 @@ def data_parallel_path(torch, K, out_dir, work, root, rows, one):
           f"all-reduces of {summary['bytes_per_step'] / 1e6:.3f} MB a step; host syncs the CUDA "
           f"sync debug mode counts in one step: {r0['debug_syncs']}{staged}; peak memory per "
           f"rank " + ", ".join(f"{r['peak_gib']:.3f} GiB" for r in ranks)
-          + f"; {seconds:.3f} s with start-up")
+          + f"; {seconds:.3f} s of ranks")
     paths = {f"data_parallel_rank{r['rank']}": r["launches"] for r in ranks}
 
     # 12.2: the CLI under torch.distributed.run on phase 7's files
-    snap = os.path.join(work, "dp_cli")
-    cfg_path = os.path.join(work, "dp_cli.yml")
-    cfg = cli_config(root, snap, cfg_path, [[25], [50]])
+    snap, cfg = launched["snaps"]["hybrid"], launched["cfgs"]["hybrid"]
     batch, n_train = int(cfg["TRAINING"]["BATCH_SIZE"]), CLI_FRAMES["train"]
-    rc, text, seconds = run_ranks(
-        [os.path.join(HERE, "chip_smoke.py"), "--cli-rank", work, "--", "--cfg", cfg_path],
-        os.path.join(out_dir, "dp_cli.log"))
-    check(rc == 0, f"phase 12.2: the CLI under torch.distributed.run failed (exit {rc}):\n"
-                   f"{text[-3000:]}")
-    steps = 2 * n_train // batch
+    cli = launched["results"]["hybrid"]
+    seconds = cli[0]["seconds"]
+    steps = n_train // batch
     boot = min(int(cfg["TRAINING"]["REPLAY_BUFFER"]), n_train) // batch
     want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": n_bn * (3 * steps + boot)}
-    cli = []
     for r in range(DP_RANKS):
-        with open(os.path.join(work, f"cli_rank{r}.json")) as f:
-            cli.append(json.load(f))
         check(cli[r]["launches"] == want, f"phase 12.2 rank {r}: launches {cli[r]['launches']}, "
                                           f"expected {want} (K1 2 and K2 {3 * n_bn} a step, "
                                           f"K2 {n_bn} a bootstrap batch)")
         paths[f"data_parallel_cli_rank{r}"] = cli[r]["launches"]
-    records = read_records(snap)
+    records = launched["records"]["hybrid"]
     step_records = [rec for rec in records if "Total target loss" in rec]
     check(len(step_records) == steps, f"phase 12.2: {len(step_records)} step records for {steps} "
                                       f"steps (one writer)")
     finite = all(math.isfinite(v) for rec in step_records for k, v in rec.items() if "loss" in k)
     check(finite, "phase 12.2: a non-finite loss")
     files = sorted(os.listdir(snap))
-    check({"adapt_state.pt", "metrics.jsonl", "proto_current.pickle", "proto_(25,).pickle",
-           "proto_(50,).pickle"} <= set(files) and not [f for f in files if f.startswith(".")],
+    check({"adapt_state.pt", "metrics.jsonl", "proto_current.pickle", "proto_(25,).pickle"}
+          <= set(files) and not [f for f in files if f.startswith(".")],
           f"phase 12.2 wrote {files}")
     miou = {k: v for rec in records for k, v in rec.items() if k.startswith("Val mIoU")}
     stages = {}
-    for d in range(2):
-        per = step_stage_ms(step_records[d * (steps // 2):(d + 1) * (steps // 2)])
-        for key, ms in per.items():
-            stages.setdefault(key[5:], []).extend(ms[1:-1] or ms)
+    for key, ms in step_stage_ms(step_records).items():
+        stages.setdefault(key[5:], []).extend(ms[1:-1] or ms)
     median = {k: statistics.median(v) for k, v in stages.items()}
-    print(f"phase 12.2 configs/hybrid_switch.yml (phase 7's cuts, DOMAIN_ORDER [[25], [50]]) "
+    print(f"phase 12.2 configs/hybrid_switch.yml (phase 7's cuts, DOMAIN_ORDER [[25]]) "
           f"through torch.distributed.run --nproc-per-node {DP_RANKS} ({layout}): {seconds:.3f} s "
-          f"with start-up; per rank launches " + "; ".join(str(c["launches"]) for c in cli)
+          f"in the phase's torchrun; per rank launches " + "; ".join(str(c["launches"]) for c in cli)
           + f"; {len(step_records)} step records from rank 0, every loss finite; files {files}; "
           f"steady stage ms " + ", ".join(f"{k} {v:.3f}" for k, v in median.items())
           + f" (sum {sum(median.values()):.3f}); last mIoU keys {json.dumps(miou)}")
     shutil.rmtree(snap, ignore_errors=True)
     summary.update(cli_seconds=seconds, cli_stage_ms=median,
                    phase_seconds=time.perf_counter() - t_phase)
-    print(f"phase 12: {summary['phase_seconds']:.3f} s")
+    print(f"phase 12.1-12.2 checks: {summary['phase_seconds']:.3f} s")
     return paths, summary
 
 
@@ -2727,20 +2925,27 @@ ADV_BOUNDS = {"exact": {"loss": 1e-6, "head": 2e-3, "backbone": 2e-2, "disc": 5e
 EVAL_MIOU_ATOL, EVAL_DUMP_RTOL, EVAL_CONF_ATOL = 2e-5, 3e-3, 1e-6
 
 
-def adv_tensors(torch, ad):
+def adv_tensors(torch, ad, whole=False):
     """Every tensor of an ADVENT or PROTO_ADVENT adapter by a flat name: the
     student's state, both discriminators and both Adam states (`count`
-    included)."""
+    included); this rank's, or with `whole` the whole ones (on a grid the
+    shards gathered: a collective every rank joins)."""
     if hasattr(ad, "d_state"):
         out = state_tensors(torch, ad.state)
+        if whole:
+            out.update({f"{t}/{k}": v for t in TP_TREES
+                        for k, v in ad._whole(getattr(ad.state, t)).items()})
         discs = {"d_aux": ad.d_state["aux"], "d_main": ad.d_state["main"],
                  "d_aux_opt": ad.d_state["aux_opt"], "d_main_opt": ad.d_state["main_opt"]}
     else:
-        s = ad.state
-        out = {f"{tree}/{k}": v for tree in ("params", "batch_stats", "opt_momentum")
-               for k, v in getattr(s, tree).items()}
-        out["generator"] = s.generator.get_state()
-        discs = {name: getattr(s, name) for name in ("d_aux", "d_main", "d_aux_opt", "d_main_opt")}
+        fields = ("params", "batch_stats", "opt_momentum", "d_aux", "d_main", "d_aux_opt",
+                  "d_main_opt")
+        trees = {name: getattr(ad.state, name) for name in fields}
+        if whole:
+            trees = ad._trees(trees, ad._whole)
+        out = {f"{tree}/{k}": v for tree in fields[:3] for k, v in trees[tree].items()}
+        out["generator"] = ad.state.generator.get_state()
+        discs = {name: trees[name] for name in fields[3:]}
     for name, tree in discs.items():
         if name.endswith("_opt"):
             out.update({f"{name}/{m}/{k}": v for m in ("mu", "nu") for k, v in tree[m].items()})
@@ -2750,26 +2955,39 @@ def adv_tensors(torch, ad):
     return out
 
 
-def adv_compare_step(torch, device, config, batch, exact, rank=0, world=1):
+def adv_compare_step(torch, device, config, batch, exact, others=None, split=False,
+                     fool_only=False):
     """The adapter of configs/<config>.yml (advent or proto_advent) at
-    b`batch` 1024x512 on `device`, seeded weights and discriminators,
-    PROTO_ADVENT bootstrapped on this rank's rows of a seeded source batch,
-    after one step on its rows of seeded batches at the config's own LRs,
-    with TF32 off and deterministic cuDNN (`exact`: `batch_invariant`).
-    Returns (adapter, one-step fn of (src, trg) device batches, logs, local
-    batch fn, the student's and discriminators' weights before the step on
-    the host)."""
-    b = batch // world
-
-    def local(bt):
-        return {k: v[rank * b:(rank + 1) * b] for k, v in bt.items()}
+    b`batch` 1024x512 on `device`, seeded weights and discriminators (OTHERS
+    overrides `others`), PROTO_ADVENT bootstrapped on its data index's rows
+    of a seeded source batch, after one step on its rows of seeded batches
+    at the config's own LRs, with TF32 off and deterministic cuDNN (`exact`:
+    `batch_invariant`; `split`: the layers a (1 x TP_SIZE) grid shards
+    compute in its blocks, the discriminators' among them,
+    `split_sharded_layers`; `fool_only`: the source labels all ignored and
+    no weight decay, so that the student's momentum after the step is the
+    gradient of the fool losses alone). Returns (adapter, one-step fn of
+    (src, trg) device batches, logs, local batch fn, the student's and
+    discriminators' weights before the step on the host)."""
+    from onda_torch.parallel import distributed as D
 
     torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
     with batch_invariant(torch) if exact else contextlib.nullcontext():
-        ad = make_adapter(torch, device, MAIN_HW, batch, config=config)
+        ad = make_adapter(torch, device, MAIN_HW, batch, config=config, others=others)
+        if split:
+            n = split_sharded_layers(torch, ad)
+            want = TP_SHARDED_LAYERS + (3 if config == "advent" else 0)
+            check(n == want, f"the {config} witness split {n} layers, expected {want}")
+        rank, b = D.data_rank(), batch // D.data_world()
+
+        def local(bt):
+            return {k: v[rank * b:(rank + 1) * b] for k, v in bt.items()}
+
         start = {k: v.detach().to("cpu", copy=True) for k, v in adv_tensors(torch, ad).items()
                  if k.startswith(("params/", "d_main/", "d_aux/"))}
         lr, lr_d = float(ad.cfg_spec.LEARNING_RATE), float(ad.cfg_spec.LEARNING_RATE_D)
+        if fool_only:
+            ad.cfg_spec.WEIGHT_DECAY = 0.0
         if config == "proto_advent":
             ad.calculate_prototypes([local(make_batches(torch, 1, batch, MAIN_HW, 30)[0])])
             step = ad.pa_step_fn()
@@ -2786,6 +3004,8 @@ def adv_compare_step(torch, device, config, batch, exact, rank=0, world=1):
                 return logs
         dev = ad.device
         src = {k: v.to(dev) for k, v in local(make_batches(torch, 1, batch, MAIN_HW, 32)[0]).items()}
+        if fool_only:
+            src["label"] = torch.full_like(src["label"], 255)
         trg = {k: v.to(dev) for k, v in local(make_batches(torch, 1, batch, MAIN_HW, 33)[0]).items()}
         logs = dict(one(src, trg).items())
         torch.cuda.synchronize()
@@ -2794,12 +3014,89 @@ def adv_compare_step(torch, device, config, batch, exact, rank=0, world=1):
 
 
 def adv_compared(torch, ad):
-    """What 12.3 compares, on the host: the student's parameters, both
-    discriminators' first moments (their gradients after one step), the
-    Adam counts."""
-    return {k: v.detach().to("cpu", copy=True) for k, v in adv_tensors(torch, ad).items()
-            if k.startswith(("params/", "d_main_opt/mu/", "d_aux_opt/mu/"))
-            or k.endswith("_opt/count")}
+    """What 12.3 and 13.4 compare, on the host: the student's parameters and
+    SGD momentum (its gradient after one step, with weight decay's share),
+    both discriminators' first moments (their gradients after one step), the
+    Adam counts (whole: on a grid every rank joins their gathers); a SEGMENT
+    trainer's parameters and momentum."""
+    tensors = family_tensors(torch, ad, whole=True)
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()
+            if k.startswith(("params/", "opt_momentum/", "momentum/", "d_main_opt/mu/",
+                             "d_aux_opt/mu/")) or k.endswith("_opt/count")}
+
+
+def family_tensors(torch, obj, whole=False):
+    """`adv_tensors` of an ADVENT or PROTO_ADVENT adapter; a SEGMENT trainer's
+    parameters, BN buffers and momentum by flat names (`whole`: gathered)."""
+    if not hasattr(obj, "momentum_buf"):
+        return adv_tensors(torch, obj, whole)
+    cut = obj._whole if whole else (lambda tree: tree)
+    return {f"{t}/{k}": v for t, tree in (("params", obj.params), ("batch_stats", obj.batch_stats),
+                                          ("momentum", obj.momentum_buf))
+            for k, v in cut(tree).items()}
+
+
+def seg_compare_step(torch, device, batch, exact, others=None, split=False):
+    """The SegmentTrainer of training_fog.yml's multi-level R50 at b`batch`
+    1024x512 on `device` (OTHERS overrides `others`), after one step at its
+    LR on its data index's rows of a seeded batch, with TF32 off and
+    deterministic cuDNN (`exact`, `split`: as `adv_compare_step`). Returns
+    (trainer, one-step fn of a device batch, logs, local batch fn, the
+    parameters before the step on the host)."""
+    from onda_torch.parallel import distributed as D
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    with batch_invariant(torch) if exact else contextlib.nullcontext():
+        tr = make_trainer(torch, device, MAIN_HW, others=others)
+        if split:
+            n = split_sharded_layers(torch, tr)
+            check(n == TP_SHARDED_LAYERS, f"the SEGMENT witness split {n} layers, expected "
+                                          f"{TP_SHARDED_LAYERS}")
+        rank, b = D.data_rank(), batch // D.data_world()
+
+        def local(bt):
+            return {k: v[rank * b:(rank + 1) * b] for k, v in bt.items()}
+
+        start = {f"params/{k}": v.detach().to("cpu", copy=True) for k, v in tr.params.items()}
+        lr = float(tr.spec.LEARNING_RATE)
+
+        def one(bt):
+            return {"Segmentation loss": tr.step(bt["image"], bt["label"], lr)}
+
+        bt = {k: v.to(tr.device) for k, v in local(make_batches(torch, 1, batch, MAIN_HW, 37)[0])
+              .items()}
+        logs = {k: float(v) for k, v in one(bt).items()}
+        torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, False
+    return tr, one, logs, local, start
+
+
+def family_references(torch):
+    """The one-process references of 12.3 and 13.4: ADVENT, PROTO_ADVENT and
+    a SEGMENT step at b4 after one step, in both of DP_BOUNDS' modes and,
+    batch-invariant, as phase 13's witness ("exact_split"), and ADVENT's
+    fool-only step as the witness ("advent_fool"): the compared tensors
+    (`adv_compared`), the logs and the weights before the step."""
+    one = {}
+    for config in TP_ADV_LAUNCHES:
+        for mode in (*DP_BOUNDS, "exact_split"):
+            release(torch)
+            args = (torch, "cuda", 4, mode != "kernels")
+            if config == "segment":
+                obj, _, logs, _, start = seg_compare_step(*args, split=mode == "exact_split")
+            else:
+                obj, _, logs, _, start = adv_compare_step(args[0], args[1], config, *args[2:],
+                                                          split=mode == "exact_split")
+            one[(config, mode)] = {"w": adv_compared(torch, obj), "logs": logs, "start": start}
+            del obj
+    release(torch)
+    obj, _, logs, _, start = adv_compare_step(torch, "cuda", "advent", 4, True, split=True,
+                                              fool_only=True)
+    one[("advent_fool", "exact_split")] = {"w": adv_compared(torch, obj), "logs": logs,
+                                           "start": start}
+    del obj
+    release(torch)
+    return one
 
 
 def adv_rank(work):
@@ -2821,7 +3118,7 @@ def adv_rank(work):
         res = out[config] = {}
         for mode in ADV_BOUNDS:  # "kernels" last: its adapter goes on to the timed steps
             ad, one, logs, local, _ = adv_compare_step(torch, device, config, batch,
-                                                       mode == "exact", rank, world)
+                                                       mode == "exact")
             res[mode] = {"logs": logs, "digests": digests_of(torch, adv_tensors(torch, ad))}
             if rank == 0:
                 torch.save(adv_compared(torch, ad), os.path.join(work, f"adv0_{config}_{mode}.pt"))
@@ -2877,33 +3174,44 @@ def adv_rank(work):
 
 
 def adv_gaps(torch, got, want, start):
-    """12.3's gaps of the ranks' weights against one process's (see ADV_BOUNDS)."""
+    """12.3's and 13.4's gaps of the ranks' weights against one process's (see
+    ADV_BOUNDS; a SEGMENT trainer's have no discriminators)."""
     groups = {"head": [k for k in start if k.startswith("params/layer6")],
               "backbone": [k for k in start if k.startswith("params/")
                            and not k.startswith("params/layer6")]}
     gaps = {g: update_gap(got, want, start, [k for k in keys if not torch.equal(
         want[k], start[k])]) for g, keys in groups.items()}
     moments = [k for k in want if "_opt/mu/" in k and bool(want[k].any())]
+    if not moments:
+        return gaps
     gaps["disc"] = update_gap(got, want, {k: torch.zeros_like(want[k]) for k in moments}, moments)
     return gaps
 
 
-def run_cli_ranks(work, name, cfg_path, out_dir):
-    """`onda_torch.train_ouda.main` on cfg_path under torch.distributed.run
-    (two ranks), each rank's launches and collectives into work/<name>/.
-    Returns (the ranks' records, the output, seconds)."""
-    run_dir = os.path.join(work, name)
-    os.makedirs(run_dir, exist_ok=True)
-    rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--cli-rank", run_dir,
-                                   "--", "--cfg", cfg_path],
-                                  os.path.join(out_dir, f"dp_{name}.log"))
-    check(rc == 0, f"phase 12 {name}: the CLI under torch.distributed.run failed (exit {rc}):\n"
-                   f"{text[-3000:]}")
-    ranks = []
-    for r in range(DP_RANKS):
-        with open(os.path.join(run_dir, f"cli_rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    return ranks, text, seconds
+def grad_gaps(torch, got, want, start):
+    """13.4's gaps of the grid's student against the witness's after one
+    step, besides `adv_gaps`: its SGD momentum (the step's gradient, with
+    weight decay's share) by group, the largest difference over the largest
+    entry; and "backbone_excess", the backbone's update gap once each weight
+    may differ by the rounding of its update: 4 units in the last place of
+    its value (a backbone weight takes up to 4 chained sub-updates,
+    `optim.label_params`)."""
+    out = {}
+    for group in ("head", "backbone"):
+        keys = [k for k in want if k.startswith(("opt_momentum/", "momentum/"))
+                and k.split("/", 1)[1].startswith("layer6") == (group == "head")]
+        scale = max(want[k].abs().max().item() for k in keys)
+        diff = max((got[k].double() - want[k].double()).abs().max().item() for k in keys)
+        out[f"{group}_grad"] = diff / max(scale, 1e-30)
+    excess = update = 0.0
+    for k in start:
+        if k.startswith("params/") and not k.startswith("params/layer6"):
+            w = torch.maximum(got[k].abs(), want[k].abs())
+            last_places = 4 * (torch.nextafter(w, torch.full_like(w, math.inf)) - w)
+            excess = max(excess, ((got[k] - want[k]).abs() - last_places).max().item())
+            update = max(update, (want[k] - start[k]).abs().max().item())
+    out["backbone_excess"] = max(excess, 0.0) / max(update, 1e-30)
+    return out
 
 
 def check_one_writer(tag, snap, want_files):
@@ -2915,7 +3223,7 @@ def check_one_writer(tag, snap, want_files):
     return files
 
 
-def data_parallel_families_path(torch, K, out_dir, work, root, rows):
+def data_parallel_families_path(torch, K, out_dir, work, root, rows, refs, launched):
     """Phases 12.3-12.5: 12.3 ADVENT and PROTO_ADVENT in memory at full width,
     one process at b4 against two ranks of b2 (both modes, the ranks bit for
     bit), then timed; 12.4 advent.yml (and an AUTO_RESUME run of it),
@@ -2923,26 +3231,18 @@ def data_parallel_families_path(torch, K, out_dir, work, root, rows):
     through the CLI under torch.distributed.run on phase 7's files; 12.5
     validation_offline_fog.yml, its EVAL_SWEEP and validation.yml
     (PREDICTION_SAVE) on 12.4's snapshots, the ranks against one process.
-    Returns launch counts by path and the numbers."""
+    `refs`: the one-process references (`family_references`); `launched`:
+    the ranks' runs (`data_parallel_ranks`). Returns launch counts by path
+    and the numbers."""
     backend, layout = dp_layout(torch)
     paths, summary = {}, {}
     n_train = CLI_FRAMES["train"]
 
-    # 12.3: the one-process references first, then the two ranks
+    # 12.3: the two ranks against the one-process references
     t = time.perf_counter()
-    release(torch)
-    one = {}
-    for config in ADV_LAUNCHES:
-        for mode in ADV_BOUNDS:
-            ad, _, logs, _, start = adv_compare_step(torch, "cuda", config, 4, mode == "exact")
-            one[(config, mode)] = {"w": adv_compared(torch, ad), "logs": logs, "start": start}
-            del ad
-            release(torch)
-    adv_dir = os.path.join(work, "adv")
-    os.makedirs(adv_dir, exist_ok=True)
-    rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--adv-rank", adv_dir],
-                                  os.path.join(out_dir, "dp_adversarial_ranks.log"))
-    check(rc == 0, f"phase 12.3: a rank failed (exit {rc}):\n{text[-3000:]}")
+    one = refs
+    adv_dir = launched["dirs"]["adv"]
+    seconds = launched["job_seconds"][1]
     ranks = []
     for r in range(DP_RANKS):
         with open(os.path.join(adv_dir, f"adv_rank{r}.json")) as f:
@@ -3035,32 +3335,25 @@ def data_parallel_families_path(torch, K, out_dir, work, root, rows):
     summary["seconds_12_3"] = time.perf_counter() - t
     print(f"phase 12.3: {summary['seconds_12_3']:.3f} s ({seconds:.3f} s of ranks with start-up)")
 
-    # 12.4: the CLI under torch.distributed.run on phase 7's files
+    # 12.4: the CLI under torch.distributed.run on phase 7's files (chained
+    # in the phase's torchrun, one domain each)
     t = time.perf_counter()
-    write_fog_metadata(root, rows)
     runs = {}
 
-    def cli_run(name, config, snap=None, **cuts):
-        snap = snap or os.path.join(work, f"dp_{name}")
-        cfg_path = os.path.join(work, f"dp_{name}.yml")
-        cfg = workflow_config(config, cfg_path, **{"SCHEME.PATH": root, "MODEL.LOAD": None,
-                                                    "OTHERS.SNAPSHOT_DIR": snap, **cuts})
-        n_records = len(read_records(snap)) if os.path.exists(
-            os.path.join(snap, "metrics.jsonl")) else 0
-        ranks, text, seconds = run_cli_ranks(work, name, cfg_path, out_dir)
-        records = read_records(snap)[n_records:]
+    def cli_run(name):
+        ranks, records = launched["results"][name], launched["records"][name]
         for r in ranks:
             paths[f"data_parallel_cli_{name}_rank{r['rank']}"] = r["launches"]
         check(all(math.isfinite(v) for rec in records for k, v in rec.items()
                   if "loss" in k and isinstance(v, float)), f"phase 12.4 {name}: a non-finite loss")
-        runs[name] = {"ranks": ranks, "text": text, "seconds": seconds, "records": records,
-                      "snap": snap, "cfg": cfg, "cfg_path": cfg_path}
+        runs[name] = {"ranks": ranks, "text": launched["text"], "seconds": ranks[0]["seconds"],
+                      "records": records, "snap": launched["snaps"][name],
+                      "cfg": launched["cfgs"][name], "cfg_path": launched["runs"][name]}
         return runs[name]
 
-    advent_cuts = {"SCHEME.DOMAIN_ORDER": [[25, 50]], "METHOD.ADAPTATION.ADVENT.EPOCHS": 1}
-    run = cli_run("advent", "advent", **advent_cuts)
+    run = cli_run("advent")
     batch = int(run["cfg"]["TRAINING"]["BATCH_SIZE"])
-    steps = 2 * n_train // batch
+    steps = n_train // batch
     want = {"pseudo_labels_kernel": 0, "bn_stats_kernel": 106 * steps}
     check(all(r["launches"] == want for r in run["ranks"]),
           f"phase 12.4 advent: launches {[r['launches'] for r in run['ranks']]}, expected {want}")
@@ -3068,18 +3361,11 @@ def data_parallel_families_path(torch, K, out_dir, work, root, rows):
     check(len(adv_steps) == steps, f"phase 12.4 advent: {len(adv_steps)} step records for "
                                    f"{steps} steps (one writer)")
     files = check_one_writer("phase 12.4 advent", run["snap"], ["advent_state.pt", "metrics.jsonl"])
-    state = torch.load(os.path.join(run["snap"], "advent_state.pt"), map_location="cpu",
-                       weights_only=False)
-    check(state["step"] == steps and state["d_main_opt"]["count"] == state["d_aux_opt"]["count"]
-          == steps, f"phase 12.4 advent: advent_state.pt step {state['step']}, Adam counts "
-                    f"{state['d_main_opt']['count']}/{state['d_aux_opt']['count']}")
-    del state
-    print(f"phase 12.4 advent.yml (DOMAIN_ORDER [[25, 50]], seeded weights, {steps} steps at "
-          f"global b{batch}, {layout}): {run['seconds']:.3f} s with start-up; per rank launches "
+    print(f"phase 12.4 advent.yml (DOMAIN_ORDER [[25]], seeded weights, {steps} steps at "
+          f"global b{batch}, {layout}): {run['seconds']:.3f} s; per rank launches "
           + "; ".join(str(r["launches"]) for r in run["ranks"]) + f"; {len(adv_steps)} step "
           f"records from rank 0, every loss finite; files {files}")
-    resume_cuts = {**advent_cuts, "SCHEME.DOMAIN_ORDER": [[25]], "OTHERS.AUTO_RESUME": True}
-    run = cli_run("advent_resume", "advent", snap=runs["advent"]["snap"], **resume_cuts)
+    run = cli_run("advent_resume")
     # the ranks' lines may share a line of the joined output: matched, not split
     restored = re.findall(r"AUTO_RESUME: restoring (\S+?advent_state\.pt)", run["text"])
     check(len(restored) == DP_RANKS and len(set(restored)) == 1,
@@ -3087,15 +3373,15 @@ def data_parallel_families_path(torch, K, out_dir, work, root, rows):
           f"advent_state.pt")
     state = torch.load(os.path.join(run["snap"], "advent_state.pt"), map_location="cpu",
                        weights_only=False)
-    check(state["step"] == steps + n_train // batch,
-          f"phase 12.4 advent AUTO_RESUME: step {state['step']} after the resumed run")
+    check(state["step"] == steps + n_train // batch and state["d_main_opt"]["count"]
+          == state["d_aux_opt"]["count"] == state["step"],
+          f"phase 12.4 advent AUTO_RESUME: step {state['step']}, Adam counts "
+          f"{state['d_main_opt']['count']}/{state['d_aux_opt']['count']} after the resumed run")
     del state
     print(f"phase 12.4 advent.yml AUTO_RESUME (DOMAIN_ORDER [[25]]): {run['seconds']:.3f} s; "
           f"{restored}; advent_state.pt step {steps} + {n_train // batch}")
 
-    run = cli_run("proto_advent", "proto_advent", **{
-        "SCHEME.DOMAIN_ORDER": [[25], [50]], "METHOD.ADAPTATION.PROTO_ADVENT.LOAD_PROTO": None,
-        "METHOD.ADAPTATION.PROTO_ADVENT.EPOCHS": 1})
+    run = cli_run("proto_advent")
     boot = min(int(run["cfg"]["TRAINING"]["REPLAY_BUFFER"]), n_train) // batch
     want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": 159 * steps + 53 * boot}
     check(all(r["launches"] == want for r in run["ranks"]),
@@ -3105,14 +3391,12 @@ def data_parallel_families_path(torch, K, out_dir, work, root, rows):
     check(len(pa_steps) == steps, f"phase 12.4 proto_advent: {len(pa_steps)} step records")
     files = check_one_writer("phase 12.4 proto_advent", run["snap"],
                              ["adapt_state.pt", "metrics.jsonl", "proto_current.pickle",
-                              "proto_(25,).pickle", "proto_(50,).pickle"])
-    print(f"phase 12.4 proto_advent.yml (DOMAIN_ORDER [[25], [50]], {steps} steps, {boot} "
+                              "proto_(25,).pickle"])
+    print(f"phase 12.4 proto_advent.yml (DOMAIN_ORDER [[25]], {steps} steps, {boot} "
           f"bootstrap batches): {run['seconds']:.3f} s; per rank launches "
           + "; ".join(str(r["launches"]) for r in run["ranks"]) + f"; files {files}")
 
-    run = cli_run("segment", "training_fog", **{
-        "SCHEME.DOMAIN_ORDER": [[750]], "METHOD.PRETRAIN.SEGMENT.EPOCHS": 1,
-        "METHOD.ADAPTATION.PROTO_ONLINE_HYBRIDSWITCH.LOAD_PROTO": None})
+    run = cli_run("segment")
     seg_batch = int(run["cfg"]["TRAINING"]["BATCH_SIZE"])
     seg_steps = n_train // seg_batch
     boot = min(int(run["cfg"]["TRAINING"]["REPLAY_BUFFER"]), n_train) // seg_batch
@@ -3143,34 +3427,27 @@ def data_parallel_families_path(torch, K, out_dir, work, root, rows):
     summary["seconds_12_4"] = time.perf_counter() - t
     print(f"phase 12.4: {summary['seconds_12_4']:.3f} s")
 
-    # 12.5: EVALUATION on 12.4's SEGMENT snapshots, the ranks then one process
+    # 12.5: EVALUATION on 12.4's SEGMENT snapshots, the ranks (chained in the
+    # phase's torchrun) then one process
     t = time.perf_counter()
     snap = runs["segment"]["snap"]
-    preds = {who: os.path.join(work, f"dp_predictions_{who}") for who in ("ranks", "one")}
-    evals = {"evaluation": ("validation_offline_fog", {}),
-             "sweep": ("validation_offline_fog", {"OTHERS.EVAL_SWEEP": True}),
-             "predictions": ("validation", {"SCHEME.DOMAIN_ORDER": [[750]]})}
+    preds = {"ranks": launched["preds"], "one": os.path.join(work, "dp_predictions_one")}
+    evals = dp_eval_runs(preds["one"])
     for name, (config, cuts) in evals.items():
-        res = {}
-        for who in ("ranks", "one"):
-            over = dict(cuts)
-            if name == "predictions":
-                over["METHOD.PRETRAIN.EVALUATION.PREDICTION_SAVE"] = preds[who]
-            cfg_path = os.path.join(work, f"dp_{name}_{who}.yml")
-            workflow_config(config, cfg_path, **{"SCHEME.PATH": root, "MODEL.LOAD": None,
-                                                 "OTHERS.SNAPSHOT_DIR": snap, **over})
-            n_records = len(read_records(snap))
-            if who == "ranks":
-                ranks, text, seconds = run_cli_ranks(work, f"eval_{name}", cfg_path, out_dir)
-                for r in ranks:
-                    paths[f"data_parallel_cli_{name}_rank{r['rank']}"] = r["launches"]
-            else:
-                _, _, seconds, text, runner = run_cli(
-                    torch, K, cfg_path, os.path.join(out_dir, f"dp_{name}_one.log"))
-                del runner
-                release(torch)
-            res[who] = {"records": read_records(snap)[n_records:], "text": text,
-                        "seconds": seconds}
+        ranks = launched["results"][f"eval_{name}"]
+        for r in ranks:
+            paths[f"data_parallel_cli_{name}_rank{r['rank']}"] = r["launches"]
+        res = {"ranks": {"records": launched["records"][f"eval_{name}"], "text": launched["text"],
+                         "seconds": ranks[0]["seconds"]}}
+        cfg_path = os.path.join(work, f"dp_{name}_one.yml")
+        workflow_config(config, cfg_path, **{"SCHEME.PATH": root, "MODEL.LOAD": None,
+                                             "OTHERS.SNAPSHOT_DIR": snap, **cuts})
+        n_records = len(read_records(snap))
+        _, _, seconds, text, runner = run_cli(torch, K, cfg_path,
+                                              os.path.join(out_dir, f"dp_{name}_one.log"))
+        del runner
+        release(torch)
+        res["one"] = {"records": read_records(snap)[n_records:], "text": text, "seconds": seconds}
         miou = {who: {k: v for rec in r["records"] for k, v in rec.items()
                       if k.startswith("Val mIoU")} for who, r in res.items()}
         loaded = {who: sorted(set(re.findall(r"Model (\S+) is being loaded", r["text"])))
@@ -3247,7 +3524,7 @@ def data_parallel_families_path(torch, K, out_dir, work, root, rows):
 # ---------------------------------------------------------------------------
 
 TP_SIZE = 2
-TP_GRIDS = {"13.1": (2, 6), "13.2": (4, 3)}  # sub-phase: (ranks, timed steps)
+TP_GRIDS = {"13.1": (2, 6), "13.2": (4, 2)}  # sub-phase: (ranks, timed steps)
 # the trees of the state that hold the model's tensors (13.3 compares them)
 TP_TREES = ("params", "batch_stats", "alt_batch_stats", "opt_momentum", "ema_params",
             "static_params", "static_batch_stats", "dynamic_params", "dynamic_batch_stats")
@@ -3267,17 +3544,19 @@ TP_BOUNDS = {"exact": {**DP_BOUNDS["exact"], "backbone": 3e-2},
 
 
 def split_sharded_layers(torch, ad):
-    """Phase 13's witness: every Conv2d and Linear of the adapter's model
-    that a (1 x TP_SIZE) grid shards computes its output channels in
-    TP_SIZE blocks, as the grid's ranks do, and (through autograd) its
-    input gradient as the sum of the blocks' partial products, in one
-    process with no collective. Returns how many layers."""
+    """Phase 13's witness: every Conv2d and Linear of the adapter's (or
+    SEGMENT trainer's) model, and of ADVENT's discriminators, that a
+    (1 x TP_SIZE) grid shards computes its output channels in TP_SIZE
+    blocks, as the grid's ranks do, and (through autograd) its input
+    gradient as the sum of the blocks' partial products, in one process
+    with no collective. Returns how many layers."""
     import types
 
     import torch.nn.functional as F
 
-    from onda_torch.models.layers import Conv2d, Linear
     from onda_torch.parallel import tensor as T
+
+    Conv2d = torch.nn.Conv2d
 
     def blocks(m):
         biases = [None] * TP_SIZE if m.bias is None else m.bias.chunk(TP_SIZE)
@@ -3289,14 +3568,19 @@ def split_sharded_layers(torch, ad):
     def linear(m, x):
         return torch.cat([F.linear(x, w, b) for w, b in blocks(m)], dim=-1)
 
-    plan = T.tensor_parallel_plan({k: v.shape for k, v in ad.state.params.items()}, TP_SIZE)
-    modules = dict(ad.model.named_modules())
+    state = getattr(ad, "state", None)  # a SEGMENT trainer has none
+    models = [(ad.model, ad.params if state is None else state.params)]
+    if hasattr(state, "d_main"):  # ADVENT's discriminators are sharded too
+        models.append((ad.disc, state.d_main))
     n = 0
-    for name in plan:
-        m = modules.get(name.rsplit(".", 1)[0])
-        if name.endswith(".weight") and isinstance(m, (Conv2d, Linear)):
-            m.forward = types.MethodType(conv if isinstance(m, Conv2d) else linear, m)
-            n += 1
+    for model, tensors in models:
+        plan = T.tensor_parallel_plan({k: v.shape for k, v in tensors.items()}, TP_SIZE)
+        modules = dict(model.named_modules())
+        for name in plan:
+            m = modules.get(name.rsplit(".", 1)[0])
+            if name.endswith(".weight") and isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.forward = types.MethodType(conv if isinstance(m, Conv2d) else linear, m)
+                n += 1
     return n
 
 
@@ -3487,13 +3771,77 @@ def check_gaps(tag, gaps, bounds):
                                             f"{bounds[mode][key]}")
 
 
-def tensor_parallel_path(torch, K, out_dir, work, root, rows, one):
-    """Phase 13: 13.1 and 13.2 hybrid_switch.yml in memory at full width on a
-    (1 x 2) and a (2 x 2) grid, one process at b4 against the grid (both
-    modes; whole leaves bit for bit across the ranks, shards across the
-    ranks of a model index), then timed; 13.3 the CLI on a (1 x 2) grid on
-    phase 7's files, its file loaded by one process, then an AUTO_RESUME
-    rerun. Returns launch counts by path and the numbers."""
+def tensor_parallel_ranks(torch, out_dir, work, root, rows):
+    """Phase 13's one torchrun of a (1 x 2) grid's two ranks: 13.0-13.1's
+    ranks (`tp_rank`), 13.4's (`tp_adv_rank`), then the CLI runs of 13.3
+    and 13.5 chained (one domain each: hybrid_switch.yml and its
+    AUTO_RESUME; advent.yml and its AUTO_RESUME, validation_offline_advent.yml
+    on its snapshot, proto_advent.yml, training_fog.yml,
+    validation_offline_fog.yml with EVAL_SWEEP on its snapshots). 13.2's
+    four ranks run apart. Returns what the phase's checks read."""
+    write_fog_metadata(root, rows)
+    dirs = {k: os.path.join(work, k) for k in ("tp13.1", "tp13.4", "tp_chain")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    snaps = {"hybrid": os.path.join(work, "tp_cli"), "advent": os.path.join(work, "tp_advent"),
+             "proto_advent": os.path.join(work, "tp_proto_advent"),
+             "segment": os.path.join(work, "tp_seg")}
+    snaps.update(hybrid_resume=snaps["hybrid"], advent_resume=snaps["advent"],
+                 validation_offline_advent=snaps["advent"], training_fog=snaps["segment"],
+                 validation_offline_fog=snaps["segment"])
+    grid = {"SCHEME.PATH": root, "MODEL.LOAD": None, "OTHERS.TENSOR_PARALLEL": TP_SIZE}
+    advent = {**grid, "SCHEME.DOMAIN_ORDER": [[25]], "METHOD.ADAPTATION.ADVENT.EPOCHS": 1,
+              "OTHERS.SNAPSHOT_DIR": snaps["advent"]}
+    plan = {
+        "advent": ("advent", advent),
+        "advent_resume": ("advent", {**advent, "OTHERS.AUTO_RESUME": True}),
+        "validation_offline_advent": ("validation_offline_advent", {
+            **grid, "SCHEME.DOMAIN_ORDER": [[25]], "OTHERS.SNAPSHOT_DIR": snaps["advent"]}),
+        "proto_advent": ("proto_advent", {
+            **grid, "SCHEME.DOMAIN_ORDER": [[25]], "OTHERS.SNAPSHOT_DIR": snaps["proto_advent"],
+            "METHOD.ADAPTATION.PROTO_ADVENT.LOAD_PROTO": None,
+            "METHOD.ADAPTATION.PROTO_ADVENT.EPOCHS": 1}),
+        "training_fog": ("training_fog", {
+            **grid, "SCHEME.DOMAIN_ORDER": [[750]], "METHOD.PRETRAIN.SEGMENT.EPOCHS": 1,
+            "METHOD.ADAPTATION.PROTO_ONLINE_HYBRIDSWITCH.LOAD_PROTO": None,
+            "OTHERS.SNAPSHOT_DIR": snaps["segment"]}),
+        "validation_offline_fog": ("validation_offline_fog", {
+            **grid, "OTHERS.EVAL_SWEEP": True, "OTHERS.SNAPSHOT_DIR": snaps["segment"]}),
+    }
+    runs, cfgs = {}, {}
+    for name, resume in (("hybrid", {}), ("hybrid_resume", {"OTHERS.AUTO_RESUME": True})):
+        runs[name] = os.path.join(work, f"tp_{name}.yml")
+        cfgs[name] = cli_config(root, snaps["hybrid"], runs[name], [[25]],
+                                **{"OTHERS.TENSOR_PARALLEL": TP_SIZE, **resume})
+    for name, (config, cuts) in plan.items():
+        runs[name] = os.path.join(work, f"tp_{name}.yml")
+        cfgs[name] = workflow_config(config, runs[name], **cuts)
+    steps_13_1 = TP_GRIDS["13.1"][1]
+    rc, text, seconds, job_seconds = run_rank_jobs(
+        [["--tp-rank", dirs["tp13.1"], str(steps_13_1), "1"],
+         ["--tp-adv-rank", dirs["tp13.4"], str(TP_ADV_TIMED_STEPS)],
+         cli_chain(dirs["tp_chain"], runs)], os.path.join(out_dir, "tp_ranks.log"), nproc=TP_SIZE)
+    check(rc == 0, f"phase 13: a rank failed (exit {rc}):\n{text[-3000:]}")
+    check(len(job_seconds) == 3, f"phase 13: rank 0 reports {job_seconds} job seconds")
+    results = chain_results(dirs["tp_chain"], runs, nproc=TP_SIZE)
+    print(f"phase 13 ranks: one torchrun of a (1 x {TP_SIZE}) grid's ranks, {seconds:.3f} s with "
+          f"start-up: 13.0-13.1's ranks {job_seconds[0]:.3f} s, 13.4's {job_seconds[1]:.3f} s, "
+          f"the {len(runs)} CLI runs of 13.3 and 13.5 {job_seconds[2]:.3f} s (" + ", ".join(
+              f"{k} {v[0]['seconds']:.3f}" for k, v in results.items()) + ")")
+    return {"text": text, "seconds": seconds, "job_seconds": job_seconds, "dirs": dirs,
+            "runs": runs, "cfgs": cfgs, "snaps": snaps, "results": results,
+            "records": chain_records(runs, results, snaps)}
+
+
+def tensor_parallel_path(torch, K, out_dir, work, root, rows, one, launched):
+    """Phase 13.0-13.3: 13.1 and 13.2 hybrid_switch.yml in memory at full
+    width on a (1 x 2) and a (2 x 2) grid, one process at b4 against the
+    grid (both modes; whole leaves bit for bit across the ranks, shards
+    across the ranks of a model index), then timed; 13.3 the CLI on a
+    (1 x 2) grid on phase 7's files and an AUTO_RESUME rerun, the file
+    loaded by one process. 13.0-13.1 and 13.3 come from the phase's
+    torchrun (`launched`: `tensor_parallel_ranks`). Returns launch counts
+    by path and the numbers."""
     from onda_torch.parallel import tensor as T
 
     t_phase = time.perf_counter()
@@ -3512,13 +3860,16 @@ def tensor_parallel_path(torch, K, out_dir, work, root, rows, one):
           f"{TP_BOUNDS['exact']['backbone']}")
     for sub, (world, steps) in TP_GRIDS.items():
         backend, layout = tp_layout(torch, world)
-        tp_dir = os.path.join(work, f"tp{sub}")
-        os.makedirs(tp_dir, exist_ok=True)
-        release(torch)
-        rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--tp-rank", tp_dir,
-                                       str(steps), str(int(sub == "13.1"))],
-                                      os.path.join(out_dir, f"tp{sub}_ranks.log"), nproc=world)
-        check(rc == 0, f"phase {sub}: a rank failed (exit {rc}):\n{text[-3000:]}")
+        if sub == "13.1":  # in the phase's torchrun
+            tp_dir, seconds = launched["dirs"]["tp13.1"], launched["job_seconds"][0]
+        else:
+            tp_dir = os.path.join(work, f"tp{sub}")
+            os.makedirs(tp_dir, exist_ok=True)
+            release(torch)
+            rc, text, seconds, _ = run_rank_jobs([["--tp-rank", tp_dir, str(steps), "0"]],
+                                                 os.path.join(out_dir, f"tp{sub}_ranks.log"),
+                                                 nproc=world)
+            check(rc == 0, f"phase {sub}: a rank failed (exit {rc}):\n{text[-3000:]}")
         ranks = []
         for r in range(world):
             with open(os.path.join(tp_dir, f"rank{r}.json")) as f:
@@ -3607,38 +3958,30 @@ def tensor_parallel_path(torch, K, out_dir, work, root, rows, one):
             paths[f"tensor_parallel_{sub}_rank{r['rank']}"] = r["launches"]
 
     # 13.3: the CLI on a (1 x 2) grid on phase 7's files, then AUTO_RESUME
+    # (chained in the phase's torchrun)
     backend, layout = tp_layout(torch, TP_SIZE)
-    snap = os.path.join(work, "tp_cli")
-    run_dir = os.path.join(work, "tp_cli_ranks")
-    os.makedirs(run_dir, exist_ok=True)
-    cfg_path = os.path.join(work, "tp_cli.yml")
-    cfg = cli_config(root, snap, cfg_path, [[25], [50]], **{"OTHERS.TENSOR_PARALLEL": TP_SIZE})
+    snap, cfg = launched["snaps"]["hybrid"], launched["cfgs"]["hybrid"]
     batch, n_train = int(cfg["TRAINING"]["BATCH_SIZE"]), CLI_FRAMES["train"]
-    rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--cli-rank", run_dir,
-                                   "--", "--cfg", cfg_path], os.path.join(out_dir, "tp_cli.log"),
-                                  nproc=TP_SIZE)
-    check(rc == 0, f"phase 13.3: the CLI on the grid failed (exit {rc}):\n{text[-3000:]}")
-    steps = 2 * n_train // batch
+    steps = n_train // batch
     boot = min(int(cfg["TRAINING"]["REPLAY_BUFFER"]), n_train) // batch
     want = {"pseudo_labels_kernel": 2 * steps, "bn_stats_kernel": n_bn * (3 * steps + boot)}
-    cli = []
+    cli, resumed = launched["results"]["hybrid"], launched["results"]["hybrid_resume"]
+    seconds = cli[0]["seconds"]
     for r in range(TP_SIZE):
-        with open(os.path.join(run_dir, f"cli_rank{r}.json")) as f:
-            cli.append(json.load(f))
         check(cli[r]["launches"] == want, f"phase 13.3 rank {r}: launches {cli[r]['launches']}, "
                                           f"expected {want}")
         paths[f"tensor_parallel_cli_rank{r}"] = cli[r]["launches"]
-    records = read_records(snap)
+        paths[f"tensor_parallel_cli_resumed_rank{r}"] = resumed[r]["launches"]
+    records = launched["records"]["hybrid"]
     step_records = [rec for rec in records if "Total target loss" in rec]
     check(len(step_records) == steps, f"phase 13.3: {len(step_records)} step records for {steps} "
                                       f"steps (one writer)")
     check(all(math.isfinite(v) for rec in step_records for k, v in rec.items() if "loss" in k),
           "phase 13.3: a non-finite loss")
     files = check_one_writer("phase 13.3", snap, ["adapt_state.pt", "metrics.jsonl",
-                                                  "proto_current.pickle", "proto_(25,).pickle",
-                                                  "proto_(50,).pickle"])
-    # one process loads the grid's file: cut into each rank's shards, its
-    # state is each rank's, bit for bit
+                                                  "proto_current.pickle", "proto_(25,).pickle"])
+    # one process loads the grid's file (the AUTO_RESUME rerun's): cut into
+    # each rank's shards, its state is each rank's, bit for bit
     release(torch)
     ad = make_adapter(torch, "cuda", MAIN_HW, batch)
     ad.load_model(os.path.join(snap, "adapt_state.pt"))
@@ -3647,52 +3990,505 @@ def tensor_parallel_path(torch, K, out_dir, work, root, rows, one):
         mine = {f"{t}/{k}": v for t in TP_TREES
                 for k, v in T.shard_state(getattr(ad.state, t), plan, r, TP_SIZE).items()}
         differ = sorted(k for k, v in digests_of(torch, mine).items()
-                        if cli[r]["digests"][k] != v)
+                        if resumed[r]["digests"][k] != v)
         check(not differ, f"phase 13.3: one process's load of the grid's file differs from rank "
                           f"{r}'s state at {differ[:6]}")
     del ad
     release(torch)
     summary["13.3"] = {"seconds": seconds, "files": files}
-    print(f"phase 13.3 configs/hybrid_switch.yml (phase 7's cuts, DOMAIN_ORDER [[25], [50]], "
+    print(f"phase 13.3 configs/hybrid_switch.yml (phase 7's cuts, DOMAIN_ORDER [[25]], "
           f"OTHERS.TENSOR_PARALLEL {TP_SIZE}) through torch.distributed.run ({layout}): "
-          f"{seconds:.3f} s with start-up; per rank launches "
+          f"{seconds:.3f} s in the phase's torchrun; per rank launches "
           + "; ".join(str(c["launches"]) for c in cli)
           + f"; {len(step_records)} step records from rank 0, every loss finite; files {files} "
           f"(each once); one process's load_model of adapt_state.pt, cut into shards, equals "
           f"each rank's state bit for bit")
-    resumed = os.path.join(work, "tp_cli_resume.yml")
-    cli_config(root, snap, resumed, [[25], [50]], **{"OTHERS.TENSOR_PARALLEL": TP_SIZE,
-                                                     "OTHERS.AUTO_RESUME": True})
-    rc, text, seconds = run_ranks([os.path.join(HERE, "chip_smoke.py"), "--cli-rank", run_dir,
-                                   "--", "--cfg", resumed],
-                                  os.path.join(out_dir, "tp_cli_resume.log"), nproc=TP_SIZE)
-    check(rc == 0, f"phase 13.3 AUTO_RESUME: failed (exit {rc}):\n{text[-3000:]}")
-    restored = re.findall(r"AUTO_RESUME: restoring \S*adapt_state\.pt", text)
+    seconds = resumed[0]["seconds"]
+    restored = re.findall(r"AUTO_RESUME: restoring \S*adapt_state\.pt", launched["text"])
     check(len(restored) == TP_SIZE, f"phase 13.3 AUTO_RESUME: {len(restored)} ranks restored "
                                     f"adapt_state.pt, expected {TP_SIZE}")
     print(f"phase 13.3 AUTO_RESUME rerun on the grid: both ranks restored adapt_state.pt; "
-          f"{seconds:.3f} s with start-up")
+          f"{seconds:.3f} s in the phase's torchrun")
     shutil.rmtree(snap, ignore_errors=True)
     summary["13.3"]["resume_seconds"] = seconds
     summary["phase_seconds"] = time.perf_counter() - t_phase
-    print(f"phase 13: {summary['phase_seconds']:.3f} s")
+    print(f"phase 13.0-13.3: {summary['phase_seconds']:.3f} s")
     return paths, summary
 
 
+# ---------------------------------------------------------------------------
+# phases 13.4-13.5: ADVENT, PROTO_ADVENT, SEGMENT training and EVALUATION on
+# a (1 x 2) grid
+# ---------------------------------------------------------------------------
+
+TP_ADV_TIMED_STEPS = 3  # 13.4, after the compared step
+TP_ADV_LAUNCHES = {**ADV_LAUNCHES, "segment": {"pseudo_labels_kernel": 0, "bn_stats_kernel": 53}}
+# one process at b4 against the (1 x 2) grid after one step, in DP_BOUNDS'
+# modes: ADV_BOUNDS' (the discriminators through their gradients, Adam's
+# first moment, as 12.3 compares them); batch-invariant against the plain
+# one process the backbone as TP_BOUNDS' (the blocks' arithmetic, see the
+# witness) and the discriminators' gradients, which the student's blocks
+# reach through the entropy maps, at 4x ADVENT's reading on an H100
+# (4.490e-04). Against each method's witness ("exact_split"), each method's
+# own bounds, from its readings in two runs on an H100 (PERF.md): the
+# losses; the student's gradient (its SGD momentum, `grad_gaps`) by group
+# and the backbone's update beyond each weight's last places
+# ("backbone_excess"), ≈4x their larger reading; ADVENT's and
+# PROTO_ADVENT's discriminators' gradients, which equal the witness's (read
+# 0). The updates themselves differ in their weights' last places, and
+# which weights' varies from run to run (the card's atomic sums in the
+# backward): one place of the head's largest weight is 2.529e-04 of
+# SEGMENT's head update, so every head is held at DP_BOUNDS' "exact"; one
+# or two places of PROTO_ADVENT's backbone read 4.242e-05 or 8.485e-05, and
+# SEGMENT's 1.470e-04, each held at ≈4 places. ADVENT's backbone reads
+# 3.597e-03 in every run, its excess 1.218e-07 and 2.196e-07, its gradient
+# ≈4.4e-06: the weights' last places are a larger share of its update (LR
+# 1e-5, SEGMENT's 2.5e-4); held at 1e-2. "advent_fool": ADVENT's fool-only
+# step (source labels ignored, no weight decay), the gradient that reaches
+# the student through the sharded discriminators alone (read ≤1.061e-07 in
+# the head, ≤6.863e-06 in the backbone).
+TP_ADV_BOUNDS = {"exact": {**ADV_BOUNDS["exact"], "backbone": TP_BOUNDS["exact"]["backbone"],
+                           "disc": 2e-3},
+                 "kernels": ADV_BOUNDS["kernels"]}
+TP_ADV_SPLIT = {
+    "advent": {"loss": 1e-6, "head": 4e-4, "backbone": 1e-2, "disc": 1e-6, "head_grad": 5e-7,
+               "backbone_grad": 2e-5, "backbone_excess": 1e-6},
+    "proto_advent": {"loss": 1e-6, "head": 4e-4, "backbone": 2e-4, "disc": 1e-6,
+                     "head_grad": 5e-7, "backbone_grad": 2e-5, "backbone_excess": 1e-5},
+    "segment": {"loss": 1e-6, "head": 4e-4, "backbone": 6e-4, "head_grad": 5e-7,
+                "backbone_grad": 2e-5, "backbone_excess": 1e-5},
+    "advent_fool": {"loss": 1e-6, "head_grad": 5e-7, "backbone_grad": 3e-5},
+}
+# per step a rank's collectives by group on the (1 x 2) grid at full R50
+# width: the norms a forward gathers after (46 BatchNorms, the ProDA head's 5
+# branch and bottleneck GroupNorms and its SE), the sharded convs' shared
+# inputs a backward sums (43 in the backbone, 3 in the head), those of the
+# multi-level aux head (7, 3), an ADVENT discriminator's 3 sharded convs
+TP_NORMS, TP_INPUTS, TP_AUX_NORMS, TP_AUX_INPUTS, TP_DISC = 53, 46, 7, 3, 3
+TP_ADV_COLLECTIVES = {
+    # 2 student forwards with the aux head, 6 discriminator forwards (the
+    # student's BCE through both, each discriminator's on the source and
+    # target maps); the student's backward and the discriminators'
+    "advent": {"data": 0, "world": 2,
+               "model": 2 * (TP_NORMS + TP_AUX_NORMS) + 6 * TP_DISC
+               + 2 * (TP_INPUTS + TP_AUX_INPUTS) + 2 * TP_DISC + 4 * TP_DISC},
+    # the EMA, static and source/target forwards and the gated dynamic one
+    # (the count a step is fired·TP_NORMS more); whole discriminators
+    "proto_advent": {"data": 0, "world": 2, "model": 4 * TP_NORMS + 2 * TP_INPUTS},
+    "segment": {"data": 0, "world": 1,
+                "model": TP_NORMS + TP_AUX_NORMS + TP_INPUTS + TP_AUX_INPUTS},
+}
+
+
+def is_shard(key, plan, disc_plan) -> bool:
+    """Whether a flat name ("tree/.../leaf") is a channel shard under the
+    student's plan or the discriminators'."""
+    leaf = key.rsplit("/", 1)[-1]
+    return leaf in (disc_plan if key.startswith("d_") else plan)
+
+
+def state_nbytes(torch, tensors, prefix=()) -> int:
+    """The bytes of the float tensors of a flat dict (whose names start with
+    `prefix`, if given)."""
+    return sum(v.numel() * v.element_size() for k, v in tensors.items()
+               if isinstance(v, torch.Tensor) and v.is_floating_point()
+               and (not prefix or k.startswith(prefix)))
+
+
+def tp_adv_rank(work, steps):
+    """One rank of phase 13.4 (under torch.distributed.run, a (1 x TP_SIZE)
+    grid): for ADVENT, PROTO_ADVENT and a SEGMENT step, the compared step in
+    both of DP_BOUNDS' modes, the digests of this rank's state and rank 0's
+    whole compared tensors; then `steps` timed steps with TF32 on, their
+    launches, collectives by group, host syncs, peak, the K1/K2 shapes they
+    fed and the bytes of state this rank holds against the whole state's;
+    last ADVENT's fool-only step (batch-invariant); writes
+    tp_adv_rank<r>.json into `work`."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from onda_torch.ops import kernels as K
+    from onda_torch.parallel import distributed as D
+    from onda_torch.parallel import shared_card
+
+    device = D.initialize("cuda")
+    rank, batch, grid = D.rank(), 4, {"TENSOR_PARALLEL": TP_SIZE}
+    out = {"rank": rank, "world": D.world(), "backend": D.backend()}
+    shapes = KernelShapes(K)
+    for config in TP_ADV_LAUNCHES:
+        res = out[config] = {}
+        for mode in DP_BOUNDS:  # "kernels" last: its adapter goes on to the timed steps
+            with shapes:
+                if config == "segment":
+                    obj, one, logs, local, _ = seg_compare_step(torch, device, batch,
+                                                                mode == "exact", grid)
+                else:
+                    obj, one, logs, local, _ = adv_compare_step(torch, device, config, batch,
+                                                                mode == "exact", grid)
+            res[mode] = {"logs": logs, "digests": digests_of(torch, family_tensors(torch, obj))}
+            compared = adv_compared(torch, obj)
+            if rank == 0:
+                torch.save(compared, os.path.join(work, f"tp_adv0_{config}_{mode}.pt"))
+            del compared
+            if mode == "exact":
+                del obj, one
+                release(torch)
+        mine, whole = family_tensors(torch, obj), family_tensors(torch, obj, whole=True)
+        res.update(position=[D.data_rank(), D.model_rank()],
+                   grid=[D.data_world(), D.model_world()], plan=sorted(obj.plan),
+                   disc_plan=sorted(getattr(obj, "disc_plan", ())),
+                   state_bytes=state_nbytes(torch, mine),
+                   one_process_state_bytes=state_nbytes(torch, whole),
+                   disc_bytes=state_nbytes(torch, mine, ("d_",)),
+                   one_process_disc_bytes=state_nbytes(torch, whole, ("d_",)))
+        del mine, whole
+        if config == "segment":
+            feed = [({k: v.to(device) for k, v in local(bt).items()},)
+                    for bt in make_batches(torch, steps, batch, MAIN_HW, 38)]
+        else:
+            feed = [({k: v.to(device) for k, v in local(s).items()},
+                     {k: v.to(device) for k, v in local(t).items()}) for s, t in zip(
+                make_batches(torch, steps, batch, MAIN_HW, 34),
+                make_batches(torch, steps, batch, MAIN_HW, 35))]
+        loss_key = "Segmentation loss" if config == "segment" else "Adversarial loss"
+        torch.cuda.synchronize()
+        K.reset_launches()
+        D.reset_counts()
+        waits = shared_card.STATS["host_waits"]
+        torch.cuda.reset_peak_memory_stats(device)
+        times, finite = [], True
+        with shapes:
+            for args in feed:
+                t = time.perf_counter()
+                finite &= math.isfinite(float(one(*args)[loss_key]))  # the step ends at its read
+                times.append(1e3 * (time.perf_counter() - t))
+        res.update(step_ms=times, finite=finite, launches=dict(K.launches),
+                   collectives={g: dict(c) for g, c in D.COUNTS.items()},
+                   card_waits=shared_card.STATS["host_waits"] - waits,
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+        _, syncs = count_syncs(torch, lambda: one(*feed[0]))
+        res["debug_syncs"] = len(syncs)
+        del obj, one, feed
+        release(torch)
+    with shapes:  # ADVENT's fool-only step, against its witness
+        obj, _, logs, _, _ = adv_compare_step(torch, device, "advent", batch, True, grid,
+                                              fool_only=True)
+    compared = adv_compared(torch, obj)
+    if rank == 0:
+        torch.save(compared, os.path.join(work, "tp_adv0_advent_fool_exact.pt"))
+    out["advent_fool"] = {"logs": logs}
+    del obj, compared
+    release(torch)
+    out.update(k1_shapes=sorted(shapes.k1), k2_shapes=sorted(shapes.k2))
+    with open(os.path.join(work, f"tp_adv_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    D.destroy()
+
+
+def tensor_parallel_families_path(torch, K, out_dir, work, root, rows, refs, checked,
+                                  launched):
+    """Phases 13.4-13.5 on a (1 x 2) grid: 13.4 ADVENT, PROTO_ADVENT and a
+    SEGMENT step in memory at full width, one process at b4 against the grid
+    (both modes, and batch-invariant against the witness; whole leaves bit
+    for bit on both ranks), then timed, in one torchrun; 13.5 the CLI on
+    phase 7's files, in one torchrun and one domain each: advent.yml, its
+    AUTO_RESUME rerun, validation_offline_advent.yml on its snapshot,
+    training_fog.yml (SEGMENT, one epoch) and validation_offline_fog.yml
+    with EVAL_SWEEP on its snapshots; every file one process's layout, its
+    one-process load cut into shards equal to the ranks' bit for bit. Both
+    run in the phase's torchrun (`launched`: `tensor_parallel_ranks`).
+    `refs`: `family_references`; `checked`: phases 3-4's K1/K2 shapes.
+    Returns launch counts by path and the numbers."""
+    from onda_torch.parallel import tensor as T
+
+    backend, layout = tp_layout(torch, TP_SIZE)
+    paths, summary = {}, {}
+    t = time.perf_counter()
+    tp_dir, seconds = launched["dirs"]["tp13.4"], launched["job_seconds"][1]
+    steps = TP_ADV_TIMED_STEPS
+    ranks = []
+    for r in range(TP_SIZE):
+        with open(os.path.join(tp_dir, f"tp_adv_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    check(all(r["world"] == TP_SIZE and r["backend"] == backend for r in ranks),
+          f"phase 13.4: ranks report {[(r['world'], r['backend']) for r in ranks]}")
+    k1_fed = {tuple(s) for r in ranks for s in r["k1_shapes"]}
+    k2_fed = {(tuple(s), d) for r in ranks for s, d in r["k2_shapes"]}
+    check(k1_fed <= {tuple(c) for c in checked["k1"]} and {s for s, _ in k2_fed}
+          <= {tuple(c) for c in checked["k2"]},
+          f"phase 13.4 fed unchecked shapes: K1 {k1_fed}, K2 "
+          f"{sorted(s for s, _ in k2_fed if list(s) not in checked['k2'])}")
+    all_gaps = {}
+    for config, per_step in TP_ADV_LAUNCHES.items():
+        r0 = ranks[0][config]
+        want, plain = refs[(config, "exact_split")], refs[(config, "exact")]
+        witness = {"loss": max(abs(want["logs"][k] - plain["logs"][k])
+                               / max(abs(plain["logs"][k]), 1e-12)
+                               for k in plain["logs"] if "loss" in k),
+                   **adv_gaps(torch, want["w"], plain["w"], plain["start"])}
+        summary[f"{config}_witness"] = witness
+        print(f"phase 13.4 {config} witness: one process at b4 with the grid's sharded layers in "
+              f"{TP_SIZE} blocks, batch-invariant, against one process after one step: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in witness.items()))
+        check(all(r[config]["position"] == [0, r["rank"]] and r[config]["grid"] == [1, TP_SIZE]
+                  and r[config]["plan"] == r0["plan"] for r in ranks) and r0["plan"]
+              and bool(r0["disc_plan"]) == (config == "advent"),
+              f"phase 13.4 {config}: positions, grids or plans "
+              f"{[(r[config]['position'], r[config]['grid']) for r in ranks]}")
+        plan, disc_plan = set(r0["plan"]), set(r0["disc_plan"])
+        gaps, bounds = {}, {**TP_ADV_BOUNDS, "exact_split": TP_ADV_SPLIT[config]}
+        for mode in DP_BOUNDS:
+            whole = [k for k in r0[mode]["digests"] if not is_shard(k, plan, disc_plan)]
+            differ = sorted(k for k in whole for r in ranks[1:]
+                            if r[config][mode]["digests"][k] != r0[mode]["digests"][k])
+            check(whole and not differ, f"phase 13.4 {config} {mode}: whole leaves differ "
+                                        f"across the ranks: {differ[:6]}")
+            check(all(r[config][mode]["logs"] == r0[mode]["logs"] for r in ranks),
+                  f"phase 13.4 {config} {mode}: the ranks' logs differ")
+            got = torch.load(os.path.join(tp_dir, f"tp_adv0_{config}_{mode}.pt"),
+                             weights_only=False)
+            for ref in (mode, "exact_split") if mode == "exact" else (mode,):
+                want = refs[(config, ref)]
+                logs = r0[mode]["logs"]
+                gaps[ref] = {"loss": max(abs(logs[k] - want["logs"][k])
+                                         / max(abs(want["logs"][k]), 1e-12)
+                                         for k in want["logs"] if "loss" in k),
+                             **adv_gaps(torch, got, want["w"], want["start"])}
+                if ref == "exact_split":
+                    gaps[ref].update(grad_gaps(torch, got, want["w"], want["start"]))
+                counts = {k: int(v) for k, v in got.items() if k.endswith("_opt/count")}
+                check(counts == {k: int(v) for k, v in want["w"].items()
+                                 if k.endswith("_opt/count")},
+                      f"phase 13.4 {config} {ref}: Adam counts {counts}")
+                against = ("the witness (one process at b4, its sharded layers in the grid's "
+                           "blocks)" if ref == "exact_split" else "one process at b4")
+                print(f"phase 13.4 {config} {ref}: in memory, b4 1024x512 ({layout}), {against} "
+                      f"against the grid after one step (TF32 off; the grid's shards "
+                      f"gathered): " + ", ".join(f"{k} {v:.3e} (bound {bounds[ref][k]:.0e})"
+                                                 for k, v in gaps[ref].items())
+                      + f"; the ranks' {len(r0[mode]['digests'])} state tensors: "
+                        f"{len(r0[mode]['digests']) - len(whole)} shards, every whole one equal "
+                        f"bit for bit on both ranks")
+        all_gaps[config] = gaps
+        want_coll = dict(TP_ADV_COLLECTIVES[config])
+        for r in ranks:
+            res = r[config]
+            per = {g: c["collectives"] for g, c in res["collectives"].items()}
+            fired = 0
+            if config == "proto_advent":  # the gated dynamic teacher's forwards
+                fired, extra = divmod(per["model"] - steps * want_coll["model"], TP_NORMS)
+                check(extra == 0 and 0 <= fired <= steps,
+                      f"phase 13.4 proto_advent rank {r['rank']}: {per['model']} model-group "
+                      f"collectives over {steps} steps")
+            check(per == {g: n * steps + (fired * TP_NORMS if g == "model" else 0)
+                          for g, n in want_coll.items()},
+                  f"phase 13.4 {config} rank {r['rank']}: collectives {per} over {steps} steps, "
+                  f"expected {want_coll} a step")
+            check(res["finite"], f"phase 13.4 {config} rank {r['rank']}: a non-finite loss")
+            check(res["launches"] == {k: v * steps for k, v in per_step.items()},
+                  f"phase 13.4 {config} rank {r['rank']}: launches {res['launches']}, expected "
+                  f"{per_step} a step")
+            if config == "proto_advent":
+                check(res["disc_bytes"] == res["one_process_disc_bytes"] > 0,
+                      f"phase 13.4 proto_advent rank {r['rank']}: discriminators "
+                      f"{res['disc_bytes']} bytes, whole {res['one_process_disc_bytes']}")
+            else:
+                check(res["state_bytes"] < 0.6 * res["one_process_state_bytes"],
+                      f"phase 13.4 {config} rank {r['rank']}: state {res['state_bytes']} bytes "
+                      f"against one process's {res['one_process_state_bytes']}")
+            paths[f"tensor_parallel_{config}_in_memory_rank{r['rank']}"] = res["launches"]
+        step_ms = [statistics.median(r[config]["step_ms"][1:]) for r in ranks]
+        mb = {g: c["bytes"] / steps / 1e6 for g, c in r0["collectives"].items()}
+        per_step_coll = {g: c["collectives"] / steps for g, c in r0["collectives"].items()}
+        summary[config] = {"step_ms": step_ms, "gaps": gaps, "mb_per_step": mb,
+                           "collectives_per_step": per_step_coll,
+                           "peak_gib": [r[config]["peak_gib"] for r in ranks],
+                           "debug_syncs": r0["debug_syncs"], "card_waits": r0["card_waits"] / steps,
+                           "state_bytes": r0["state_bytes"],
+                           "one_process_state_bytes": r0["one_process_state_bytes"],
+                           "disc_bytes": r0["disc_bytes"],
+                           "one_process_disc_bytes": r0["one_process_disc_bytes"]}
+        print(f"phase 13.4 {config} timed ({steps} steps after the compared ones, TF32 on, "
+              f"{layout}): median step ms per rank (steps 1..) " + ", ".join(
+                  f"{v:.3f}" for v in step_ms) + " (" + "; ".join(
+                  ", ".join(f"{v:.3f}" for v in r[config]["step_ms"]) for r in ranks)
+              + f"); per rank and step {per_step}; collectives a step by group " + ", ".join(
+                  f"{g} {per_step_coll[g]:g} of {mb[g]:.3f} MB" for g in per_step_coll)
+              + f"; host syncs the CUDA sync debug mode counts in one step: {r0['debug_syncs']},"
+              f" card channel stream waits {r0['card_waits'] / steps:.0f} a step; peak memory "
+              f"per rank " + ", ".join(f"{r[config]['peak_gib']:.3f} GiB" for r in ranks)
+              + f"; state a rank holds {r0['state_bytes'] / 2**20:.3f} MiB against one "
+              f"process's {r0['one_process_state_bytes'] / 2**20:.3f} MiB "
+              f"({r0['state_bytes'] / r0['one_process_state_bytes']:.3f}); discriminators "
+              f"{r0['disc_bytes'] / 2**20:.3f} of {r0['one_process_disc_bytes'] / 2**20:.3f} MiB")
+    # ADVENT's fool-only step: the student's gradient through the sharded
+    # discriminators alone, against the witness's
+    got = torch.load(os.path.join(tp_dir, "tp_adv0_advent_fool_exact.pt"), weights_only=False)
+    want, logs = refs[("advent_fool", "exact_split")], ranks[0]["advent_fool"]["logs"]
+    check(all(r["advent_fool"]["logs"] == logs for r in ranks)
+          and logs["Segmentation loss"] == want["logs"]["Segmentation loss"] == 0.0
+          and logs["Adversarial loss"] > 0,
+          f"phase 13.4 advent_fool: logs {[r['advent_fool']['logs'] for r in ranks]}, witness "
+          f"{want['logs']}")
+    fool = {"loss": max(abs(logs[k] - want["logs"][k]) / max(abs(want["logs"][k]), 1e-12)
+                        for k in want["logs"] if "loss" in k and want["logs"][k]),
+            **{k: v for k, v in grad_gaps(torch, got, want["w"], want["start"]).items()
+               if k.endswith("_grad")}}
+    all_gaps["advent_fool"] = {"exact_split": fool}
+    summary["advent_fool"] = fool
+    print(f"phase 13.4 advent_fool exact_split: ADVENT's step with its source labels ignored "
+          f"and no weight decay (the student's momentum is the fool losses' gradient through "
+          f"the sharded discriminators alone), the witness against the grid: " + ", ".join(
+              f"{k} {v:.3e} (bound {TP_ADV_SPLIT['advent_fool'][k]:.0e})" for k, v in fool.items()))
+    del got, want
+    summary["seconds_13_4"] = time.perf_counter() - t
+    print(f"phase 13.4: {summary['seconds_13_4']:.3f} s of checks ({seconds:.3f} s of ranks)")
+
+    # 13.5: the CLI on phase 7's files, the five runs chained in the phase's
+    # torchrun
+    t = time.perf_counter()
+    names = ("advent", "advent_resume", "validation_offline_advent", "proto_advent",
+             "training_fog", "validation_offline_fog")
+    cli = {name: launched["results"][name] for name in names}
+    cfgs, text = launched["cfgs"], launched["text"]
+    snaps = {k: launched["snaps"][k] for k in ("advent", "proto_advent", "segment")}
+    seconds = sum(cli[name][0]["seconds"] for name in names)
+    n_train = CLI_FRAMES["train"]
+    batch = int(cfgs["advent"]["TRAINING"]["BATCH_SIZE"])
+    adv_steps = n_train // batch
+    seg_batch = int(cfgs["training_fog"]["TRAINING"]["BATCH_SIZE"])
+    seg_steps = n_train // seg_batch
+    seg_boot = min(int(cfgs["training_fog"]["TRAINING"]["REPLAY_BUFFER"]), n_train) // seg_batch
+    pa_batch = int(cfgs["proto_advent"]["TRAINING"]["BATCH_SIZE"])
+    pa_steps = n_train // pa_batch
+    pa_boot = min(int(cfgs["proto_advent"]["TRAINING"]["REPLAY_BUFFER"]), n_train) // pa_batch
+    want_launches = {
+        "advent": {"pseudo_labels_kernel": 0, "bn_stats_kernel": 106 * adv_steps},
+        "advent_resume": {"pseudo_labels_kernel": 0, "bn_stats_kernel": 106 * adv_steps},
+        "proto_advent": {"pseudo_labels_kernel": 2 * pa_steps,
+                         "bn_stats_kernel": 159 * pa_steps + 53 * pa_boot},
+        "training_fog": {"pseudo_labels_kernel": 0, "bn_stats_kernel": 53 * (seg_steps + seg_boot)},
+    }
+    for name, ranks_out in cli.items():
+        for r in ranks_out:
+            if name in want_launches:
+                check(r["launches"] == want_launches[name],
+                      f"phase 13.5 {name} rank {r['rank']}: launches {r['launches']}, expected "
+                      f"{want_launches[name]}")
+            else:  # EVALUATION: eval-mode BatchNorm; K1 per batch of prototype evaluation
+                check(r["launches"].get("bn_stats_kernel", 0) == 0,
+                      f"phase 13.5 {name} rank {r['rank']}: launches {r['launches']}")
+            paths[f"tensor_parallel_cli_{name}_rank{r['rank']}"] = r["launches"]
+    k1_fed = {tuple(s) for rs in cli.values() for r in rs for s in r["k1_shapes"]}
+    k2_fed = {tuple(s) for rs in cli.values() for r in rs for s, _ in r["k2_shapes"]}
+    check(k1_fed <= {tuple(c) for c in checked["k1"]}
+          and k2_fed <= {tuple(c) for c in checked["k2"]},
+          f"phase 13.5 fed unchecked shapes: K1 {sorted(k1_fed)}, K2 "
+          f"{sorted(s for s in k2_fed if list(s) not in checked['k2'])}")
+    records = read_records(snaps["advent"])
+    adv_records = [rec for rec in records if "Adversarial loss" in rec]
+    check(len(adv_records) == 2 * adv_steps and all(
+        math.isfinite(v) for rec in adv_records for k, v in rec.items() if "loss" in k),
+          f"phase 13.5 advent: {len(adv_records)} step records for 2 x {adv_steps} steps (one "
+          f"writer), or a non-finite loss")
+    restored = re.findall(r"AUTO_RESUME: restoring (\S+?advent_state\.pt)", text)
+    check(len(restored) == TP_SIZE, f"phase 13.5 advent AUTO_RESUME: {restored}, expected both "
+                                    f"ranks to restore advent_state.pt")
+    loaded = re.findall(r"Model (\S+) is being loaded", text)
+    check(len(loaded) == 2 * TP_SIZE and all(p.endswith("advent_state.pt") for p in loaded[:2]),
+          f"phase 13.5: EVALUATION loads {loaded}")
+    swept = re.findall(r"sweep: (\S+) mIoU", text)
+    seg_files = check_one_writer("phase 13.5 training_fog", snaps["segment"], [
+        "model_train_[[0]].pth", "model_train_[[0]]_after_src_training.pth", "adapt_state.pt",
+        "metrics.jsonl"])
+    adv_files = check_one_writer("phase 13.5 advent", snaps["advent"],
+                                 ["advent_state.pt", "metrics.jsonl"])
+    pa_records = [rec for rec in launched["records"]["proto_advent"] if "Adversarial loss" in rec]
+    check(len(pa_records) == pa_steps and all(
+        math.isfinite(v) for rec in pa_records for k, v in rec.items() if "loss" in k),
+          f"phase 13.5 proto_advent: {len(pa_records)} step records for {pa_steps} steps (one "
+          f"writer), or a non-finite loss")
+    pa_files = check_one_writer("phase 13.5 proto_advent", snaps["proto_advent"],
+                                ["adapt_state.pt", "metrics.jsonl", "proto_current.pickle",
+                                 "proto_(25,).pickle"])
+    check(len(swept) == TP_SIZE * 3 and swept[-1] == swept[-TP_SIZE],
+          f"phase 13.5 validation_offline_fog EVAL_SWEEP: swept {swept}")
+    # one process loads each file; cut into each rank's shards, its state is
+    # the rank's bit for bit
+    release(torch)
+    adv_path = os.path.join(snaps["advent"], "advent_state.pt")
+    state = torch.load(adv_path, map_location="cpu", weights_only=False)
+    check(state["step"] == 2 * adv_steps
+          and state["d_main_opt"]["count"] == state["d_aux_opt"]["count"] == 2 * adv_steps,
+          f"phase 13.5 advent: advent_state.pt step {state['step']}, Adam counts "
+          f"{state['d_main_opt']['count']}/{state['d_aux_opt']['count']}")
+    del state
+    last_swept = os.path.join(snaps["segment"], swept[-1])
+    loads = {"advent_resume": ("advent", adv_path),
+             "validation_offline_advent": ("hybrid_switch", adv_path),
+             "proto_advent": ("proto_advent", os.path.join(snaps["proto_advent"],
+                                                           "adapt_state.pt")),
+             "training_fog": ("hybrid_switch", os.path.join(snaps["segment"],
+                                                            "model_train_[[0]].pth")),
+             "validation_offline_fog": ("hybrid_switch", last_swept)}
+    for name, (config, path) in loads.items():
+        ad = make_adapter(torch, "cuda", MAIN_HW, 4, config=config,
+                          multi_level=True if config == "hybrid_switch" else None)
+        ad.load_model(path)
+        plan = T.tensor_parallel_plan(ad.full_shapes, TP_SIZE)
+        whole = family_tensors(torch, ad) if config == "advent" else {
+            f"{t}/{k}": v for t in TP_TREES for k, v in getattr(ad.state, t).items()}
+        disc_plan = T.tensor_parallel_plan(ad.state.d_main, TP_SIZE) if config == "advent" else {}
+        for r, rank_out in enumerate(cli[name]):
+            keys = [k for k in rank_out["digests"] if config in ("advent", "proto_advent")
+                    or k.startswith(("params/", "batch_stats/"))]
+            mine = {}
+            for k in keys:
+                v = whole[k]
+                if is_shard(k, plan, disc_plan):
+                    c = v.shape[0] // TP_SIZE
+                    v = v.narrow(0, r * c, c)
+                mine[k] = v
+            differ = sorted(k for k, v in digests_of(torch, mine).items()
+                            if rank_out["digests"][k] != v)
+            check(keys and not differ, f"phase 13.5 {name}: one process's load of "
+                                       f"{os.path.basename(path)} differs from rank {r}'s state "
+                                       f"at {differ[:6]}")
+        del ad, whole
+        release(torch)
+    summary["13.5"] = {"seconds": seconds, "advent_files": adv_files, "segment_files": seg_files,
+                       "proto_advent_files": pa_files, "swept": list(dict.fromkeys(swept))}
+    print(f"phase 13.5 the CLI on a (1 x {TP_SIZE}) grid ({layout}), {len(names)} runs chained "
+          f"in the phase's torchrun (one process group: the runs after the first reuse it), "
+          f"one domain each: advent.yml ({adv_steps} steps), its AUTO_RESUME rerun (both ranks "
+          f"restored advent_state.pt; step {2 * adv_steps}), validation_offline_advent.yml "
+          f"(loaded {loaded[:2]}), proto_advent.yml ({pa_steps} steps, {pa_boot} bootstrap "
+          f"batches, its discriminators whole), training_fog.yml (SEGMENT 1 epoch of {seg_steps} steps, "
+          f"{seg_boot} bootstrap batches), validation_offline_fog.yml EVAL_SWEEP (swept "
+          f"{list(dict.fromkeys(swept))}); {seconds:.3f} s of runs; per rank launches " + "; ".join(
+              f"{name} {[r['launches'] for r in rs]}" for name, rs in cli.items())
+          + f"; files {adv_files}, {pa_files} and {seg_files} (each once); every file loaded by "
+            f"one process "
+            f"and cut into shards equals each rank's state bit for bit; K1/K2 shapes fed among "
+            f"phases 3-4's")
+    for d in snaps.values():
+        shutil.rmtree(d, ignore_errors=True)
+    summary["seconds_13_5"] = time.perf_counter() - t
+    print(f"phase 13.5: {summary['seconds_13_5']:.3f} s")
+    for config, gaps in all_gaps.items():  # held after every line of 13.4-13.5 is printed
+        check_gaps(f"phase 13.4 {config}", gaps, {**TP_ADV_BOUNDS,
+                                                  "exact_split": TP_ADV_SPLIT[config]})
+    return paths, summary
+
+
+
 def main() -> int:
-    if sys.argv[1:2] in (["--dp-rank"], ["--cli-rank"], ["--adv-rank"], ["--tp-rank"]):
+    if sys.argv[1:2] == ["--rank-jobs"]:  # a rank of phase 12 or 13, under torch.distributed.run
         import faulthandler
 
         # a rank still running shortly before the deadline prints where it waits
-        faulthandler.dump_traceback_later(DP_DEADLINE - 30, exit=False)
-    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 12.1, under torch.distributed.run
-        return dp_rank(sys.argv[2])
-    if sys.argv[1:2] == ["--cli-rank"]:  # a CLI rank of phase 12: --cli-rank DIR -- <CLI args>
-        return cli_rank(sys.argv[2], sys.argv[4:])
-    if sys.argv[1:2] == ["--adv-rank"]:  # a rank of phase 12.3, under torch.distributed.run
-        return adv_rank(sys.argv[2])
-    if sys.argv[1:2] == ["--tp-rank"]:  # phase 13.1-13.2: --tp-rank DIR STEPS TRANSPORT
-        return tp_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4] == "1")
+        faulthandler.dump_traceback_later(JOBS_DEADLINE - 30, exit=False)
+        return rank_jobs(sys.argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--skip-main", action="store_true", help="kernel phases only")
     parser.add_argument("--profile", action="store_true")
@@ -3726,20 +4522,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print("kernel phases: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
 
-    t = time.perf_counter()
-    prep = threading.Thread(target=lambda: prep_build.append(native.build()))
-    prep_build = []
-    prep.start()  # g++ of the host prep runs beside nvcc
-    build.build_all(verbose=True)
-    print(f"kernel build: {time.perf_counter() - t:.3f} s into {build.BUILD_DIR}")
-    prep.join()
-    check(prep_build, "the C++ host prep did not build (its error is above)")
-    print(f"C++ host prep build: {time.perf_counter() - t:.3f} s into {prep_build[0]}")
+    t_script = time.perf_counter()
+    with phase_clock("1-2 (builds)"):
+        prep = threading.Thread(target=lambda: prep_build.append(native.build()))
+        prep_build = []
+        prep.start()  # g++ of the host prep runs beside nvcc
+        build.build_all(verbose=True)
+        print(f"kernel build: {time.perf_counter() - t_script:.3f} s into {build.BUILD_DIR}")
+        prep.join()
+        check(prep_build, "the C++ host prep did not build (its error is above)")
+        print(f"C++ host prep build: {time.perf_counter() - t_script:.3f} s into {prep_build[0]}")
 
-    k1 = check_k1(torch, K, P)
-    k2 = check_k2(torch, K, layers, args.out_dir)
+    with phase_clock("3"):
+        k1 = check_k1(torch, K, P)
+    with phase_clock("4"):
+        k2 = check_k2(torch, K, layers, args.out_dir)
     if not args.parallel_only:
-        small_input_check(torch)
+        with phase_clock("5"):
+            small_input_check(torch)
     if args.compare:
         compare_earlier(torch, K, args.compare, args.out_dir)
     paths, summary = {}, {}
@@ -3748,51 +4548,67 @@ def main() -> int:
         print("main path: cudnn.allow_tf32=True (PyTorch's default: convolutions in TF32), "
               "cuda.matmul.allow_tf32=False")
         if not args.parallel_only:
-            paths["in_memory"], summary = main_path(torch, K, args.profile, args.out_dir)
+            with phase_clock("6"):
+                paths["in_memory"], summary = main_path(torch, K, args.profile, args.out_dir)
         work = tempfile.mkdtemp(prefix="onda_cli_")
         try:
             root = os.path.join(work, "weather_cityscapes") + "/"
-            t = time.perf_counter()
-            rows, img_bytes = write_dataset(root, seed=7)
+            with phase_clock("7 (dataset)"):
+                rows, img_bytes = write_dataset(root, seed=7)
             print(f"phase 7 dataset: {len(rows)} frames of {FRAME_HW[1]}x{FRAME_HW[0]} "
                   f"(intensities {CLI_INTENSITIES}, {CLI_FRAMES} per intensity), mean image "
-                  f"PNG {img_bytes / len(rows) / 1e6:.3f} MB, written in "
-                  f"{time.perf_counter() - t:.3f} s")
+                  f"PNG {img_bytes / len(rows) / 1e6:.3f} MB")
             if not args.parallel_only:
-                (paths["cli"], paths["cli_resumed"]), summary["cli"] = cli_path(
-                    torch, K, args.out_dir, summary["frames_per_s"], work, root, rows)
-                workflow, summary["workflow"], pth = workflow_path(
-                    torch, K, args.out_dir, work, root, rows, aux_cost=args.aux_cost)
+                with phase_clock("7"):
+                    (paths["cli"], paths["cli_resumed"]), summary["cli"] = cli_path(
+                        torch, K, args.out_dir, summary["frames_per_s"], work, root, rows)
+                with phase_clock("8"):
+                    workflow, summary["workflow"], pth = workflow_path(
+                        torch, K, args.out_dir, work, root, rows, aux_cost=args.aux_cost)
                 paths.update(workflow)
-                adversarial, summary["adversarial"] = adversarial_path(
-                    torch, K, args.out_dir, work, root, pth, args.profile)
+                with phase_clock("9"):
+                    adversarial, summary["adversarial"] = adversarial_path(
+                        torch, K, args.out_dir, work, root, pth, args.profile)
                 paths.update(adversarial)
-                options, summary["model_options"] = model_options_path(
-                    torch, K, card, work, args.out_dir, args.profile)
+                with phase_clock("10"):
+                    options, summary["model_options"] = model_options_path(
+                        torch, K, card, work, args.out_dir, args.profile)
                 paths.update(options)
-                shipped, summary["shipped_configs"] = shipped_configs_path(
-                    torch, K, args.out_dir, work, root, rows,
-                    {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]})
+                with phase_clock("11"):
+                    shipped, summary["shipped_configs"] = shipped_configs_path(
+                        torch, K, args.out_dir, work, root, rows,
+                        {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]})
                 paths.update(shipped)
-            t_12 = time.perf_counter()
-            one = one_process_references(torch)  # of 12.1 and 13.1-13.2
-            parallel, summary["data_parallel"] = data_parallel_path(
-                torch, K, args.out_dir, work, root, rows, one)
-            paths.update(parallel)
-            families, summary["data_parallel_families"] = data_parallel_families_path(
-                torch, K, args.out_dir, work, root, rows)
-            paths.update(families)
-            print(f"phase 12 (12.1-12.5): {time.perf_counter() - t_12:.3f} s")
-            grid, summary["tensor_parallel"] = tensor_parallel_path(
-                torch, K, args.out_dir, work, root, rows, one)
-            paths.update(grid)
-            del one
+            checked = {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]}
+            with phase_clock("12"):
+                one = one_process_references(torch)  # of 12.1 and 13.1-13.2
+                refs = family_references(torch)  # of 12.3 and 13.4
+                launched = data_parallel_ranks(torch, args.out_dir, work, root, rows)
+                parallel, summary["data_parallel"] = data_parallel_path(
+                    torch, K, args.out_dir, work, root, rows, one, launched)
+                paths.update(parallel)
+                families, summary["data_parallel_families"] = data_parallel_families_path(
+                    torch, K, args.out_dir, work, root, rows, refs, launched)
+                paths.update(families)
+            with phase_clock("13"):
+                launched = tensor_parallel_ranks(torch, args.out_dir, work, root, rows)
+                grid, summary["tensor_parallel"] = tensor_parallel_path(
+                    torch, K, args.out_dir, work, root, rows, one, launched)
+                paths.update(grid)
+                del one
+                grid, summary["tensor_parallel_families"] = tensor_parallel_families_path(
+                    torch, K, args.out_dir, work, root, rows, refs, checked, launched)
+                paths.update(grid)
+                del refs, launched
         finally:
             shutil.rmtree(work, ignore_errors=True)
     for k in (k1, k2):
         k["launches_by_path"] = {p: c.get(k["name"], 0) for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+    summary["phase_seconds_by_phase"] = PHASE_SECONDS
     print(f"main path summary: {json.dumps(summary)}")
+    print(f"chip_smoke total seconds: {time.perf_counter() - t_script:.3f} (phases "
+          + ", ".join(f"{k} {v:.3f}" for k, v in PHASE_SECONDS.items()) + ")")
     print(card)
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

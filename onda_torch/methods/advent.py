@@ -36,6 +36,19 @@ their Adam states included. The loop makes the same calls in the same order
 on every rank (the loaders give each as many batches); evaluation, samples
 and `save_model` run on every rank and only rank 0 writes. At world size 1
 none of this makes a collective call.
+
+Under OTHERS.TENSOR_PARALLEL the ranks form a (data × model) grid
+(`parallel.mesh.resolve`), and each holds its model index's channel shard of
+the leaves JAX's rule shards (`parallel.tensor`), as JAX shards the whole
+`AdventState`: the student, its BN buffers and momentum, and in both
+discriminators `conv1`-`conv3` with their Adam moments (`count` stays
+whole). The batch splits over the data axis only, so the counts and BCE
+denominators above are the data axis's. The gradients of the sharded leaves
+are summed over the data group, those of the whole leaves over every rank
+and divided by tp (`optim.sum_on_grid`), so that the whole leaves keep the
+same bits on every rank. `advent_state.pt` holds the whole tensors, gathered
+by every rank and written by rank 0, in one process's layout; a load keeps
+this rank's shards.
 """
 
 from __future__ import annotations
@@ -53,7 +66,8 @@ from ..models.discriminator import FCDiscriminator, seeded_fc_discriminator
 from ..ops import losses as L
 from ..ops.interp import upsample_bilinear_ac
 from ..parallel import distributed as dist
-from ..parallel.mesh import refuse_unported
+from ..parallel import tensor as T
+from ..parallel.mesh import resolve
 from ..utils import checkpoint as ckpt
 from . import optim
 from .proto_online import LazyLogs, ProtoOnlineAdapter
@@ -102,8 +116,8 @@ def _bce(logits, label: float, world: int):
 def discriminator_loss(disc, d_params: dict, src_ent, trg_ent, world: int = 1):
     """One discriminator's BCE with its current weights, source maps toward
     SOURCE and target maps toward TARGET, each term /2; returns (loss, grads),
-    this rank's shares under `world` ranks (the gradients are summed by
-    `sum_grads`). The maps are detached: no gradient reaches the student."""
+    this rank's shares under a data axis of `world` ranks (the gradients are
+    summed by `sum_grads`). The maps are detached: no gradient reaches the student."""
     live = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
     loss = (_bce(functional_call(disc, live, (src_ent.detach(),)), SOURCE_LABEL, world) / 2
             + _bce(functional_call(disc, live, (trg_ent.detach(),)), TARGET_LABEL, world) / 2)
@@ -117,16 +131,16 @@ def fool_loss(disc, d_params: dict, trg_ent, world: int = 1):
     return _bce(functional_call(disc, d_params, (trg_ent,)), SOURCE_LABEL, world)
 
 
-def sum_grads(*grads: dict) -> tuple:
-    """The discriminators' gradient dicts summed over the ranks, in one
-    all-reduce (`torch.autograd.grad` bypasses `optim.grads`' bucket); the
+def sum_grads(*grads: dict, sharded=()) -> tuple:
+    """The discriminators' gradient dicts summed over the ranks
+    (`torch.autograd.grad` bypasses `optim.grads`' bucket) by
+    `optim.sum_on_grid`: the names in `sharded` are channel shards, summed
+    over the data group; the whole leaves are summed over every rank and
+    divided by the model axis's size, in one all-reduce without a grid. The
     dicts themselves at world size 1."""
-    flat = dist.all_sum(*(g for d in grads for g in d.values()))
-    out, i = [], 0
-    for d in grads:
-        out.append(dict(zip(d, flat[i:i + len(d)])))
-        i += len(d)
-    return tuple(out)
+    flat = {(i, k): g for i, d in enumerate(grads) for k, g in d.items()}
+    flat = optim.sum_on_grid(flat, {key for key in flat if key[1] in sharded})
+    return tuple({k: flat[(i, k)] for k in d} for i, d in enumerate(grads))
 
 
 def run_adversarial(adapter, step, trainloader, targetloader, validation_loaders,
@@ -165,10 +179,12 @@ def run_adversarial(adapter, step, trainloader, targetloader, validation_loaders
         adapter._log(logs)
 
 
-class AdventAdapter:
+class AdventAdapter(T.ShardedModel):
     """Owns the `AdventState`, the step, evaluation and the loop. The student's
     evaluation (model predictions only, the prototype adapter's key names),
-    samples and the snapshot fallback are the prototype adapter's."""
+    samples and the snapshot fallback are the prototype adapter's; the
+    shards of the grid (`plan`, `full_shapes`, `_shard`, `_whole`) are
+    `ShardedModel`'s, as they are the prototype adapter's."""
 
     resolution_hw = ProtoOnlineAdapter.resolution_hw
     _lr_ratios = ProtoOnlineAdapter._lr_ratios
@@ -186,7 +202,7 @@ class AdventAdapter:
 
     def __init__(self, model, variables, cfg, cfg_spec, num_classes: int, logger=None,
                  device="cuda"):
-        refuse_unported(cfg)
+        _, tp = resolve(cfg)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -194,8 +210,13 @@ class AdventAdapter:
         self.num_classes = num_classes
         self.logger = logger
         self.disc = FCDiscriminator(num_classes).to(self.device)
+        self.plan_shards(variables, tp)
+        variables = {name: self._shard(tree) for name, tree in variables.items()}
         params = {k: v.detach().to(self.device) for k, v in variables["params"].items()}
         d_aux, d_main = init_discriminators(num_classes, self.device)
+        # both discriminators' plan (one shape); it shards their Adam moments too
+        self.disc_plan = T.tensor_parallel_plan(d_main, tp) if tp > 1 else {}
+        d_aux, d_main = self._shard(d_aux, self.disc_plan), self._shard(d_main, self.disc_plan)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(cfg.TRAINING.RANDOM_SEED))
         self.state = AdventState(
@@ -228,7 +249,8 @@ class AdventAdapter:
         labels = self.param_labels
         trainable = [k for k, lab in labels.items() if lab != optim.FROZEN]
         r0, r1 = self._lr_ratios()
-        world = dist.world()
+        world = dist.data_world()
+        sharded, d_sharded = set(self.plan), set(self.disc_plan)
 
         def step(state: AdventState, src_images, src_labels, trg_images, lr_base: float,
                  lr_d: float):
@@ -256,7 +278,8 @@ class AdventAdapter:
                 seg = seg + l_seg_aux * L.cross_entropy_2d(src_aux, src_labels, count=src_count)
                 ent_aux = entropy_map(trg_aux)
                 adv = adv + l_adv_aux * fool_loss(disc, state.d_aux, ent_aux, world)
-            grads = optim.grads(seg + adv, live, trainable)
+            grads = (optim.grid_grads(seg + adv, live, trainable, (), sharded) if sharded
+                     else optim.grads(seg + adv, live, trainable))
             del live
 
             d_loss, d_main_g = discriminator_loss(disc, state.d_main, entropy_map(src_main.detach()),
@@ -265,9 +288,9 @@ class AdventAdapter:
                 loss_aux, d_aux_g = discriminator_loss(
                     disc, state.d_aux, entropy_map(src_aux.detach()), ent_aux, world)
                 d_loss = d_loss + loss_aux
-                d_main_g, d_aux_g = sum_grads(d_main_g, d_aux_g)
+                d_main_g, d_aux_g = sum_grads(d_main_g, d_aux_g, sharded=d_sharded)
             else:
-                (d_main_g,) = sum_grads(d_main_g)
+                (d_main_g,) = sum_grads(d_main_g, sharded=d_sharded)
             optim.update(state.params, grads, state.opt_momentum, labels, lr_base * r0,
                          lr_base * r1, momentum, weight_decay)
             optim.adam_update(state.d_main, d_main_g, state.d_main_opt, lr_d)
@@ -297,13 +320,29 @@ class AdventAdapter:
     # ------------------------------------------------------------------
     # persistence (reference advent_da.py:62-70)
     # ------------------------------------------------------------------
+    def _trees(self, state: dict, cut) -> dict:
+        """`state`'s trees of tensors through cut(tree, plan): the student's
+        with the student's plan, the discriminators' and their Adam moments
+        with theirs."""
+        out = dict(state)
+        for name in ("params", "batch_stats", "opt_momentum"):
+            out[name] = cut(state[name], self.plan)
+        for name in ("d_aux", "d_main"):
+            out[name] = cut(state[name], self.disc_plan)
+            opt = state[f"{name}_opt"]
+            out[f"{name}_opt"] = {**opt, "mu": cut(opt["mu"], self.disc_plan),
+                                  "nu": cut(opt["nu"], self.disc_plan)}
+        return out
+
     def save_model(self) -> None:
         """`advent_state.pt`: the student, its BN buffers and momentum, both
         discriminators, both Adam states, the dropout generator and the step,
         replaced only once the new file is whole (written in the background under
-        OTHERS.ASYNC_SAVE)."""
+        OTHERS.ASYNC_SAVE). On a grid every rank joins the gathers of its
+        shards, and rank 0 writes the whole tensors."""
         s = self.state
-        payload = {f.name: getattr(s, f.name) for f in dataclasses.fields(s) if f.name != "generator"}
+        payload = self._trees({f.name: getattr(s, f.name) for f in dataclasses.fields(s)
+                               if f.name != "generator"}, self._whole)
         payload["generator"] = s.generator.get_state()
         ckpt.save_atomic(payload, os.path.join(str(self.cfg.OTHERS.SNAPSHOT_DIR), "advent_state.pt"),
                          wait=not value_or(self.cfg.OTHERS.ASYNC_SAVE, False))
@@ -311,11 +350,12 @@ class AdventAdapter:
     def load_model(self, path: str, payload=None) -> None:
         """Restore a whole `advent_state.pt` (an exact resume); `payload`: its
         contents, if already read. A file that is not one raises before the
-        state changes."""
+        state changes. On a grid each rank keeps its shards of the file's
+        whole tensors."""
         payload = self.read_checkpoint(path) if payload is None else payload
         missing = {f.name for f in dataclasses.fields(self.state)} - set(payload)
         if missing:
             raise KeyError(f"{path} is not an ADVENT snapshot: it lacks {sorted(missing)}")
         gen_state = payload.pop("generator")
-        self.state = dataclasses.replace(self.state, **payload)
+        self.state = dataclasses.replace(self.state, **self._trees(payload, self._shard))
         self.state.generator.set_state(gen_state.cpu())

@@ -18,6 +18,13 @@ so that a file another run is still writing cannot set the ranks' collectives
 apart. A prediction batch is the global batch, each rank's rows in rank
 order (the order of a multi-process JAX run), written by rank 0, and its
 confidence the global mean. Only rank 0 writes.
+
+Under OTHERS.TENSOR_PARALLEL the runner holds the prototype adapter's channel
+shards on a (data × model) grid: every file it loads (`adapt_state.pt`, a
+`model_train_*.pth`, the student of `advent_state.pt`) holds whole tensors
+and each rank keeps its shards of them (`load_model`). The evaluation splits
+the sets over the data axis; the logits it dumps (one channel a class) are
+whole on every model rank.
 """
 
 from __future__ import annotations

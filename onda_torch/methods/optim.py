@@ -90,20 +90,26 @@ def grads(loss: torch.Tensor, live: dict, names: list, unused=()) -> dict:
 
 def grid_grads(loss: torch.Tensor, live: dict, names: list, unused, sharded) -> dict:
     """`grads` on a (data × model) grid, where the names in `sharded` hold
-    this rank's channel shard: their bucket is summed over the data group.
-    The others are whole on every rank, their gradients alike on the ranks
-    of a data index: their bucket is summed over every rank and divided by
-    the model axis's size, which gives the same sum, and the same bits on
-    every rank even where the card's backward kernels are not deterministic."""
-    out = _local_grads(loss, live, names, unused)
-    part = [k for k in names if k in sharded]
-    whole = [k for k in names if k not in sharded]
-    summed = dict(zip(part, dist.all_sum(*(out[k] for k in part)) if part else ()))
+    this rank's channel shard (`sum_on_grid`)."""
+    return sum_on_grid(_local_grads(loss, live, names, unused), sharded)
+
+
+def sum_on_grid(grads: dict, sharded) -> dict:
+    """This rank's gradients of its share of the global loss, summed on a
+    (data × model) grid. The names in `sharded` hold this rank's channel
+    shard: their bucket is summed over the data group. The others are whole
+    on every rank, their gradients alike on the ranks of a data index: their
+    bucket is summed over every rank and divided by the model axis's size,
+    which gives the same sum, and the same bits on every rank even where the
+    card's backward kernels are not deterministic."""
+    part = [k for k in grads if k in sharded]
+    whole = [k for k in grads if k not in sharded]
+    summed = dict(zip(part, dist.all_sum(*(grads[k] for k in part)) if part else ()))
     if whole:
         tp = dist.model_world()
-        summed.update(zip(whole, (g / tp for g in dist.all_sum(*(out[k] for k in whole),
+        summed.update(zip(whole, (g / tp for g in dist.all_sum(*(grads[k] for k in whole),
                                                                 group="world"))))
-    return {k: summed[k] for k in names}
+    return {k: summed[k] for k in grads}
 
 
 @torch.no_grad()

@@ -29,6 +29,13 @@ pseudo-label count or pixel count, the BCEs by the global number of
 discriminator outputs; the student's and the discriminators' gradients are
 summed in a bucket each, and the logs that are shares or counts in a third.
 Every rank ends the step with the same bits.
+
+Under OTHERS.TENSOR_PARALLEL the student is the PROTO_ONLINE step's, in
+channel shards on a (data × model) grid, and the batch splits over the data
+axis only. The discriminators and their Adam states stay whole on every
+rank, as JAX replicates them (`replicate_tree` beside the sharded
+`AdaptState`): their gradients, alike on the model ranks of a data index,
+are summed over every rank and divided by tp (`optim.sum_on_grid`).
 """
 
 from __future__ import annotations
@@ -76,7 +83,8 @@ class ProtoAdventAdapter(ProtoOnlineAdapter):
         r0, r1 = self.lr_ratios
         monitor = self.monitor
         teachers = self._build_teachers()
-        world = dist.world()
+        world = dist.data_world()
+        sharded = set(self.plan)
 
         def step(state: AdaptState, d_state: dict, src_images, src_labels, trg_images,
                  lr_base: float, lr_d: float):
@@ -119,7 +127,8 @@ class ProtoAdventAdapter(ProtoOnlineAdapter):
             if multi:
                 ent_aux = entropy_map(up(trg_aux))
                 adv = adv + l_adv_aux * fool_loss(disc, d_state["aux"], ent_aux, world)
-            grads = optim.grads(seg + total_t + adv, live, trainable)
+            grads = (optim.grid_grads(seg + total_t + adv, live, trainable, (), sharded)
+                     if sharded else optim.grads(seg + total_t + adv, live, trainable))
             del live
 
             d_loss, d_main_g = discriminator_loss(

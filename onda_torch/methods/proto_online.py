@@ -215,7 +215,7 @@ class LazyLogs(dict):
         return super().__len__()
 
 
-class ProtoOnlineAdapter:
+class ProtoOnlineAdapter(T.ShardedModel):
     """Host-side engine: owns the AdaptState, the step and evaluation, and the
     reference's train loop (per-step logging, per-epoch cross-domain
     evaluation and checkpoint, reference prototypes.py:466-520)."""
@@ -246,11 +246,7 @@ class ProtoOnlineAdapter:
             self.skip_proto = loaded
             if loaded:
                 print("Prototypes loaded!")
-        # the whole shapes of the model's tensors, and those of them each rank
-        # holds as a channel shard (none at tp 1)
-        self.full_shapes = {k: tuple(v.shape) for tree in variables.values()
-                            for k, v in tree.items()}
-        self.plan = T.tensor_parallel_plan(self.full_shapes, tp) if tp > 1 else {}
+        self.plan_shards(variables, tp)
         variables = {name: self._shard(tree) for name, tree in variables.items()}
         self.state = make_adapt_state(variables, proto, self.monitor.init(),
                                       seed=int(cfg.TRAINING.RANDOM_SEED), device=self.device)
@@ -299,17 +295,6 @@ class ProtoOnlineAdapter:
         self.lr_ratios = self._lr_ratios()
         if changed:
             self._step_cache.clear()
-
-    def _shard(self, tree: dict) -> dict:
-        """This rank's tensors of a tree of whole ones (the tree itself at tp 1)."""
-        if not self.plan:
-            return tree
-        return T.shard_state(tree, self.plan, dist.model_rank(), dist.model_world())
-
-    def _whole(self, tree: dict) -> dict:
-        """The whole tensors of one of the state's trees: a gather over the
-        model group that every rank joins (the tree itself at tp 1)."""
-        return T.gather_state(tree, self.plan) if self.plan else tree
 
     @property
     def resolution_hw(self):

@@ -22,6 +22,15 @@ and takes the entropy as the mean over the ranks of their batch means, which
 is the global batch's where the shards are whole (a padded final batch
 counts each rank's padding rows, as a multi-process JAX run's does). Only
 rank 0 writes `model_train_{SOURCE}.pth`.
+
+Under OTHERS.TENSOR_PARALLEL the ranks form a (data × model) grid
+(`parallel.mesh.resolve`) and each holds its model index's channel shard of
+the parameters, BN buffers and momentum that JAX's rule shards
+(`parallel.tensor`), as JAX places the trainer's three trees. The batch
+splits over the data axis only. The sharded leaves' gradients are summed
+over the data group and the whole ones' over every rank and divided by tp
+(`optim.grid_grads`); the multi-level aux head reads layer3's whole output.
+`model_train_{SOURCE}.pth` holds the whole tensors, gathered by every rank.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from ..ops import losses as L
 from ..ops import metrics as M
 from ..ops.interp import upsample_bilinear_ac
 from ..parallel import distributed as dist
+from ..parallel import tensor as T
+from ..parallel.mesh import resolve
 from ..utils import checkpoint as ckpt
 from . import optim
 from .timing import SpeedMeter
@@ -50,15 +61,18 @@ def _logits(out):
     return out["out"] if isinstance(out, dict) else out
 
 
-class SegmentTrainer:
+class SegmentTrainer(T.ShardedModel):
     def __init__(self, model, variables, cfg, cfg_spec, num_classes: int, logger=None,
                  device="cuda"):
+        _, tp = resolve(cfg)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.spec = cfg_spec
         self.num_classes = num_classes
         self.logger = logger
+        self.plan_shards(variables, tp)
+        variables = {name: self._shard(tree) for name, tree in variables.items()}
         self.params = {k: v.detach().to(self.device) for k, v in variables["params"].items()}
         self.batch_stats = {k: v.detach().to(self.device)
                             for k, v in variables.get("batch_stats", {}).items()}
@@ -85,13 +99,15 @@ class SegmentTrainer:
         hw = self.resolution_hw
         # under data parallelism both CEs divide by the global valid count,
         # so the ranks' losses sum to the global batch's
-        count = dist.all_sum(L.valid_count(labels))[0] if dist.world() > 1 else None
+        count = dist.all_sum(L.valid_count(labels))[0] if dist.data_world() > 1 else None
         loss = L.cross_entropy_2d(upsample_bilinear_ac(_logits(main).float(), hw), labels,
                                   count=count)
         if aux is not None:
             loss = loss + AUX_WEIGHT * L.cross_entropy_2d(
                 upsample_bilinear_ac(_logits(aux).float(), hw), labels, count=count)
-        grads = optim.grads(loss, live, self.trainable)
+        sharded = set(self.plan)
+        grads = (optim.grid_grads(loss, live, self.trainable, (), sharded) if sharded
+                 else optim.grads(loss, live, self.trainable))
         del live
         optim.update(self.params, grads, self.momentum_buf, self.param_labels, lr,
                      lr * HEAD_LR_SCALE, float(self.spec.MOMENTUM), float(self.spec.WEIGHT_DECAY))
@@ -184,13 +200,21 @@ class SegmentTrainer:
             self._log(log)
             self.save_model()
 
+    def variables(self) -> dict:
+        """{"params", "batch_stats"} of whole tensors (gathered on a grid,
+        a collective every rank joins)."""
+        return {"params": self._whole(self.params), "batch_stats": self._whole(self.batch_stats)}
+
     def _student(self) -> dict:
-        """The student in the reference's state_dict key layout, where it lives."""
-        tensors = {**self.params, **self.batch_stats}
+        """The student's whole tensors in the reference's state_dict key
+        layout, where it lives."""
+        variables = self.variables()
+        tensors = {**variables["params"], **variables["batch_stats"]}
         return {k: tensors[k].detach() for k in self.model.state_dict()}
 
     def state_dict(self) -> dict:
-        """The student in the reference's state_dict key layout, on the host."""
+        """The student's whole tensors in the reference's state_dict key
+        layout, on the host."""
         return {k: v.cpu() for k, v in self._student().items()}
 
     def save_model(self) -> None:

@@ -7,6 +7,13 @@ between them: a map of logits over an entropy image. `DCGANDiscriminator`
 stages and a sigmoid output. Module names follow the JAX package's
 (`conv0`..`conv4`, `bn1`..`bn3`), so `convert.flax_disc_to_state_dict` maps
 one onto the other.
+
+Under OTHERS.TENSOR_PARALLEL an `FCDiscriminator`'s parameters may be channel
+shards (`parallel.tensor`): JAX's rule shards `conv1`-`conv3` (128, 256 and
+512 channels) and leaves `conv0` (64) and `conv4` (1) whole. Each sharded
+conv takes its whole input through `fan_in` and its activation is gathered
+before the next conv, as the backbone's are. With whole parameters none of
+it does anything.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor as T
 from .layers import TorchBatchNorm
 
 
@@ -27,7 +35,10 @@ class FCDiscriminator(nn.Module):
 
     def forward(self, x):
         for i in range(4):
-            x = F.leaky_relu(getattr(self, f"conv{i}")(x), negative_slope=0.2)
+            conv = getattr(self, f"conv{i}")
+            x = F.leaky_relu(conv(T.fan_in(x, conv)[0]), negative_slope=0.2)
+            if T.shards(conv) > 1:
+                x = T.gather_channels(x)
         return self.conv4(x)
 
 

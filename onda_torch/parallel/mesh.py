@@ -22,19 +22,15 @@ Where the port differs: DATA_PARALLEL false under a world size above 1 raises
 data axis to divide the batch and leave devices idle, the port raises (an idle
 rank is a process that trains nothing); JAX's single-process rule for
 TENSOR_PARALLEL is its runtime's, not the maths', and the port has none.
-TENSOR_PARALLEL runs for the PROTO_ONLINE family (PROTO_ONLINE, HSWITCH,
-VSWITCH, HYBRIDSWITCH); `refuse_unported` stops it for ADVENT, PROTO_ADVENT,
-SEGMENT training and EVALUATION mode (ROADMAP M17) on any number of ranks.
+TENSOR_PARALLEL runs on every path of the CLI, as JAX's `data_parallel_setup`
+serves every adapter: the PROTO_ONLINE family, ADVENT, PROTO_ADVENT, SEGMENT
+training and EVALUATION mode.
 """
 
 from __future__ import annotations
 
 from ..config import unset
 from . import distributed
-
-# the adaptation methods whose step runs on the grid (one adapter)
-TENSOR_PARALLEL_METHODS = ("PROTO_ONLINE", "PROTO_ONLINE_HSWITCH", "PROTO_ONLINE_VSWITCH",
-                           "PROTO_ONLINE_HYBRIDSWITCH")
 
 
 def data_parallel_size(option, batch_size: int | None = None, world: int | None = None) -> int:
@@ -97,30 +93,11 @@ def _tensor_parallel_option(cfg):
     return None if unset(tp) else tp
 
 
-def unported_path(cfg) -> str | None:
-    """The part of cfg's run that does not run under OTHERS.TENSOR_PARALLEL,
-    or None: EVALUATION mode, SEGMENT training, or an adaptation method
-    outside the PROTO_ONLINE family."""
-    if cfg.METHOD.PRETRAIN.NAME == "EVALUATION":
-        return "EVALUATION mode"
-    if cfg.METHOD.PRETRAIN.NAME == "SEGMENT" and int(cfg.METHOD.PRETRAIN.SEGMENT.EPOCHS) > 0:
-        return "SEGMENT training"
-    if cfg.METHOD.ADAPTATION.NAME not in TENSOR_PARALLEL_METHODS:
-        return str(cfg.METHOD.ADAPTATION.NAME)
-    return None
-
-
-def refuse_unported(cfg) -> int:
-    """Raise, before anything trains or is written, for what the port does
-    not run: OTHERS.TENSOR_PARALLEL on a path outside the PROTO_ONLINE
-    family (NotImplementedError, naming the option and ROADMAP M17), and a
-    grid or an OTHERS.DATA_PARALLEL that does not resolve against this run's
-    ranks (ValueError). Returns the data axis's size (1: one device)."""
+def data_axis(cfg) -> int:
+    """The data axis's size (1: one device) of cfg's run on this run's
+    ranks, before anything trains or is written; raises ValueError for a
+    grid or an OTHERS.DATA_PARALLEL that does not resolve against them."""
     tp = _tensor_parallel_option(cfg)
-    path = unported_path(cfg)
-    if path is not None and tp not in (None, False) and (tp is True or int(tp) > 1):
-        raise NotImplementedError(f"OTHERS.TENSOR_PARALLEL: the port shards the model for the "
-                                  f"PROTO_ONLINE family only, not for {path} (ROADMAP M17)")
     batch = int(cfg.TRAINING.BATCH_SIZE)
     data, model = grid_shape(tp, batch)
     if model > 1:
@@ -130,10 +107,10 @@ def refuse_unported(cfg) -> int:
 
 
 def resolve(cfg) -> tuple[int, int]:
-    """`refuse_unported`, then the grid of this run's ranks formed
+    """`data_axis`, then the grid of this run's ranks formed
     (`distributed.form_grid`, a collective every rank joins); returns the
     (data, model) axis sizes."""
-    data = refuse_unported(cfg)
+    data = data_axis(cfg)
     model = grid_shape(_tensor_parallel_option(cfg))[1]
     distributed.form_grid(model)
     return data, model

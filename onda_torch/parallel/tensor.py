@@ -93,6 +93,30 @@ def gather_state(state: dict, plan: dict) -> dict:
     return out
 
 
+class ShardedModel:
+    """What an adapter or trainer that holds a model's tensors needs on a
+    grid: `plan_shards` records the whole shapes of the model's tensors
+    (`full_shapes`) and the plan of those each rank holds as a channel shard
+    (`plan`, empty at tp 1); `_shard` cuts a tree of whole tensors into this
+    rank's and `_whole` gathers them, both the tree itself without a plan.
+    Either takes another plan for another model's tree (the discriminators)."""
+
+    def plan_shards(self, trees: dict, tp: int) -> None:
+        self.full_shapes = {k: tuple(v.shape) for tree in trees.values() for k, v in tree.items()}
+        self.plan = tensor_parallel_plan(self.full_shapes, tp) if tp > 1 else {}
+
+    def _shard(self, tree: dict, plan: dict | None = None) -> dict:
+        """This rank's tensors of a tree of whole ones."""
+        plan = self.plan if plan is None else plan
+        return shard_state(tree, plan, dist.model_rank(), dist.model_world()) if plan else tree
+
+    def _whole(self, tree: dict, plan: dict | None = None) -> dict:
+        """The whole tensors of a tree of this rank's: a gather over the
+        model group that every rank joins."""
+        plan = self.plan if plan is None else plan
+        return gather_state(tree, plan) if plan else tree
+
+
 def shards(module) -> int:
     """How many model ranks share the output channels of a Conv2d, Linear,
     BatchNorm or GroupNorm: its declared width over its weight's (1: whole)."""

@@ -33,18 +33,19 @@ on from the weights in memory on every rank) and EVALUATION mode (the
 checkpoint to load, the sweep's list and AUTO_RESUME's pick are rank 0's,
 taken on every rank).
 
-Tensor parallelism (OTHERS.TENSOR_PARALLEL = tp ≥ 2, the PROTO_ONLINE family:
-PROTO_ONLINE, HSWITCH, VSWITCH, HYBRIDSWITCH): the same launch, the ranks
-arranged as a (world // tp) × tp grid (`parallel.mesh.resolve`; DATA_PARALLEL
-is then ignored). The batch splits over the data axis only: the local batch
-is TRAINING.BATCH_SIZE // (world // tp), the model ranks of one data index
-load the same rows and seed their replay buffers alike, and each rank holds
-its channel shards of the model's wide layers (`parallel.tensor`). The files
-hold whole tensors in one process's layout, written by rank 0, so they load
-into one process and back. On one card the ranks share it through gloo; with
-a card per rank they use NCCL. ADVENT, PROTO_ADVENT, SEGMENT training and
-EVALUATION mode stop under the option before anything is written, on any
-number of ranks (`parallel.mesh.refuse_unported`).
+Tensor parallelism (OTHERS.TENSOR_PARALLEL = tp ≥ 2, every path: the
+PROTO_ONLINE family, ADVENT, PROTO_ADVENT, SEGMENT training and EVALUATION
+mode): the same launch, the ranks arranged as a (world // tp) × tp grid
+(`parallel.mesh.resolve`; DATA_PARALLEL is then ignored). The batch splits
+over the data axis only: the local batch is TRAINING.BATCH_SIZE // (world //
+tp), the model ranks of one data index load the same rows and seed their
+replay buffers alike, and each rank holds its channel shards of the model's
+wide layers (`parallel.tensor`), and of ADVENT's discriminators; PROTO_ADVENT
+keeps its discriminators whole, as JAX does. The files (`adapt_state.pt`,
+`advent_state.pt`, `model_train_*.pth`) hold whole tensors in one process's
+layout, written by rank 0, so they load into one process and back, and
+EVALUATION cuts any of them into its ranks' shards. On one card the ranks
+share it through gloo; with a card per rank they use NCCL.
 
 Under OTHERS.ASYNC_SAVE the checkpoints are written in the background;
 `main` waits for every write, and raises a failed one, before it returns. It
@@ -63,7 +64,12 @@ import torch
 
 
 def get_arguments(argv=None):
-    parser = argparse.ArgumentParser(description="Online domain adaptation (OnDA), PyTorch")
+    parser = argparse.ArgumentParser(
+        description="Online domain adaptation (OnDA), PyTorch",
+        epilog="Across ranks: python -m torch.distributed.run --nproc-per-node N -m "
+               "onda_torch.train_ouda --cfg <yaml>; TRAINING.BATCH_SIZE is the global batch. "
+               "OTHERS.TENSOR_PARALLEL: tp in the yaml shards the model's channels over tp "
+               "ranks, a (N // tp) x tp grid, on every method and mode.")
     parser.add_argument("--cfg", type=str, required=True, help="config file")
     parser.add_argument("--wandb", action="store_true", help="also log to wandb")
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
@@ -282,7 +288,7 @@ def _segment_pretraining(cfg, model, variables, num_classes, logger, device, sou
         # pretraining is evaluated on the source and every target val set
         # (the reference's validation dict aliases both, train_ouda.py:146-156)
         trainer.train(source_dataloader, validation_sets)
-        variables = {"params": trainer.params, "batch_stats": trainer.batch_stats}
+        variables = trainer.variables()  # whole: the adapter cuts its own shards
         source_model = trainer.state_dict()
     else:
         source_model = {k: v.detach().cpu() for k, v in model.state_dict().items()}

@@ -31,6 +31,7 @@ from onda_torch.models import build_deeplab_v2
 from onda_torch.models.convert import flax_to_state_dict
 from onda_torch.models.deeplabv2 import ResLayer
 from onda_torch.models.layers import GroupNorm, TorchBatchNorm
+from onda_torch.parallel import distributed, mesh
 
 from .synthetic import make_synthetic_dataset
 from .test_torch_cli import _main
@@ -564,21 +565,33 @@ def _segment_cfg(tmp_path, **over):
     return cfg, snap
 
 
-@pytest.mark.parametrize("option", ["DATA_PARALLEL", "TENSOR_PARALLEL"])
+@pytest.mark.parametrize("option", ["DATA_PARALLEL"])
 def test_segment_config_refuses_unported_options_before_training(tmp_path, option):
-    """OTHERS.TENSOR_PARALLEL stops the CLI before SEGMENT trains.
-    OTHERS.DATA_PARALLEL true in one process is the JAX package's one-device
-    path (one device: no mesh), so the same config trains and saves; its
-    refusal across ranks is in tests/test_torch_parallel.py."""
+    """OTHERS.DATA_PARALLEL true in one process is the JAX package's
+    one-device path (one device: no mesh), so the same config trains and
+    saves; its refusal across ranks is in tests/test_torch_parallel.py.
+    OTHERS.TENSOR_PARALLEL is ported too
+    (`test_segment_config_resolves_a_grid_under_tensor_parallel`)."""
     cfg, snap = _segment_cfg(tmp_path, **{f"OTHERS.{option}": True})
-    if option == "DATA_PARALLEL":
-        _main(cfg)
-        assert os.path.isfile(os.path.join(snap, "model_train_[[0]].pth"))
-        return
-    with pytest.raises(NotImplementedError, match=option):
-        _main(cfg)
-    written = os.listdir(snap) if os.path.isdir(snap) else []
-    assert not [f for f in written if f.endswith((".pth", ".pt"))]
+    _main(cfg)
+    assert os.path.isfile(os.path.join(snap, "model_train_[[0]].pth"))
+
+
+def test_segment_config_resolves_a_grid_under_tensor_parallel(monkeypatch):
+    """OTHERS.TENSOR_PARALLEL no longer stops SEGMENT training:
+    training_fog.yml with it at 2 on two ranks resolves to a (1 × 2) grid,
+    data axis 1, with no I/O (the world set without a process group; the run
+    itself is tests/test_torch_tensor_parallel_adversarial.py's), and True
+    is refused by JAX's guard before anything trains."""
+    monkeypatch.setattr(distributed, "world", lambda: 2)
+    cfg = cfg_from_file("configs/training_fog.yml")
+    cfg.TRAINING.BATCH_SIZE = 2
+    cfg.OTHERS.TENSOR_PARALLEL = 2
+    assert int(cfg.METHOD.PRETRAIN.SEGMENT.EPOCHS) > 0
+    assert mesh.data_axis(cfg) == 1 and mesh.grid_shape(2, 2) == (1, 2)
+    cfg.OTHERS.TENSOR_PARALLEL = True
+    with pytest.raises(ValueError, match="integer"):
+        mesh.data_axis(cfg)
 
 
 def test_segment_config_with_async_save_trains_and_saves(tmp_path):

@@ -604,29 +604,14 @@ def test_two_rank_cli_keys_and_evaluation_match_one_process(cli_runs):
     assert miou[0] == miou[1] and len(miou[0]) == 6
 
 
-@pytest.mark.parametrize("config, over, option", [
-    ("advent", {"OTHERS.TENSOR_PARALLEL": 2}, "TENSOR_PARALLEL")])
-def test_unported_paths_refuse_under_two_ranks(tmp_path, monkeypatch, config, over, option):
-    """Under two ranks an option the port does not run on a path
-    (OTHERS.TENSOR_PARALLEL outside the PROTO_ONLINE family: ADVENT here)
-    stops before anything is written, naming the option and ROADMAP M17. The
-    refusal is taken from the world size before any collective, so the
-    world is set here without a process group."""
+def test_advent_resolves_a_grid_under_two_ranks(monkeypatch):
+    """No path refuses an option under two ranks any more: advent.yml with
+    OTHERS.TENSOR_PARALLEL 2 resolves to a (1 × 2) grid, data axis 1, before
+    anything is read or written (the world set here without a process
+    group); tests/test_torch_tensor_parallel_adversarial.py runs it."""
     monkeypatch.setattr(distributed, "world", lambda: 2)
-    snap = tmp_path / "snap"
-    with open(os.path.join(ROOT, "configs", f"{config}.yml")) as f:
-        cfg = yaml.safe_load(f)
-    cfg["OTHERS"]["SNAPSHOT_DIR"] = str(snap)
-    cfg["TRAINING"]["BATCH_SIZE"] = 2
-    for key, value in over.items():
-        node = cfg
-        *path, name = key.split(".")
-        for part in path:
-            node = node[part]
-        node[name] = value
-    with open(tmp_path / "cfg.yml", "w") as f:
-        yaml.safe_dump(cfg, f)
-    with pytest.raises(NotImplementedError, match=f"{option}.*ROADMAP M17"):
-        with contextlib.redirect_stdout(io.StringIO()):
-            train_ouda.main(["--cfg", str(tmp_path / "cfg.yml"), "--device", "cpu"])
-    assert not snap.exists()
+    cfg = cfg_from_file(os.path.join(ROOT, "configs", "advent.yml"))
+    cfg.TRAINING.BATCH_SIZE = 2
+    cfg.OTHERS.TENSOR_PARALLEL = 2
+    assert mesh.data_axis(cfg) == 1
+    assert mesh.grid_shape(cfg.OTHERS.TENSOR_PARALLEL, 2) == (1, 2)

@@ -104,19 +104,21 @@ def _np(t):
     return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-def _jax_adapter(name, variables, snap):
-    """The JAX adapter of the scenario with OTHERS.DATA_PARALLEL 2."""
+def _jax_adapter(name, variables, snap, others=None):
+    """The JAX adapter of the scenario with OTHERS.DATA_PARALLEL 2 (or the
+    OTHERS overrides `others`)."""
     config, multi, _ = METHODS[name]
     cfg = jax_cfg_from_file(f"configs/{config}.yml", default_config())
     spec = cfg.METHOD.ADAPTATION[cfg.METHOD.ADAPTATION.NAME]
     cfg.MODEL.MULTI_LEVEL = multi
     configure(cfg, spec, snap)
-    cfg.OTHERS.DATA_PARALLEL = WORLD
+    for key, value in (others or {"DATA_PARALLEL": WORLD}).items():
+        cfg.OTHERS[key] = value
     cfg.TRAINING.BATCH_SIZE = B
     jmodel, _ = jax_variables(multi)
     cls = JaxAdvent if name == "advent" else JaxProtoAdvent
     ad = cls(jmodel, variables, cfg, spec, num_classes=C)
-    assert ad.mesh is not None and ad.mesh.size == WORLD
+    assert ad.mesh is not None and ad.mesh.size == (WORLD if others is None else 8)
     return ad
 
 
@@ -148,7 +150,7 @@ def runs(tmp_path_factory):
                "state_dicts": {n: flax_to_state_dict(v) for n, v in variables.items()}}
     started = start_ranks(tmp, payload, world=WORLD)
     try:
-        jax_out = {name: _jax_steps(name, jads[name], boot, steps) for name in METHODS}
+        jax_out = {name: jax_steps(name, jads[name], boot, steps) for name in METHODS}
         single = _single(scenarios, payload["state_dicts"], tmp)
     finally:
         rcs, outs, timed_out = finish_ranks(started, DEADLINE)
@@ -163,7 +165,7 @@ def runs(tmp_path_factory):
     return out
 
 
-def _jax_steps(name, jad, boot, steps):
+def jax_steps(name, jad, boot, steps):
     """Two JAX steps on the mesh; the logs and, after each, the state trees
     on the port's names."""
     if name == "proto_advent":
@@ -325,7 +327,14 @@ def test_two_ranks_match_jax_data_parallel(runs, name):
     Adam moments within GRAD_ENVELOPE, the counts equal; PROTO_ADVENT's
     prototypes as tests/test_torch_parallel.py holds them. Step 0 compares
     every tensor, step 1 the selected ones."""
-    got, want = runs["ranks"][0]["scenarios"][name], runs["jax"][name]
+    check_against_jax(runs["ranks"][0]["scenarios"][name], runs["jax"][name], name,
+                      lambda key: _start(runs, name, key))
+
+
+def check_against_jax(got, want, name, start):
+    """`got`, a run of the port's adversarial scenario `name` (rank 0's),
+    against `want`, the JAX adapter's (`jax_steps`), at the tolerances
+    above; start(key) gives a compared tensor's value before the steps."""
     losses = ADVENT_LOSSES if name == "advent" else PA_LOSSES
     for i in range(STEPS):
         for key in losses:
@@ -343,7 +352,7 @@ def test_two_ranks_match_jax_data_parallel(runs, name):
                 # the update from the same start, against its largest entry
                 # (PARAM_ENVELOPE's atol is below what the gradients' envelope
                 # allows at PROTO_ADVENT's backbone LR)
-                gap = _gap(g, w, _start(runs, name, key))
+                gap = _gap(g, w, start(key))
                 assert gap <= BACKBONE_ENVELOPE, (name, i, key, gap)
             elif tree in ("opt_momentum", "d_aux_opt", "d_main_opt"):
                 err = np.abs(_np(g) - w).max() / max(np.abs(w).max(), 1e-30)

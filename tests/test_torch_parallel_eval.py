@@ -76,20 +76,22 @@ def _np(t):
     return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-def _jax_segment(variables, batches, val, snap):
-    """JAX's SegmentTrainer with OTHERS.DATA_PARALLEL 2: its train() over the
-    same epoch, each step's LR, loss and state recorded."""
+def jax_segment(variables, batches, val, snap, others=None):
+    """JAX's SegmentTrainer with OTHERS.DATA_PARALLEL 2 (or the OTHERS
+    overrides `others`): its train() over the same epoch, each step's LR,
+    loss and state recorded."""
     cfg = jax_cfg_from_file("configs/training_fog.yml", default_config())
     cfg.SCHEME.RESOLUTION = [W, H]
     cfg.SCHEME.ORIGINAL_RES = [RAW_HW[1], RAW_HW[0]]
     cfg.OTHERS.SNAPSHOT_DIR = snap
-    cfg.OTHERS.DATA_PARALLEL = WORLD
+    for key, value in (others or {"DATA_PARALLEL": WORLD}).items():
+        cfg.OTHERS[key] = value
     cfg.TRAINING.BATCH_SIZE = B
     cfg.METHOD.PRETRAIN.SEGMENT.LEARNING_RATE = LR
     cfg.METHOD.PRETRAIN.SEGMENT.EPOCHS = 1
     model = jax_build(num_classes=C, layers=(1, 1, 1, 1), droprate=0.0, multi_level=True)
     tr = JaxTrainer(model, variables, cfg, cfg.METHOD.PRETRAIN.SEGMENT, C, logger=Recorder())
-    assert tr.mesh is not None and tr.mesh.size == WORLD
+    assert tr.mesh is not None and tr.mesh.size == (WORLD if others is None else 8)
     out = {"lr": [], "loss": [], "values": []}
     tr._step = tr._build_step()
     step = tr._step
@@ -149,7 +151,7 @@ def runs(tmp_path_factory):
     started = start_ranks(tmp, {"scenarios": scenarios, "state_dicts": state_dicts},
                           world=WORLD)
     try:
-        jax_out = _jax_segment(variables["segment"], batches, val, str(tmp / "jax"))
+        jax_out = jax_segment(variables["segment"], batches, val, str(tmp / "jax"))
         single = _single(scenarios, state_dicts, tmp)
     finally:
         rcs, outs, timed_out = finish_ranks(started, DEADLINE)
@@ -258,24 +260,30 @@ def test_segment_matches_jax_data_parallel(runs):
     is held within GRAD_ENVELOPE of its largest entry instead (measured
     0.75%; 2.3x that atol in layer1.0.conv2.weight)."""
     ranks = [_scenario(runs, "segment", r) for r in range(WORLD)]
-    jax_out = runs["jax"]
-    assert np.float32(ranks[0]["lr"]).tolist() == jax_out["lr"]
+    check_segment_against_jax([sum(r["loss"][i] for r in ranks) for i in range(STEPS)],
+                              ranks[0], runs["jax"], runs["start"])
+
+
+def check_segment_against_jax(losses, got, jax_out, start_sd):
+    """The global batch's `losses` and rank 0's run `got` (LRs, whole values,
+    records) against `jax_out` (`jax_segment`), at the tolerances above;
+    start_sd: the weights before the steps."""
+    assert np.float32(got["lr"]).tolist() == jax_out["lr"]
     for i in range(STEPS):
-        total = sum(r["loss"][i] for r in ranks)
-        np.testing.assert_allclose(total, jax_out["loss"][i], rtol=1e-4 if i == 0 else 1e-3)
+        np.testing.assert_allclose(losses[i], jax_out["loss"][i], rtol=1e-4 if i == 0 else 1e-3)
         tol = dict(rtol=1e-4, atol=1e-5) if i == 0 else dict(rtol=1e-3, atol=6e-4)
-        values = ranks[0]["values"][i]
+        values = got["values"][i]
         for key, want in jax_out["values"][i].items():
-            got = values.get(f"params.{key}", values.get(f"batch_stats.{key}"))
+            g = values.get(f"params.{key}", values.get(f"batch_stats.{key}"))
             if key.endswith("num_batches_tracked"):
                 continue
             if i == 0 and f"params.{key}" in values and not key.startswith("layer6."):
-                start = thin(runs["start"][key])
-                gap = np.abs(_np(got) - want).max() / max(np.abs(want - _np(start)).max(), 1e-30)
+                start = thin(start_sd[key])
+                gap = np.abs(_np(g) - want).max() / max(np.abs(want - _np(start)).max(), 1e-30)
                 assert gap <= GRAD_ENVELOPE, (key, gap)
                 continue
-            np.testing.assert_allclose(_np(got), want, err_msg=f"{i} {key}", **tol)
-    got, want = ranks[0]["records"], jax_out["records"]
+            np.testing.assert_allclose(_np(g), want, err_msg=f"{i} {key}", **tol)
+    got, want = got["records"], jax_out["records"]
     assert [set(r) for r in got] == [set(r) for r in want]
     assert got[0]["Segmentation loss"] == pytest.approx(want[0]["Segmentation loss"], rel=1e-4)
     for key in ("Val mIoU of v", "Val std IoU of v", "val entropy of v",

@@ -11,15 +11,14 @@ at tests/test_torch_step.py's tolerances. The plan is held against JAX's
 and the grid's shape against JAX's `data_parallel_setup` (b), the autograd
 pieces on a small chain of the model's layers (c), the bits of the whole
 leaves across ranks (f), files between the grid and one process (g) and the
-refusal of the other families (h). A model axis of 1 is the data-parallel
-path: tests/test_torch_parallel.py::test_collectives_per_step holds its
-collectives, and (i) here holds the data group's. The workers
+other families' configs on a grid (h; their steps are
+tests/test_torch_tensor_parallel_adversarial.py's). A model axis of 1 is the
+data-parallel path: tests/test_torch_parallel.py::test_collectives_per_step
+holds its collectives, and (i) here holds the data group's. The workers
 (tests/torch_parallel_worker.py) run under a deadline, with their output in
 files, and are killed when it passes.
 """
 
-import contextlib
-import io
 import os
 import shutil
 
@@ -28,14 +27,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import yaml
 
 from onda_tpu.config import cfg_from_file as jax_cfg_from_file
 from onda_tpu.config import default_config
 from onda_tpu.methods.proto_online import ProtoOnlineAdapter as JaxAdapter
 from onda_tpu.models import build_deeplab_v2 as jax_build
 from onda_tpu.parallel import mesh as jax_mesh
-from onda_torch import train_ouda
+from onda_torch.config import cfg_from_file
 from onda_torch.models import build_deeplab_v2
 from onda_torch.models.convert import flax_to_state_dict, torch_key
 from onda_torch.ops import kernels as K
@@ -570,28 +568,28 @@ def test_ewc_term_counts_once_on_the_grid(runs, inputs):
 
 
 # ---------------------------------------------------------------------------
-# (h) the families that refuse
+# (h) the other families on a grid
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("config, over", [
-    ("advent", {}), ("proto_advent", {}), ("training_fog", {}),
-    ("validation_offline_fog", {})])
-def test_other_families_refuse_tensor_parallel(tmp_path, monkeypatch, config, over):
-    """(h): ADVENT, PROTO_ADVENT, SEGMENT training and EVALUATION mode stop
-    under OTHERS.TENSOR_PARALLEL 2 on two ranks before anything is read or
-    written, naming the option and ROADMAP M17 (the world set without a
-    process group: the refusal comes before any collective)."""
+def _two_rank_cfg(monkeypatch, config, option):
+    """configs/<config>.yml with OTHERS.TENSOR_PARALLEL = option and global
+    batch 2, on two ranks (the world set without a process group)."""
     monkeypatch.setattr(distributed, "world", lambda: 2)
-    snap = tmp_path / "snap"
-    with open(os.path.join(ROOT, "configs", f"{config}.yml")) as f:
-        cfg = yaml.safe_load(f)
-    cfg["OTHERS"]["SNAPSHOT_DIR"] = str(snap)
-    cfg["OTHERS"]["TENSOR_PARALLEL"] = 2
-    cfg["TRAINING"]["BATCH_SIZE"] = 2
-    cfg["SCHEME"]["PATH"] = str(tmp_path / "no_dataset") + "/"
-    with open(tmp_path / "cfg.yml", "w") as f:
-        yaml.safe_dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="TENSOR_PARALLEL.*ROADMAP M17"):
-        with contextlib.redirect_stdout(io.StringIO()):
-            train_ouda.main(["--cfg", str(tmp_path / "cfg.yml"), "--device", "cpu"])
-    assert not snap.exists()
+    cfg = cfg_from_file(os.path.join(ROOT, "configs", f"{config}.yml"))
+    cfg.OTHERS.TENSOR_PARALLEL = option
+    cfg.TRAINING.BATCH_SIZE = 2
+    return cfg
+
+
+@pytest.mark.parametrize("config", ["advent", "proto_advent", "training_fog",
+                                    "validation_offline_fog"])
+def test_other_families_resolve_a_grid_under_tensor_parallel(monkeypatch, config):
+    """(h): ADVENT, PROTO_ADVENT, SEGMENT training and EVALUATION mode no
+    longer refuse OTHERS.TENSOR_PARALLEL: under 2 on two ranks each config
+    resolves to a (1 × 2) grid, data axis 1, before anything is read or
+    written; only JAX's guards refuse (True)."""
+    cfg = _two_rank_cfg(monkeypatch, config, 2)
+    assert mesh.data_axis(cfg) == 1
+    assert mesh.grid_shape(cfg.OTHERS.TENSOR_PARALLEL, 2) == (1, 2)
+    with pytest.raises(ValueError, match="integer"):
+        mesh.data_axis(_two_rank_cfg(monkeypatch, config, True))

@@ -3,8 +3,9 @@
 --device cpu` with OTHERS.TENSOR_PARALLEL 2, a (1 × 2) grid of gloo ranks,
 beside the one-process CLI on the same config without it; then an
 AUTO_RESUME rerun of the grid; then the grid's `adapt_state.pt` in one
-process. The R50 of every run is cut to one bottleneck a stage (the worker's
-`cli` mode, `registry.LAYERS`)."""
+process. Then advent.yml on a (1 × 2) grid and validation_offline_advent.yml
+on its snapshot, on the grid beside one process. The R50 of every run is cut
+to one bottleneck a stage (the worker's `cli` mode, `registry.LAYERS`)."""
 
 import contextlib
 import io
@@ -176,3 +177,104 @@ def test_grid_auto_resume_restores_on_both_ranks(cli_runs):
     text = cli_runs["resumed_log"]
     assert len(re.findall(r"AUTO_RESUME: restoring \S*adapt_state\.pt", text)) == TP, text[-3000:]
     assert len(_steps(cli_runs["resumed_records"])) == 2 * len(_steps(cli_runs["grid"]["records"]))
+
+
+# ---------------------------------------------------------------------------
+# advent.yml and its EVALUATION on the grid
+# ---------------------------------------------------------------------------
+
+def _advent_cfg(path, config, root, snap, **spec):
+    """configs/<config>.yml (advent, validation_offline_advent) cut to the
+    synthetic dataset as the CLI tests cut it, on a (1 × 2) grid."""
+    with open(os.path.join(ROOT, "configs", f"{config}.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["SCHEME"].update(PATH=root + "/", RESOLUTION=[64, 32], DOMAIN_ORDER=[[25], [50]])
+    cfg["TRAINING"].update(BATCH_SIZE=BATCH, REPLAY_BUFFER=PER_DOMAIN)
+    cfg["OTHERS"].update(SNAPSHOT_DIR=snap, NUM_WORKERS=2, TENSOR_PARALLEL=TP)
+    cfg["MODEL"]["LOAD"] = None
+    cfg["METHOD"]["ADAPTATION"][cfg["METHOD"]["ADAPTATION"]["NAME"]].update(
+        EPOCHS=1, LOAD_PROTO=None, **spec)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def advent_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp_advent_cli")
+    try:
+        yield _advent_runs(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _advent_runs(tmp):
+    """advent.yml on the grid; then validation_offline_advent.yml on its
+    snapshot on the grid and, meanwhile, in one process (without the
+    option)."""
+    root, snap = str(tmp / "ds"), str(tmp / "snap")
+    make_synthetic_dataset(root, intensities=(0, 25, 50), per_domain=PER_DOMAIN,
+                           size_wh=(64, 32))
+    text = _finish(*_torchrun(_advent_cfg(tmp / "advent.yml", "advent", root, snap),
+                              tmp / "advent.log"))
+    runs = {"log": text, "records": _records(snap), "files": sorted(os.listdir(snap)),
+            "state": torch.load(os.path.join(snap, "advent_state.pt"), weights_only=False)}
+    n = len(runs["records"])
+    proc, log = _torchrun(_advent_cfg(tmp / "eval.yml", "validation_offline_advent", root, snap,
+                                      PSEUDO_THRESH=0.06), tmp / "eval.log")
+    one_snap = str(tmp / "one_snap")
+    shutil.copytree(snap, one_snap, ignore=shutil.ignore_patterns("metrics.jsonl"))
+    one_cfg = _advent_cfg(tmp / "one_eval.yml", "validation_offline_advent", root, one_snap,
+                          PSEUDO_THRESH=0.06)
+    with open(one_cfg) as f:
+        cfg = yaml.safe_load(f)
+    cfg["OTHERS"].pop("TENSOR_PARALLEL")
+    with open(one_cfg, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), pytest.MonkeyPatch.context() as mp:
+        mp.setitem(registry.LAYERS, "DeepLabv2-Resnet50", (1, 1, 1, 1))
+        one = train_ouda.main(["--cfg", one_cfg, "--device", "cpu"])
+    runs["eval_log"] = _finish(proc, log)
+    runs["eval_records"] = _records(snap)[n:]
+    runs["one_eval_log"], runs["one_eval_records"] = out.getvalue(), _records(one_snap)
+    runs["one_shapes"] = {k: tuple(v.shape) for k, v in one.state.params.items()}
+    return runs
+
+
+def test_advent_on_the_grid_writes_one_process_files(advent_runs):
+    """advent.yml under torchrun with OTHERS.TENSOR_PARALLEL 2: exit 0, every
+    step of both domains once in metrics.jsonl with finite losses (one
+    writer), the files written once and no temporary left; `advent_state.pt`
+    holds the whole tensors (the student's as one process's model, both
+    discriminators' sharded convs and Adam moments at full width) and the
+    step and Adam counts of every step."""
+    steps = [r for r in advent_runs["records"] if "Adversarial loss" in r]
+    assert len(steps) == 2 * PER_DOMAIN // BATCH
+    for r in steps:
+        for key, value in r.items():
+            assert "loss" not in key or math.isfinite(value), key
+    assert advent_runs["files"] == ["advent_state.pt", "metrics.jsonl",
+                                    "model_train_[[0]]_after_src_training.pth", "samples"]
+    state = advent_runs["state"]
+    assert {k: tuple(v.shape) for k, v in state["params"].items()} == advent_runs["one_shapes"]
+    for tree in ("d_main", "d_aux"):
+        assert tuple(state[tree]["conv3.weight"].shape) == (512, 256, 4, 4)
+        assert tuple(state[f"{tree}_opt"]["nu"]["conv1.weight"].shape) == (128, 64, 4, 4)
+        assert state[f"{tree}_opt"]["count"] == len(steps)
+    assert state["step"] == len(steps)
+
+
+def test_advent_evaluation_on_the_grid_matches_one_process(advent_runs):
+    """validation_offline_advent.yml on the grid's snapshot, on the grid: both
+    ranks load `advent_state.pt` (cut into their shards), and every `Val
+    mIoU*` it logs equals one process's EVALUATION of the same file."""
+    loaded = re.findall(r"Model \S*advent_state\.pt is being loaded", advent_runs["eval_log"])
+    assert len(loaded) == TP, advent_runs["eval_log"][-3000:]
+    assert "advent_state.pt is being loaded" in advent_runs["one_eval_log"]
+
+    def miou(records):
+        return {k: v for r in records for k, v in r.items() if k.startswith("Val mIoU")}
+
+    got, want = miou(advent_runs["eval_records"]), miou(advent_runs["one_eval_records"])
+    assert want and got == want

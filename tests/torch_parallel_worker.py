@@ -17,7 +17,8 @@ scenario's kind: `proto` (the default) bootstraps the prototypes, evaluates
 and takes PROTO_ONLINE steps; `tensor_parallel` does so on a (data × model)
 grid (OTHERS.TENSOR_PARALLEL), then saves and loads whole-state files;
 `adversarial` takes ADVENT or PROTO_ADVENT steps; `segment` runs
-`SegmentTrainer.train`; `evaluation` makes the
+`SegmentTrainer.train` (both on a grid where the scenario names a "tp");
+`evaluation` makes the
 EVALUATION runner on a directory of checkpoints, evaluates, sweeps and dumps
 predictions, with a read failure injected on rank 1 where the scenario asks.
 It writes `rank<r>.pt`: per scenario the logs, a digest of every tensor of
@@ -31,6 +32,7 @@ import contextlib
 import hashlib
 import io
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -98,12 +100,14 @@ def make_adapter(state_dict, config, spec_over, snap, hw, batch, others=None):
     return ProtoOnlineAdapter(model, registry.variables_of(model), cfg, spec, 19, device="cpu")
 
 
-def state_tensors(state):
-    """Every tensor of an AdaptState by a flat name."""
+def state_tensors(state, cut=None):
+    """Every tensor of an AdaptState by a flat name; with `cut` (an adapter's
+    `_whole`), the trees of the model's tensors through it."""
     out = {}
     for tree in ("params", "batch_stats", "alt_batch_stats", "opt_momentum", "ema_params",
                  "dynamic_params", "dynamic_batch_stats"):
-        out.update({f"{tree}.{k}": v for k, v in getattr(state, tree).items()})
+        t = getattr(state, tree)
+        out.update({f"{tree}.{k}": v for k, v in (cut(t) if cut else t).items()})
     for name in ("proto", "monitor", "switch"):
         out.update({f"{name}.{k}": v for k, v in vars(getattr(state, name)).items()})
     out["generator"] = state.generator.get_state()
@@ -371,19 +375,24 @@ def run_chain(sc, state_dict, rank, world, snap):
 
 # ---- ADVENT and PROTO_ADVENT ---------------------------------------------
 
-def adversarial_tensors(ad):
+def adversarial_tensors(ad, whole=False):
     """Every tensor of an ADVENT or PROTO_ADVENT adapter's state by a flat
-    name, the discriminators and their Adam states (`count` included)."""
+    name, the discriminators and their Adam states (`count` included): this
+    rank's, or with `whole` the whole ones (on a grid, the shards gathered:
+    a collective every rank joins)."""
     if hasattr(ad, "d_state"):  # PROTO_ADVENT: an AdaptState beside the discriminators
-        out = state_tensors(ad.state)
+        out = state_tensors(ad.state, ad._whole if whole else None)
         discs = {"d_aux": ad.d_state["aux"], "d_main": ad.d_state["main"],
                  "d_aux_opt": ad.d_state["aux_opt"], "d_main_opt": ad.d_state["main_opt"]}
     else:
-        s = ad.state
-        out = {f"{tree}.{k}": v for tree in ("params", "batch_stats", "opt_momentum")
-               for k, v in getattr(s, tree).items()}
-        out["generator"] = s.generator.get_state()
-        discs = {name: getattr(s, name) for name in ("d_aux", "d_main", "d_aux_opt", "d_main_opt")}
+        fields = ("params", "batch_stats", "opt_momentum", "d_aux", "d_main", "d_aux_opt",
+                  "d_main_opt")
+        trees = {name: getattr(ad.state, name) for name in fields}
+        if whole:
+            trees = ad._trees(trees, ad._whole)
+        out = {f"{tree}.{k}": v for tree in fields[:3] for k, v in trees[tree].items()}
+        out["generator"] = ad.state.generator.get_state()
+        discs = {name: trees[name] for name in fields[3:]}
     for name, tree in discs.items():
         if name.endswith("_opt"):
             out.update({f"{name}.{m}.{k}": v for m in ("mu", "nu") for k, v in tree[m].items()})
@@ -405,11 +414,11 @@ def thin(x):
 
 
 def adversarial_values(ad, full: bool):
-    """The compared tensors, thinned (`thin`): with `full` every tensor
-    (rank 0's after the first step), else the selected parameters,
+    """The compared tensors, whole and thinned (`thin`): with `full` every
+    tensor (rank 0's after the first step), else the selected parameters,
     statistics and the discriminators' first and last layers with their
     Adam moments."""
-    tensors = adversarial_tensors(ad)
+    tensors = adversarial_tensors(ad, whole=True)
     if full:
         keep = [k for k in tensors if k != "generator"]
     else:
@@ -423,11 +432,14 @@ def adversarial_values(ad, full: bool):
 
 
 def make_adversarial(sc, state_dict, snap):
-    """The scenario's ADVENT or PROTO_ADVENT adapter at its global batch,
-    its discriminators the payload's."""
+    """The scenario's ADVENT or PROTO_ADVENT adapter at its global batch (on
+    a grid of OTHERS.TENSOR_PARALLEL = sc["tp"], if set), its discriminators
+    the payload's."""
     cfg, spec = configure(sc["config"], sc["spec"], snap, sc["hw"])
     cfg.TRAINING.BATCH_SIZE = sc["batch"]
     cfg.MODEL.MULTI_LEVEL = sc["multi_level"]
+    if sc.get("tp"):
+        cfg.OTHERS.TENSOR_PARALLEL = sc["tp"]
     model = model_of(state_dict, sc["multi_level"])
     ad = registry.get_adapt_method(cfg)(model, registry.variables_of(model), cfg, spec, 19,
                                         device="cpu")
@@ -435,26 +447,36 @@ def make_adversarial(sc, state_dict, snap):
     if hasattr(ad, "d_state"):
         ad.d_state["aux"], ad.d_state["main"] = discs["d_aux"], discs["d_main"]
     else:
-        ad.state.d_aux, ad.state.d_main = discs["d_aux"], discs["d_main"]
+        ad.state.d_aux, ad.state.d_main = (ad._shard(discs[n], ad.disc_plan)
+                                           for n in ("d_aux", "d_main"))
     return ad
 
 
 def run_adversarial(sc, state_dict, rank, world, snap):
-    """The scenario's steps on this rank's rows (PROTO_ADVENT after a
-    bootstrap on its rows of the payload's source batch)."""
+    """The scenario's steps on its data index's rows (PROTO_ADVENT after a
+    bootstrap on its rows of the payload's source batch). On a grid, also
+    the collectives by group, the bytes of the discriminators this rank
+    holds, `save_model` and a load of sc["load"] (a file one process wrote),
+    whose whole tensors' digests rank 0 returns, with those of the state it
+    saved ("final")."""
     ad = make_adversarial(sc, state_dict, snap)
-    out = {"logs": [], "digests": [], "values": [], "collectives": []}
+    d, dw = distributed.data_rank(), distributed.data_world()
+    out = {"logs": [], "digests": [], "values": [], "collectives": [], "by_group": [],
+           "grid": (dw, distributed.model_world()), "plan": sorted(ad.plan),
+           "disc_plan": sorted(getattr(ad, "disc_plan", ())),
+           "disc_bytes": sum(v.numel() * v.element_size() for k, v in adversarial_tensors(
+               ad).items() if k.startswith(("d_main.", "d_main_opt.mu.", "d_main_opt.nu.")))}
     if hasattr(ad, "d_state"):
         boot = sc["boot"]
-        ad.calculate_prototypes([{"image": local_rows(nchw(boot["image"]), rank, world),
-                                  "label": local_rows(torch.tensor(boot["label"]), rank, world)}])
+        ad.calculate_prototypes([{"image": local_rows(nchw(boot["image"]), d, dw),
+                                  "label": local_rows(torch.tensor(boot["label"]), d, dw)}])
         step = ad.pa_step_fn()
     else:
         step = ad.build_step()
     for i, (src, trg) in enumerate(sc["steps"]):
-        s_img = local_rows(nchw(src["image"]), rank, world)
-        s_lbl = local_rows(torch.tensor(src["label"]).long(), rank, world)
-        t_img = local_rows(nchw(trg["image"]), rank, world)
+        s_img = local_rows(nchw(src["image"]), d, dw)
+        s_lbl = local_rows(torch.tensor(src["label"]).long(), d, dw)
+        t_img = local_rows(nchw(trg["image"]), d, dw)
         distributed.reset_counts()
         if hasattr(ad, "d_state"):
             ad.state, ad.d_state, logs = step(ad.state, ad.d_state, s_img, s_lbl, t_img,
@@ -462,9 +484,20 @@ def run_adversarial(sc, state_dict, rank, world, snap):
         else:
             ad.state, logs = step(ad.state, s_img, s_lbl, t_img, sc["lr"], sc["lr_d"])
         out["collectives"].append(distributed.counts())
+        out["by_group"].append({g: dict(c) for g, c in distributed.COUNTS.items()})
         out["logs"].append({k: float(v) for k, v in logs.items()})
         out["digests"].append({k: digest(v) for k, v in adversarial_tensors(ad).items()})
-        out["values"].append(adversarial_values(ad, full=i == 0) if rank == 0 else {})
+        values = adversarial_values(ad, full=i == 0)
+        out["values"].append(values if rank == 0 else {})
+    if sc.get("tp"):
+        final = adversarial_tensors(ad, whole=True)
+        out["final"] = {k: digest(v) for k, v in final.items()} if rank == 0 else {}
+        ad.save_model()
+        if sc.get("load"):
+            ad.load_model(sc["load"])
+            loaded = adversarial_tensors(ad, whole=True)
+            out["loaded"] = {k: digest(v) for k, v in loaded.items()} if rank == 0 else {}
+        out["files"] = sorted(os.listdir(snap)) if os.path.isdir(snap) else []
     return out
 
 
@@ -472,6 +505,8 @@ def run_adversarial(sc, state_dict, rank, world, snap):
 
 def make_trainer(sc, state_dict, snap):
     cfg = cfg_from_file(os.path.join(ROOT, "configs", "training_fog.yml"))
+    if sc.get("tp"):
+        cfg.OTHERS.TENSOR_PARALLEL = sc["tp"]
     h, w = sc["hw"]
     cfg.SCHEME.RESOLUTION = [w, h]
     cfg.SCHEME.ORIGINAL_RES = [sc["raw_hw"][1], sc["raw_hw"][0]]
@@ -485,34 +520,41 @@ def make_trainer(sc, state_dict, snap):
 
 
 def run_segment(sc, state_dict, rank, world, snap):
-    """`SegmentTrainer.train` over one epoch of this rank's rows of the
-    payload's batches, with its evaluation of this rank's validation rows;
-    each step's LR, loss (this rank's share), collectives and state."""
+    """`SegmentTrainer.train` over one epoch of its data index's rows of the
+    payload's batches, with its evaluation of those validation rows; each
+    step's LR, loss (this rank's share), collectives and state (the values
+    whole)."""
     tr = make_trainer(sc, state_dict, snap)
-    out = {"lr": [], "loss": [], "digests": [], "values": [], "collectives": []}
+    d, dw = distributed.data_rank(), distributed.data_world()
+    out = {"lr": [], "loss": [], "digests": [], "values": [], "collectives": [], "by_group": [],
+           "plan": sorted(tr.plan)}
     step = tr.step
 
     def recorded(images, labels, lr):
         distributed.reset_counts()
         loss = step(images, labels, lr)
         out["collectives"].append(distributed.counts())
+        out["by_group"].append({g: dict(c) for g, c in distributed.COUNTS.items()})
         out["lr"].append(lr)
         out["loss"].append(float(loss))
-        tensors = {**{f"params.{k}": v for k, v in tr.params.items()},
-                   **{f"batch_stats.{k}": v for k, v in tr.batch_stats.items()},
-                   **{f"momentum.{k}": v for k, v in tr.momentum_buf.items()}}
-        out["digests"].append({k: digest(v) for k, v in tensors.items()})
-        out["values"].append({k: thin(v.detach()).clone() for k, v in tensors.items()
-                              if not k.startswith("momentum.")} if rank == 0 else {})
+        trees = {"params": tr.params, "batch_stats": tr.batch_stats, "momentum": tr.momentum_buf}
+        out["digests"].append({f"{t}.{k}": digest(v) for t, tree in trees.items()
+                               for k, v in tree.items()})
+        whole = {f"{t}.{k}": v for t in ("params", "batch_stats")
+                 for k, v in tr._whole(trees[t]).items()}
+        out["values"].append({k: thin(v.detach()).clone() for k, v in whole.items()}
+                             if rank == 0 else {})
         return loss
 
     tr.step = recorded
 
     def rows(batches):
-        return [{k: local_rows(nchw(v) if k == "image" else torch.tensor(v), rank, world)
+        return [{k: local_rows(nchw(v) if k == "image" else torch.tensor(v), d, dw)
                  for k, v in b.items()} for b in batches]
 
     tr.train({"src": rows(sc["steps"])}, {"v": rows(sc["val"])})
+    final = tr.state_dict()
+    out["final"] = {k: digest(v) for k, v in final.items()} if rank == 0 else {}
     out["records"] = tr.logger.records
     out["files"] = sorted(os.listdir(snap)) if os.path.isdir(snap) else []
     return out
@@ -602,9 +644,13 @@ def main():
     results = {"world": world, "backend": distributed.backend(), "scenarios": {}}
     for name, sc in payload["scenarios"].items():
         snap = os.path.join(out_dir, f"snap_{name}_{rank}")
+        if sc.get("card_bn"):  # the BatchNorm variance as K2 takes it on the card
+            K.bn_stats_plain = card_bn_stats
         run = KINDS.get(sc.get("kind"), run_scenario)
         state_dict = payload["state_dicts"][sc["model"]] if "model" in sc else payload["state_dict"]
         results["scenarios"][name] = run(sc, state_dict, rank, world, snap)
+        if sc.get("drop_snapshot"):  # files no test reads: their disk freed at once
+            shutil.rmtree(snap, ignore_errors=True)
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     distributed.destroy()
 
