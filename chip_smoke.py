@@ -23,12 +23,15 @@ Phases:
     and, beside them, the C++ host prep of onda_torch/native (g++);
  3. K1 (pseudo_labels_kernel) against its plain version at the main path's
     shape (P = 4*65*129, F = 256, C = 19), euclidean and mahalanobis, at a
-    rank's b2 of phase 12 and b8, and at C = 1, C = 32 and P = 700 and 1
-    (not multiples of its 128-pixel tile);
+    rank's b2 of phase 12 and b8, at a phase-14 spatial rank's pixels (b2 and
+    b1, 33 or 32 of the 65 feature rows; timed at (1 x 2)'s), and at C = 1,
+    C = 32 and P = 700 and 1 (not multiples of its 128-pixel tile);
  4. K2 (bn_stats_kernel) against a float64 reference at every distinct
     BatchNorm input shape of DeepLabv2-R50 at batch 4, 1024x512 (and a
-    rank's batch 2 of phase 12, and batch 8) and at training_fog.yml's batch
-    4, 128x64 (phase 8.1's SEGMENT run), and at
+    rank's batch 2 of phase 12, and batch 8; a phase-13 rank's channel shards
+    and a phase-14 rank's block of rows, timed summed over a rank's 53
+    inputs) and at training_fog.yml's batch 4, 128x64 (phase 8.1's SEGMENT
+    run), and at
     adversarial shapes (odd planes, one element, planes that start at an odd
     element), f32 and bf16, NCHW and channels_last, each call repeated to show
     that the result is the same bit for bit; its raw-moments output (mean and
@@ -180,8 +183,24 @@ Phases:
     file's one-process load cut into shards equal to the ranks' bit for bit,
     every K1/K2 shape fed among phases 3-4's. 13.1, 13.3, 13.4 and 13.5 are
     jobs of the one run of the (1 x 2) grid. Phase 4 checks and times K2 at
-    the grid's shard shapes. Every phase prints its seconds, and the end
-    the whole script's.
+    the grid's shard shapes.
+ 14. the spatial mesh axis (no config key: `onda_torch.parallel.mesh.
+    spatial_grid`, JAX's make_mesh(shape=(d, s), axes=("data", "spatial"))),
+    each rank holding its block of every image's rows: 14.1 hybrid_switch.yml
+    at full width (R50 3-4-6-3, ProDA head) in memory at b2 1024x512 on a
+    (1 x 2) grid (the pool's 129 rows and the 65-row feature grid split
+    65/64 and 33/32), one process at b2 against the grid after a bootstrap
+    from full-resolution source labels and one step, batch-invariant and as
+    it runs (losses, prototypes, the head's and backbone's updates, the
+    prototype counts, pseudo-labels and gate, Σ|params| within 1e-4; the
+    ranks' whole states equal bit for bit), then 3 timed steps (per-rank step
+    ms, K1 2 on the rank's pixels and K2 159 on its rows a step, every K1/K2
+    shape fed among phases 3-4's, collectives and bytes a step by group: the
+    halo rows on the spatial group, host syncs, peak memory); 14.2 the same
+    on JAX's (2 x 2) shape, batch-invariant, 1 timed step. 14.1's ranks are
+    a job of phase 13's (1 x 2) torchrun, 14.2's of 13.2's four ranks; the
+    one-process references and the checks are phase 14's own. Every phase
+    prints its seconds, and the end the whole script's.
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
@@ -319,8 +338,11 @@ def check_k1(torch, K, P):
     thresh, tau = 0.3, torch.tensor(1.0, device="cuda")
     # the main path's shape, a phase-12 rank's batch of 2, phase 10.2's batch
     # of 8, then C = 1 and 32 and P off the 128-pixel tile
+    # phase 14's spatial ranks: each one's pixels, b2 on (1 x 2), b1 on (2 x 2),
+    # its block of the 65 feature rows (33 or 32)
+    spatial = [(b * rows * 129, 256, 19) for b in (2, 1) for rows in (33, 32)]
     cases = [main, (2 * 65 * 129, 256, 19), (8 * 65 * 129, 256, 19), (main[0], 256, 1),
-             (main[0], 256, 32), (700, 256, 19), (1, 256, 19)]
+             (main[0], 256, 32), (700, 256, 19), (1, 256, 19), *spatial]
     max_err = 0.0
     for n_pix, n_feat, n_cls in cases:
         feat, protos, prior, scale = k1_inputs(torch, n_pix, n_feat, n_cls, 1)
@@ -354,6 +376,17 @@ def check_k1(torch, K, P):
           f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB), "
           f"{100 * share(b_ms, ms):.1f}% of the bound; feat.sum() alone {read:.4f} ms; "
           f"K1 at P=1 {ms_one:.4f} ms")
+    timed = {}
+    for n_pix, n_feat, n_cls in spatial[:2]:  # a (1 x 2) spatial rank's pixels
+        f_, p_, pr_, sc_ = k1_inputs(torch, n_pix, n_feat, n_cls, 1)
+        k_ms = cuda_ms(torch, lambda: K.pseudo_labels(f_, p_, pr_, tau, thresh, sc_))
+        p_ms = cuda_ms(torch, lambda: P.pseudo_labels_plain(f_, p_, pr_, tau, thresh, sc_))
+        nb = 4 * (n_pix * n_feat + n_cls * n_feat + 2 * n_pix * n_cls + n_feat + 1 + 2 * n_pix)
+        s_ms, s_by = bound_ms(nb, 2.0 * n_pix * n_cls * n_feat + n_pix * n_feat)
+        timed[n_pix] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": s_ms, "bound_by": s_by}
+        print(f"K1 at a (1 x 2) spatial rank's P={n_pix} (mahalanobis, cold L2): kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {s_ms:.4f} ms ({s_by}), "
+              f"{100 * share(s_ms, k_ms):.1f}% of the bound")
     return {"name": "pseudo_labels_kernel", "route": "cuda",
             "source": "onda_torch/csrc/pseudo_labels.cu",
             "replaces": "onda_tpu/ops/pallas_kernels.py:60",
@@ -361,7 +394,7 @@ def check_k1(torch, K, P):
             "checked_shapes": [list(c) for c in cases],
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "bound_share": share(b_ms, ms),
-            "library_ms": None, "check": "pass"}
+            "library_ms": None, "spatial_ranks": timed, "check": "pass"}
 
 
 # ---------------------------------------------------------------------------
@@ -369,13 +402,21 @@ def check_k1(torch, K, P):
 # ---------------------------------------------------------------------------
 
 
-def bn_input_shapes(torch, batch=4, hw=(512, 1024), tp=1):
+def bn_input_shapes(torch, batch=4, hw=(512, 1024), tp=1, rows=None):
     """Input shape of every BatchNorm call of one R50 forward (meta tensors),
     as K2 meets it on a rank of a grid with a model axis of `tp`: the
-    channel shard of each BatchNorm the plan shards (`parallel.tensor`)."""
+    channel shard of each BatchNorm the plan shards (`parallel.tensor`); or
+    with `rows` (s, r), on spatial index r of a spatial axis of s: its block
+    of each input's rows (`parallel.spatial.split`)."""
     from onda_torch.models import build_deeplab_v2
     from onda_torch.models.layers import TorchBatchNorm
+    from onda_torch.parallel import spatial as S
     from onda_torch.parallel import tensor as T
+
+    if rows is not None:
+        s, r = rows
+        return [(n, c, S.split(h, s)[r][1] - S.split(h, s)[r][0], w)
+                for n, c, h, w in bn_input_shapes(torch, batch, hw)]
 
     with torch.device("meta"):
         model = build_deeplab_v2(19, (3, 4, 6, 3), "ProDA")
@@ -475,7 +516,13 @@ def check_k2(torch, K, layers, out_dir):
     # and a (2 x 2) grid's at b2 (channel shards)
     grids = {"(1 x 2) b4": bn_input_shapes(torch, batch=4, tp=TP_SIZE),
              "(2 x 2) b2": bn_input_shapes(torch, batch=2, tp=TP_SIZE)}
-    grid_shapes = set(grids["(1 x 2) b4"]) | set(grids["(2 x 2) b2"])
+    # phase 14's spatial ranks: each one's block of every input's rows, b2 on
+    # (1 x 2), b1 on (2 x 2)
+    for (d, sp), _, _ in SP_GRIDS.values():
+        for r in range(sp):
+            grids[f"({d} x {sp}) spatial b{SP_BATCH // d} rank {r}"] = bn_input_shapes(
+                torch, batch=SP_BATCH // d, rows=(sp, r))
+    grid_shapes = set().union(*grids.values())
     extra = (set(segment_bn_shapes(torch)) | set(segment_bn_shapes(torch, tp=TP_SIZE))
              | set(bn_input_shapes(torch, batch=2))
              | set(bn_input_shapes(torch, batch=8)) | grid_shapes)
@@ -530,7 +577,8 @@ def check_k2(torch, K, layers, out_dir):
         tp_totals[grid] = {"ms": t[0], "plain_ms": t[1], "library_ms": t[2], "bound_ms": t[3],
                            "moments_ms": sum(raw_ms[s] for s in fed),
                            "shapes": sorted(set(fed) - set(distinct))}
-        print(f"K2 over the 53 BN inputs a rank of phase 13's {grid} grid feeds one forward "
+        print(f"K2 over the 53 BN inputs a rank of the {grid} grid (phases 13-14) feeds one "
+              f"forward "
               f"(f32, {len(set(fed) - set(distinct))} shard shapes no one-process forward has): "
               f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, torch.var_mean {t[2]:.4f} ms, bound "
               f"{t[3]:.4f} ms, {100 * share(t[3], t[0]):.1f}% of the bound; raw moments "
@@ -2093,14 +2141,16 @@ def write_bern_metadata(root, rows):
 
 class KernelShapes:
     """Records the input shape of every K1 and K2 call while it is entered
-    (the wrappers are wrapped, so the launch counts are theirs)."""
+    (the wrappers are wrapped, so the launch counts are theirs); with
+    `moments`, K2's raw-moments calls too."""
 
-    def __init__(self, K):
-        self.K, self.k1, self.k2 = K, set(), set()
+    def __init__(self, K, moments=False):
+        self.K, self.k1, self.k2, self.moments = K, set(), set(), moments
 
     def __enter__(self):
-        pseudo_labels, bn_stats = self.K.pseudo_labels, self.K.bn_stats
-        self.saved = pseudo_labels, bn_stats
+        pseudo_labels, bn_stats, bn_moments = (self.K.pseudo_labels, self.K.bn_stats,
+                                               self.K.bn_moments)
+        self.saved = pseudo_labels, bn_stats, bn_moments
 
         def k1(feat, protos, *args, **kwargs):
             self.k1.add((feat.shape[0], feat.shape[1], protos.shape[0]))
@@ -2110,11 +2160,17 @@ class KernelShapes:
             self.k2.add((tuple(x.shape), str(x.dtype)))
             return bn_stats(x)
 
+        def k2_moments(x):
+            self.k2.add((tuple(x.shape), str(x.dtype)))
+            return bn_moments(x)
+
         self.K.pseudo_labels, self.K.bn_stats = k1, k2
+        if self.moments:  # K2's raw moments too (ranks that split the pixels)
+            self.K.bn_moments = k2_moments
         return self
 
     def __exit__(self, *exc):
-        self.K.pseudo_labels, self.K.bn_stats = self.saved
+        self.K.pseudo_labels, self.K.bn_stats, self.K.bn_moments = self.saved
 
 
 def one_step_syncs(torch, K, adapter, batch, seed):
@@ -2495,16 +2551,19 @@ def batch_invariant(torch):
         K.bn_stats, K.bn_moments, torch.backends.cudnn.enabled = saved
 
 
-def dp_compare_step(torch, device, batch, exact, others=None, split=False):
+def dp_compare_step(torch, device, batch, exact, others=None, split=False, split_rows=False):
     """The adapter of hybrid_switch.yml at b`batch` 1024x512 (seeded
     weights, OTHERS overrides `others`) on `device`, bootstrapped on this
     rank's rows of two seeded source batches (those of its data index), after
     one step on its rows of a seeded target batch, with TF32 off and
     deterministic cuDNN (`exact`: `batch_invariant`; `split`: the layers a
-    grid shards compute in its blocks, `split_sharded_layers`); returns
+    grid shards compute in its blocks, `split_sharded_layers`; `split_rows`:
+    every convolution computes in a spatial axis's row blocks,
+    `split_spatial_rows`); returns
     (adapter, step, logs, local batch fn, the parameters before the step on
     the host)."""
     from onda_torch.parallel import distributed as D
+    from onda_torch.parallel import spatial as S
 
     torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
     with batch_invariant(torch) if exact else contextlib.nullcontext():
@@ -2513,10 +2572,16 @@ def dp_compare_step(torch, device, batch, exact, others=None, split=False):
             n = split_sharded_layers(torch, ad)
             check(n == TP_SHARDED_LAYERS, f"the witness split {n} layers, expected "
                                           f"{TP_SHARDED_LAYERS}")
+        if split_rows:
+            n = split_spatial_rows(torch, ad)
+            check(n == SP_CONVS, f"the spatial witness split {n} convolutions, expected {SP_CONVS}")
         d, b = D.data_rank(), batch // D.data_world()
 
-        def local(bt):
-            return {k: v[d * b:(d + 1) * b] for k, v in bt.items()}
+        def local(bt):  # on a spatial grid (phase 14) also this rank's block of rows
+            out = {k: v[d * b:(d + 1) * b] for k, v in bt.items()}
+            if S.active():
+                out = {k: S.shard_rows(v, 2 if k == "image" else 1) for k, v in out.items()}
+            return out
 
         ad.cfg_spec.PSEUDO_THRESH = 0.06  # random weights: keep pseudo-labels, so CE and RCE count
         start = {k: v.detach().to("cpu", copy=True) for k, v in ad.state.params.items()}
@@ -2662,6 +2727,8 @@ def rank_jobs(argv):
     run = {"--dp-rank": lambda d: dp_rank(d), "--adv-rank": lambda d: adv_rank(d),
            "--tp-rank": lambda d, n, x: tp_rank(d, int(n), x == "1"),
            "--tp-adv-rank": lambda d, n: tp_adv_rank(d, int(n)),
+           "--sp-rank": lambda d, shape, n, modes: sp_rank(
+               d, tuple(int(v) for v in shape.split("x")), int(n), modes.split(",")),
            "--cli-rank": lambda d, _, *a: cli_rank(d, list(a))}
     with one_process_group(D):
         for i, (kind, *args) in enumerate(jobs):
@@ -2674,7 +2741,8 @@ def rank_jobs(argv):
 def run_rank_jobs(jobs, log_path, nproc=DP_RANKS):
     """One torchrun of `nproc` ranks that runs `jobs` (lists of a rank mode's
     arguments: `--dp-rank DIR`, `--adv-rank DIR`, `--tp-rank DIR STEPS
-    TRANSPORT`, `--tp-adv-rank DIR STEPS`, `--cli-rank DIR -- <CLI args>
+    TRANSPORT`, `--tp-adv-rank DIR STEPS`, `--sp-rank DIR DxS STEPS MODES`,
+    `--cli-rank DIR -- <CLI args>
     [--then <CLI args>]...`) in turn in one process group: one start-up for
     all of them. Returns (exit code, output, seconds, rank 0's seconds of
     each job)."""
@@ -3780,7 +3848,7 @@ def tensor_parallel_ranks(torch, out_dir, work, root, rows):
     validation_offline_fog.yml with EVAL_SWEEP on its snapshots). 13.2's
     four ranks run apart. Returns what the phase's checks read."""
     write_fog_metadata(root, rows)
-    dirs = {k: os.path.join(work, k) for k in ("tp13.1", "tp13.4", "tp_chain")}
+    dirs = {k: os.path.join(work, k) for k in ("tp13.1", "tp13.4", "tp_chain", "sp14.1")}
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     snaps = {"hybrid": os.path.join(work, "tp_cli"), "advent": os.path.join(work, "tp_advent"),
@@ -3820,14 +3888,16 @@ def tensor_parallel_ranks(torch, out_dir, work, root, rows):
     rc, text, seconds, job_seconds = run_rank_jobs(
         [["--tp-rank", dirs["tp13.1"], str(steps_13_1), "1"],
          ["--tp-adv-rank", dirs["tp13.4"], str(TP_ADV_TIMED_STEPS)],
-         cli_chain(dirs["tp_chain"], runs)], os.path.join(out_dir, "tp_ranks.log"), nproc=TP_SIZE)
+         cli_chain(dirs["tp_chain"], runs), sp_job(dirs["sp14.1"], "14.1")],
+        os.path.join(out_dir, "tp_ranks.log"), nproc=TP_SIZE)
     check(rc == 0, f"phase 13: a rank failed (exit {rc}):\n{text[-3000:]}")
-    check(len(job_seconds) == 3, f"phase 13: rank 0 reports {job_seconds} job seconds")
+    check(len(job_seconds) == 4, f"phase 13: rank 0 reports {job_seconds} job seconds")
     results = chain_results(dirs["tp_chain"], runs, nproc=TP_SIZE)
     print(f"phase 13 ranks: one torchrun of a (1 x {TP_SIZE}) grid's ranks, {seconds:.3f} s with "
           f"start-up: 13.0-13.1's ranks {job_seconds[0]:.3f} s, 13.4's {job_seconds[1]:.3f} s, "
           f"the {len(runs)} CLI runs of 13.3 and 13.5 {job_seconds[2]:.3f} s (" + ", ".join(
-              f"{k} {v[0]['seconds']:.3f}" for k, v in results.items()) + ")")
+              f"{k} {v[0]['seconds']:.3f}" for k, v in results.items())
+          + f"), phase 14.1's spatial ranks {job_seconds[3]:.3f} s")
     return {"text": text, "seconds": seconds, "job_seconds": job_seconds, "dirs": dirs,
             "runs": runs, "cfgs": cfgs, "snaps": snaps, "results": results,
             "records": chain_records(runs, results, snaps)}
@@ -3863,13 +3933,18 @@ def tensor_parallel_path(torch, K, out_dir, work, root, rows, one, launched):
         if sub == "13.1":  # in the phase's torchrun
             tp_dir, seconds = launched["dirs"]["tp13.1"], launched["job_seconds"][0]
         else:
-            tp_dir = os.path.join(work, f"tp{sub}")
+            tp_dir, sp_dir = os.path.join(work, f"tp{sub}"), os.path.join(work, "sp14.2")
             os.makedirs(tp_dir, exist_ok=True)
+            os.makedirs(sp_dir, exist_ok=True)
             release(torch)
-            rc, text, seconds, _ = run_rank_jobs([["--tp-rank", tp_dir, str(steps), "0"]],
-                                                 os.path.join(out_dir, f"tp{sub}_ranks.log"),
-                                                 nproc=world)
+            # the same torchrun runs phase 14.2's (2 x 2) spatial grid after it
+            rc, text, seconds, job_seconds = run_rank_jobs(
+                [["--tp-rank", tp_dir, str(steps), "0"], sp_job(sp_dir, "14.2")],
+                os.path.join(out_dir, f"tp{sub}_ranks.log"), nproc=world)
             check(rc == 0, f"phase {sub}: a rank failed (exit {rc}):\n{text[-3000:]}")
+            check(len(job_seconds) == 2, f"phase {sub}: rank 0 reports {job_seconds} job seconds")
+            launched["sp14.2"] = {"dir": sp_dir, "seconds": job_seconds[1]}
+            seconds -= job_seconds[1]
         ranks = []
         for r in range(world):
             with open(os.path.join(tp_dir, f"rank{r}.json")) as f:
@@ -4482,6 +4557,278 @@ def tensor_parallel_families_path(torch, K, out_dir, work, root, rows, refs, che
 
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the spatial mesh axis on a (data x spatial) grid
+# ---------------------------------------------------------------------------
+
+SP_BATCH = 2  # the global batch: JAX's data x spatial step runs b2
+# sub-phase: ((data, spatial), timed steps, compared modes); 14.1's ranks are
+# a job of phase 13's (1 x 2) torchrun, 14.2's of 13.2's four ranks
+SP_GRIDS = {"14.1": ((1, 2), 3, ("exact", "kernels")), "14.2": ((2, 2), 1, ("exact",))}
+# one process at b2 against the grid after a bootstrap and one step, TF32
+# off: "exact" batch-invariant (cuDNN off, every BatchNorm variance from f64
+# moments) at DP_BOUNDS' exact bounds, with Σ|params| within JAX's own 1e-4
+# (`__graft_entry__.py`'s data x spatial check); "kernels" as the step runs
+# (cuDNN on the rows' blocks, K2 on them) at DP_BOUNDS' kernels bounds
+# Batch-invariance does not make the grid's arithmetic one process's: a rank
+# convolves its block of rows (GEMMs of other shapes), so "exact_split"
+# holds the grid batch-invariant against a witness that convolves in the
+# same row blocks in one process (`split_spatial_rows`) at DP_BOUNDS'
+# "exact" bounds, and "exact" against the plain one process, whose backbone
+# bound is 3x the gap the grid read there (9.973e-03 on an NVIDIA H100:
+# BatchNorms of near-constant channels amplify the blocks' last bits, as on
+# phase 13's grid)
+SP_BOUNDS = {"exact": {**DP_BOUNDS["exact"], "backbone": 3e-2},
+             "exact_split": DP_BOUNDS["exact"], "kernels": DP_BOUNDS["kernels"]}
+SP_ABS_PARAMS_RTOL = 1e-4
+SP_CONVS = 67  # the Conv2d of R50 3-4-6-3 and its two ProDA heads (the aux head never runs)
+# per forward of R50 3-4-6-3 with the ProDA head at 1024x512 on 2 spatial
+# ranks: 23 windowed ops exchange rows (the stem's conv and pool, the 16
+# dilated conv2s, the 4 ASPP branches, the bottleneck's 3x3; layer 2's
+# stride-2 1x1s read their own rows at this size) and 7 sums run over the
+# spatial group (6 GroupNorms, the SE mean); a backward returns the rows of
+# all but the stem's conv (the image takes no gradient) and sums again
+SP_HALO, SP_SUMS, SP_BN = 23, 7, 53
+
+
+def sp_job(work, sub):
+    """The `--sp-rank` job of sub-phase `sub`."""
+    (d, s), steps, modes = SP_GRIDS[sub]
+    os.makedirs(work, exist_ok=True)
+    return ["--sp-rank", work, f"{d}x{s}", str(steps), ",".join(modes)]
+
+
+def sp_rank(work, shape, steps, modes):
+    """One rank of phase 14 (a job under torch.distributed.run): the ranks
+    form a (data x spatial) grid of `shape` (`mesh.spatial_grid`), run the
+    compared step in `modes` on their rows (`dp_compare_step`), the digests
+    of their state, rank 0 the parameters and prototypes; then `steps` timed
+    steps with TF32 on (launches, the K1/K2 shapes fed, collectives and
+    bytes by group, the card channel's waits, peak), and the host syncs of
+    one more; writes rank<r>.json into `work`."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from onda_torch.ops import kernels as K
+    from onda_torch.parallel import distributed as D
+    from onda_torch.parallel import mesh
+    from onda_torch.parallel import shared_card
+
+    device = D.initialize("cuda")
+    mesh.spatial_grid(shape, SP_BATCH)
+    rank = D.rank()
+    out = {"rank": rank, "world": D.world(), "backend": D.backend(),
+           "position": [D.data_rank(), D.spatial_rank()],
+           "grid": [D.data_world(), D.spatial_world()]}
+    for mode in modes:  # the last mode's adapter goes on to the timed steps
+        D.reset_counts()
+        ad, step, logs, local, _ = dp_compare_step(torch, device, SP_BATCH, mode == "exact")
+        out[mode] = {"logs": logs, "digests": digests(torch, ad.state),
+                     "abs_params": sum(v.double().abs().sum().item()
+                                       for v in ad.state.params.values())}
+        if rank == 0:
+            torch.save(compared_state(torch, ad), os.path.join(work, f"rank0_{mode}.pt"))
+    batches = [(local(s), local(t)) for s, t in zip(
+        make_batches(torch, steps, SP_BATCH, MAIN_HW, 20),
+        make_batches(torch, steps, SP_BATCH, MAIN_HW, 21))]
+    feed = [(t["image"].to(device), s["image"][None].to(device), s["label_res"][None].to(device))
+            for s, t in batches]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    D.reset_counts()
+    waits = shared_card.STATS["host_waits"]
+    torch.cuda.reset_peak_memory_stats(device)
+    times, finite, fired = [], True, 0
+    with KernelShapes(K, moments=True) as shapes:
+        for img, s_img, s_lbl in feed:
+            t = time.perf_counter()
+            ad.state, step_logs = step(ad.state, img, s_img, s_lbl, 1e-5)
+            finite &= math.isfinite(step_logs["Total target loss"])  # the step ends at its log read
+            times.append(1e3 * (time.perf_counter() - t))
+            fired += int(step_logs["dynamic forward fired"])
+    out.update(step_ms=times, finite=finite, launches=dict(K.launches), dynamic_fired=fired,
+               collectives={g: dict(c) for g, c in D.COUNTS.items()},
+               card_waits=shared_card.STATS["host_waits"] - waits,
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+               k1_shapes=sorted(shapes.k1), k2_shapes=sorted(shapes.k2), rows=list(img.shape))
+    img, s_img, s_lbl = feed[0]
+    (ad.state, step_logs), syncs = count_syncs(
+        torch, lambda: step(ad.state, img, s_img, s_lbl, 1e-5))
+    out.update(debug_syncs=len(syncs))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    D.destroy()
+
+
+def split_spatial_rows(torch, ad, size=2):
+    """Phase 14's witness: every Conv2d of the adapter's model computes its
+    output in the row blocks of a spatial axis of `size`, each block from
+    the input rows it reads with H padding at the global edges only
+    (`spatial.window_plan`), as the grid's ranks do, in one process with no
+    collective. Returns how many convolutions."""
+    import types
+
+    import torch.nn.functional as F
+
+    from onda_torch.parallel import spatial as S
+
+    def conv(m, x):
+        plan = S.window_plan(x.shape[2], size, m.kernel_size[0], m.stride[0], m.padding[0],
+                             m.dilation[0])
+        blocks = []
+        for r in range(size):
+            want = plan.rows.want[r]
+            win = x[:, :, want[0]:want[-1] + 1]
+            top, bottom = plan.edges[r]
+            if top or bottom:
+                win = F.pad(win, (0, 0, top, bottom))
+            blocks.append(F.conv2d(win, m.weight, m.bias, m.stride, (0, m.padding[1]),
+                                   m.dilation))
+        return torch.cat(blocks, dim=2)
+
+    n = 0
+    for m in ad.model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.forward = types.MethodType(conv, m)
+            n += 1
+    return n
+
+
+def spatial_references(torch):
+    """Phase 14's one-process references: hybrid_switch.yml at b2 after a
+    bootstrap and one step, in both modes, and batch-invariant with every
+    convolution in the row blocks of a spatial axis of 2 (the witness,
+    "exact_split") (the parameters and prototypes on the host, the logs,
+    Σ|params|, the parameters before the step)."""
+    release(torch)
+    one = {}
+    for mode in SP_BOUNDS:
+        ad, _, logs, _, start = dp_compare_step(torch, "cuda", SP_BATCH, mode != "kernels",
+                                                split_rows=mode == "exact_split")
+        one[mode] = {**compared_state(torch, ad), "logs": logs, "start": start,
+                     "abs_params": sum(v.double().abs().sum().item()
+                                       for v in ad.state.params.values())}
+        del ad
+        release(torch)
+    return one
+
+
+def spatial_path(torch, K, launched, checked):
+    """Phase 14: hybrid_switch.yml's bootstrap and fused step at full width
+    (R50 3-4-6-3, ProDA head), b2 1024x512, on a (1 x 2) (14.1) and a (2 x 2)
+    (14.2) grid of spatial ranks on the card, against one process (both
+    modes on 14.1, batch-invariant on 14.2), then timed. The ranks ran as
+    jobs of phase 13's torchruns (`launched`). Returns launch counts by path
+    and the numbers."""
+    t_phase = time.perf_counter()
+    one = spatial_references(torch)
+    summary, paths = {"references_seconds": time.perf_counter() - t_phase}, {}
+    witness = grid_gaps(torch, "phase 14 witness", one["exact"],
+                        {k: one["exact_split"][k] for k in ("params", "proto")},
+                        one["exact_split"]["logs"])
+    summary["witness"] = witness
+    print(f"phase 14 witness: one process at b2 with its {SP_CONVS} convolutions in a spatial "
+          f"axis's 2 row blocks (the grid's GEMMs, no collective), batch-invariant, against one "
+          f"process after a bootstrap and one step: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in witness.items()))
+    n_bn = SP_BN
+    where = {"14.1": (launched["dirs"]["sp14.1"], launched["job_seconds"][3]),
+             "14.2": (launched["sp14.2"]["dir"], launched["sp14.2"]["seconds"])}
+    for sub, ((d, s), steps, modes) in SP_GRIDS.items():
+        world = d * s
+        sp_dir, seconds = where[sub]
+        backend, _ = tp_layout(torch, world)
+        layout = (f"{d} data x {s} spatial, {world} ranks, " + (
+            f"one card each (cards 0-{world - 1})" if backend == "nccl" else
+            f"all on card 0: gloo, card tensors through the card's memory (CUDA IPC)"))
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(sp_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        r0 = ranks[0]
+        check(all(x["world"] == world and x["backend"] == backend
+                  and x["position"] == [x["rank"] // s, x["rank"] % s] and x["grid"] == [d, s]
+                  for x in ranks),
+              f"phase {sub}: ranks report "
+              f"{[(x['world'], x['backend'], x['position']) for x in ranks]}")
+        gaps = {}
+        for mode in modes:
+            differ = sorted(k for x in ranks for k, v in x[mode]["digests"].items()
+                            if v != r0[mode]["digests"][k])
+            check(not differ, f"phase {sub} {mode}: the ranks' states differ: {differ[:6]}")
+            check(all(x[mode]["logs"] == r0[mode]["logs"] for x in ranks),
+                  f"phase {sub} {mode}: the ranks' logs differ")
+            got = torch.load(os.path.join(sp_dir, f"rank0_{mode}.pt"), weights_only=False)
+            for ref in (mode, "exact_split") if mode == "exact" else (mode,):
+                gaps[ref] = grid_gaps(torch, f"phase {sub} {ref}", one[ref], got,
+                                      r0[mode]["logs"])
+                want_abs = one[ref]["abs_params"]
+                gaps[ref]["abs_params"] = abs(r0[mode]["abs_params"] - want_abs) / want_abs
+                against = ("the witness (one process at b2, every convolution in the row "
+                           "blocks)" if ref == "exact_split" else "one process at b2")
+                print(f"phase {sub} {ref}: hybrid_switch.yml in memory, b2 1024x512 ({layout}), "
+                      f"{against} against the grid after a bootstrap and one step (TF32 off): "
+                      + ", ".join(f"{k} {v:.3e} (bound "
+                                  f"{SP_BOUNDS[ref].get(k, SP_ABS_PARAMS_RTOL):.0e})"
+                                  for k, v in gaps[ref].items())
+                      + f"; the ranks' {len(r0[mode]['digests'])} state tensors equal bit for "
+                        f"bit")
+        check_gaps(f"phase {sub}", {m: {k: v for k, v in g.items() if k != "abs_params"}
+                                    for m, g in gaps.items()}, SP_BOUNDS)
+        for mode, g in gaps.items():
+            check(g["abs_params"] <= SP_ABS_PARAMS_RTOL,
+                  f"phase {sub} {mode}: Σ|params| gap {g['abs_params']:.3e} > "
+                  f"{SP_ABS_PARAMS_RTOL}")
+        fired = r0["dynamic_fired"]
+        want_coll = {"data": 0, "model": 0, "world": 5 * n_bn + 6,
+                     "spatial": ((4 * steps + fired) * (SP_HALO + SP_SUMS)
+                                 + 2 * steps * (SP_HALO - 1 + SP_SUMS)) / steps}
+        for x in ranks:
+            check(x["finite"], f"phase {sub} rank {x['rank']}: a non-finite loss")
+            check(x["launches"] == {"pseudo_labels_kernel": 2 * steps,
+                                    "bn_stats_kernel": 3 * n_bn * steps},
+                  f"phase {sub} rank {x['rank']}: launches {x['launches']}, expected K1 2 and K2 "
+                  f"{3 * n_bn} a step")
+            per_step = {g: c["collectives"] / steps for g, c in x["collectives"].items()}
+            check(per_step == want_coll, f"phase {sub} rank {x['rank']}: collectives a step "
+                                         f"{per_step}, expected {want_coll}")
+            k1_fed = {tuple(v) for v in x["k1_shapes"]} - {tuple(v) for v in checked["k1"]}
+            k2_fed = {tuple(v[0]) for v in x["k2_shapes"]} - {tuple(v) for v in checked["k2"]}
+            check(not k1_fed and not k2_fed, f"phase {sub} rank {x['rank']} fed unchecked "
+                                             f"shapes: K1 {sorted(k1_fed)}, K2 {sorted(k2_fed)}")
+            paths[f"spatial_{sub}_rank{x['rank']}"] = x["launches"]
+        # the median after the first timed step (which warms up), where there are more
+        step_ms = [statistics.median(x["step_ms"][1:] or x["step_ms"]) for x in ranks]
+        mb = {g: c["bytes"] / steps / 1e6 for g, c in r0["collectives"].items()}
+        summary[sub] = {"layout": layout, "backend": backend, "step_ms": step_ms,
+                        "step_ms_all": [x["step_ms"] for x in ranks],
+                        "peak_gib": [x["peak_gib"] for x in ranks], "gaps": gaps,
+                        "collectives_per_step": want_coll, "mb_per_step": mb,
+                        "debug_syncs": r0["debug_syncs"], "card_waits": r0["card_waits"] / steps,
+                        "k1_shapes": sorted({tuple(v) for x in ranks for v in x["k1_shapes"]}),
+                        "k2_row_shapes": len({tuple(v[0]) for x in ranks for v in x["k2_shapes"]}),
+                        "seconds": seconds}
+        print(f"phase {sub} timed ({steps} step(s) after the compared ones, TF32 on, {layout}): "
+              f"median step ms per rank (after the first, where there are more) "
+              + ", ".join(f"{v:.3f}" for v in step_ms)
+              + " (steps: " + "; ".join(", ".join(f"{v:.3f}" for v in x["step_ms"])
+                                        for x in ranks)
+              + f"); per rank and step K1 {r0['launches']['pseudo_labels_kernel'] // steps} on "
+              f"its pixels (P " + ", ".join(str(v[0]) for v in summary[sub]["k1_shapes"])
+              + f"), K2 {r0['launches']['bn_stats_kernel'] // steps} on its rows "
+              f"({summary[sub]['k2_row_shapes']} shapes); collectives a step by group "
+              + ", ".join(f"{g} {want_coll[g]:.0f} of {mb[g]:.3f} MB" for g in want_coll)
+              + f" (the spatial group's: halo rows and GroupNorm/SE sums); host syncs the CUDA "
+              f"sync debug mode counts in one step: {r0['debug_syncs']}, the card channel's "
+              f"stream waits {r0['card_waits'] / steps:.0f} a step; peak memory per rank "
+              + ", ".join(f"{x['peak_gib']:.3f} GiB" for x in ranks)
+              + f"; the ranks' job {seconds:.3f} s")
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 14 checks: {summary['seconds']:.3f} s (one-process references "
+          f"{summary['references_seconds']:.3f} s)")
+    return paths, summary
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank-jobs"]:  # a rank of phase 12 or 13, under torch.distributed.run
         import faulthandler
@@ -4599,7 +4946,11 @@ def main() -> int:
                 grid, summary["tensor_parallel_families"] = tensor_parallel_families_path(
                     torch, K, args.out_dir, work, root, rows, refs, checked, launched)
                 paths.update(grid)
-                del refs, launched
+                del refs
+            with phase_clock("14"):
+                spatial, summary["spatial"] = spatial_path(torch, K, launched, checked)
+                paths.update(spatial)
+                del launched
         finally:
             shutil.rmtree(work, ignore_errors=True)
     for k in (k1, k2):

@@ -8,12 +8,23 @@ domain column (`intensity` or `scene`). `Table` keeps its rows in the file's
 key order, which is the order pandas' `read_json` gives them, and offers what
 the splits and the CLI need: filters, concatenation, row selection and
 pandas' `sample` draw.
+
+`scan_weather_cityscapes` rebuilds a rain or fog table from a dataset's
+layout (the JAX package's scanner, which builds a DataFrame; here a `Table`
+with its rows in its order and its columns):
+
+    leftImg8bit/{train,val}/{clear|rain/<mm>mm|fog/<vis>m}/<city>/<frame>_leftImg8bit.png
+    gtFine/{train,val}/<city>/<frame>_gtFine_labelIds.png
+
+`python -m onda_torch.make_metadata` drives it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
+from pathlib import Path
 
 import numpy as np
 
@@ -84,6 +95,61 @@ def load_table(path: str) -> Table:
         if list(data[c]) != keys:
             raise ValueError(f"{path}: column {c!r} has other row labels than {columns[0]!r}")
     return Table(({c: data[c][k] for c in columns} for k in keys), columns)
+
+
+def save_table(table: Table, path: str) -> None:
+    table.to_json(path)
+
+
+def _label_path_for(image_rel: str) -> str:
+    """leftImg8bit/<set>/<domain...>/<city>/<frame>_leftImg8bit.png → its gtFine labelIds."""
+    parts = Path(image_rel).parts
+    set_, city, fname = parts[1], parts[-2], parts[-1]
+    stem = fname.replace("_leftImg8bit.png", "")
+    return str(Path("gtFine") / set_ / city / f"{stem}_gtFine_labelIds.png")
+
+
+def scan_weather_cityscapes(root: str, kind: str = "rain", require_labels: bool = True) -> Table:
+    """A rain or fog metadata table from the dataset's layout. kind "rain":
+    clear (intensity 0) and rain/<N>mm; "fog": clear and fog/<N>m
+    (visibility), as the reference made its fog tables by rewriting /clear/
+    paths (reference temp_fog_filename_creation.py:13-24). Sets train then
+    val, domains and files in sorted order; frames without a label file are
+    dropped unless `require_labels` is False (then their label_path is
+    None)."""
+    root_p = Path(root)
+    rows = []
+    pattern = re.compile(r"(\d+)(mm|m)$")
+    for set_ in ("train", "val"):
+        set_dir = root_p / "leftImg8bit" / set_
+        if not set_dir.is_dir():
+            continue
+        for domain_dir in sorted(set_dir.iterdir()):
+            if not domain_dir.is_dir():
+                continue
+            name = domain_dir.name
+            if name == "clear":
+                rows.extend(_scan_domain(root_p, domain_dir, set_, 0, require_labels))
+            elif name in ("rain", "fog") and (name == "rain") == (kind == "rain"):
+                for sub in sorted(domain_dir.iterdir()):
+                    m = pattern.match(sub.name)
+                    if m:
+                        rows.extend(_scan_domain(root_p, sub, set_, int(m.group(1)),
+                                                 require_labels))
+    return Table(rows, ["image_path", "label_path", "set", "intensity"])
+
+
+def _scan_domain(root: Path, domain_dir: Path, set_: str, intensity: int, require_labels: bool):
+    rows = []
+    for png in sorted(domain_dir.rglob("*_leftImg8bit.png")):
+        rel = png.relative_to(root)
+        label_rel = _label_path_for(str(rel))
+        has_label = (root / label_rel).exists()
+        if require_labels and not has_label:
+            continue
+        rows.append({"image_path": str(rel), "label_path": label_rel if has_label else None,
+                     "set": set_, "intensity": intensity})
+    return rows
 
 
 def load_dataset_info(path: str | None = None) -> dict:

@@ -13,9 +13,19 @@ framework/dataset/segmentation_db.py:16-99), byte-exact with PIL:
 * label_raw (with `original_label`): the label map at the file's own size
   through the LUT, for SEGMENT training's full-image evaluation.
 
+RGB-coded label maps (a class map keyed by (r, g, b)) go through a 2²⁴-entry
+LUT of r·65536 + g·256 + b, as the JAX package's PIL path reads them: the
+PNG decoded to RGB by the C++ prep, resized with PIL's nearest rule
+(`pil_nearest`, which picks other source pixels than the id path's rule at
+non-integral scales) and remapped, in numpy on the calling thread while the
+executor prepares the images. With `predictions_dir` each row also carries
+`soft_path` (`<predictions_dir>/<image_path>` with `.png` → `_soft.npy`) and,
+where those files exist, their arrays as `soft_predictions`.
+
 Batches come out as planar CHW float32 images, (N, 3, H, W), the layout the
-model takes, and int32 label maps. Every batch is made by the executor; a
-file it cannot read stops the batch with an error naming the file.
+model takes, and int32 label maps. Every image batch is made by the
+executor; a file that cannot be read stops the batch with an error naming
+the file.
 """
 
 from __future__ import annotations
@@ -28,12 +38,16 @@ from .. import native
 
 
 class LabelMapper:
-    """The LUT of a label-id class remap (reference func.py:88-115), which the
-    C++ prep applies. RGB-coded label maps are not read by the port."""
+    """The LUT of a class remap of label ids or RGB codes (reference
+    func.py:88-115); the C++ prep applies an id LUT itself."""
 
     def __init__(self, mapping: dict):
-        if isinstance(next(iter(mapping.keys())), (tuple, list)):
-            raise NotImplementedError("RGB-coded label maps: the port's prep remaps 8-bit label ids")
+        self.rgb = isinstance(next(iter(mapping.keys())), (tuple, list))
+        if self.rgb:
+            self.lut = np.zeros(256 * 256 * 256, np.int32)
+            for (r, g, b), idx in mapping.items():
+                self.lut[r * 65536 + g * 256 + b] = idx
+            return
         # a len(mapping)-entry table where negative keys (the -1 → 255 ignore
         # row) land at the end by numpy wraparound (reference func.py:107-109),
         # grown so that a negative slot never collides with a positive key
@@ -45,6 +59,33 @@ class LabelMapper:
         for src, dst in mapping.items():
             self.lut[int(src)] = dst
 
+    def __call__(self, label: np.ndarray) -> np.ndarray:
+        """The class map of label ids (H, W) or RGB codes (H, W, 3)."""
+        label = np.asarray(label, np.int32)
+        if self.rgb:
+            label = label @ np.array([65536, 256, 1], np.int32)
+        return self.lut[label]
+
+
+def _pil_nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """PIL's NEAREST source index along one axis: its affine map's position
+    starts at half a step and adds the step, in doubles, truncated."""
+    step, pos, out = n_in / n_out, 0.0, np.empty(n_out, np.intp)
+    pos += step * 0.5
+    for i in range(n_out):
+        out[i] = min(int(pos), n_in - 1)
+        pos += step
+    return out
+
+
+def pil_nearest(image: np.ndarray, out_hw) -> np.ndarray:
+    """An (H, W, ...) array resized to out_hw = (h, w) as PIL's
+    `resize(..., NEAREST)` resizes it (`Image.resize` keeps an equal size)."""
+    h, w = out_hw
+    if image.shape[:2] == (h, w):
+        return image
+    return image[_pil_nearest_index(image.shape[0], h)][:, _pil_nearest_index(image.shape[1], w)]
+
 
 class SegmentationDataset:
     """Map-style dataset over a metadata `Table` (reference Segmentation_db).
@@ -53,7 +94,8 @@ class SegmentationDataset:
     with a worker per core but one is made when none is given."""
 
     def __init__(self, root: str, metadata, class_map, image_size_wh, mean, std,
-                 labels_size_wh=None, original_label: bool = False, executor=None):
+                 labels_size_wh=None, original_label: bool = False, executor=None,
+                 predictions_dir: str | None = None):
         self.metadata = metadata
         self.root = root
         self.image_size = list(image_size_wh)
@@ -62,6 +104,7 @@ class SegmentationDataset:
         self.original_label = original_label
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
+        self.predictions_dir = predictions_dir
         self.executor = executor or native.BatchExecutor(max(1, (os.cpu_count() or 2) - 1))
 
     def __len__(self):
@@ -77,8 +120,10 @@ class SegmentationDataset:
         when the rows have labels, label (N, H, W) and label_res (N, h8, w8)
         int32, plus the file paths; with `original_label` also label_raw
         (N, H0, W0) int32 at the files' own size, which all rows of a batch
-        must share. `alloc(shape, dtype)` gives the arrays the executor
-        writes into (pinned host memory on the way to a card)."""
+        must share; with `predictions_dir` also soft_path, and soft_predictions
+        where every row's file exists (some but not all raise, as the JAX
+        loader's collate does). `alloc(shape, dtype)` gives the arrays the
+        executor writes into (pinned host memory on the way to a card)."""
         rows = [self.metadata[int(i)] for i in indices]
         image_paths = [os.path.join(self.root, r["image_path"]) for r in rows]
         labeled = [isinstance(r.get("label_path"), str) for r in rows]
@@ -90,16 +135,27 @@ class SegmentationDataset:
         images = alloc((n, 3, h, w), np.float32)
         jobs = [(self.executor.submit_images(image_paths, (h, w), self.mean, self.std, images),
                  image_paths)]
+        errors = []
         if all(labeled):
             label_paths = [os.path.join(self.root, r["label_path"]) for r in rows]
             (lw, lh), (rw, rh) = self.labels_size, self.res_size
             full, res = alloc((n, lh, lw), np.int32), alloc((n, rh, rw), np.int32)
-            jobs.append((self.executor.submit_labels(label_paths, (lh, lw), (rh, rw), self.map.lut,
-                                                     full, res), label_paths))
             batch.update(label_path=label_paths, label=full, label_res=res)
-            if self.original_label:
-                batch["label_raw"] = self._raw_labels(label_paths, alloc)
-        errors = []
+            try:
+                if self.map.rgb:
+                    self._rgb_labels(label_paths, full, res)
+                else:
+                    jobs.append((self.executor.submit_labels(
+                        label_paths, (lh, lw), (rh, rw), self.map.lut, full, res), label_paths))
+                if self.original_label:
+                    batch["label_raw"] = self._raw_labels(label_paths, alloc)
+            except (RuntimeError, ValueError) as exc:
+                errors.append(exc)
+        if self.predictions_dir:
+            try:
+                batch.update(self._soft_predictions(rows))
+            except ValueError as exc:
+                errors.append(exc)
         for job, paths in jobs:  # wait for every job before the buffers can go
             try:
                 self.executor.wait(job, paths)
@@ -109,6 +165,29 @@ class SegmentationDataset:
             raise errors[0]
         batch["image"] = images
         return batch
+
+    def _rgb_labels(self, paths, full, res) -> None:
+        """RGB-coded label maps into full and res: decoded by the C++ prep,
+        resized by PIL's nearest rule, remapped (the JAX package's PIL
+        path, segmentation.py:198-209)."""
+        for i, path in enumerate(paths):
+            rgb = native.decode_png(path, rgb=True)
+            full[i] = self.map(pil_nearest(rgb, full.shape[1:]))
+            res[i] = self.map(pil_nearest(rgb, res.shape[1:]))
+
+    def _soft_predictions(self, rows) -> dict:
+        """soft_path of every row and, where every row's file exists, the
+        stacked soft_predictions (JAX's segmentation.py:211-216)."""
+        paths = [os.path.join(self.predictions_dir, r["image_path"].replace(".png", "_soft.npy"))
+                 for r in rows]
+        found = [os.path.exists(p) for p in paths]
+        out = {"soft_path": paths}
+        if any(found) and not all(found):
+            raise ValueError(f"inconsistent batch: soft predictions exist for some rows only: "
+                             f"{[p for p, f in zip(paths, found) if not f]} are missing")
+        if all(found):
+            out["soft_predictions"] = np.stack([np.load(p) for p in paths])
+        return out
 
     def _raw_labels(self, paths, alloc) -> np.ndarray:
         """The label maps at their own size, decoded by the C++ prep and
@@ -120,6 +199,9 @@ class SegmentationDataset:
         out = alloc((len(paths), *sizes[0]), np.int32)
         lut = self.map.lut
         for i, path in enumerate(paths):
+            if self.map.rgb:
+                out[i] = self.map(native.decode_png(path, rgb=True))
+                continue
             ids = native.decode_png(path, rgb=False)
             if ids.max(initial=0) >= len(lut):
                 raise RuntimeError(f"{path}: {native.ERRORS[-4]}")

@@ -79,13 +79,15 @@ def grads(loss: torch.Tensor, live: dict, names: list, unused=()) -> dict:
     decays them and runs their momentum. Any other parameter that no loss
     reaches is an error.
 
-    Under data parallelism the loss is this rank's share of the global
-    batch's (its means divide by the global counts), so the gradient of the
-    global loss is the sum over the ranks: one all-reduce of a flat bucket
-    of every gradient, one f32 copy of the trainable parameters, before the
-    update. Every rank then updates with the same bits."""
+    Under data parallelism, and on a spatial axis, the loss is this rank's
+    share of the global batch's (its means divide by the global counts), so
+    the gradient of the global loss is the sum over the ranks that split the
+    pixels (data × spatial: each spatial rank holds a partial weight
+    gradient): one all-reduce of a flat bucket of every gradient, one f32
+    copy of the trainable parameters, before the update. Every rank then
+    updates with the same bits."""
     out = _local_grads(loss, live, names, unused)
-    return dict(zip(out, dist.all_sum(*out.values())))
+    return dict(zip(out, dist.all_sum(*out.values(), group="pixels")))
 
 
 def grid_grads(loss: torch.Tensor, live: dict, names: list, unused, sharded) -> dict:

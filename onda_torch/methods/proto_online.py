@@ -54,6 +54,20 @@ divided by tp, so that the whole leaves keep the same bits on every rank.
 Checkpoints hold the whole tensors, gathered by every rank and written by
 rank 0, so a file moves freely between one process and a grid; a load keeps
 this rank's shard.
+
+On a (data × spatial) grid (`parallel.mesh.spatial_grid`, JAX's
+`make_mesh(axes=("data", "spatial"))`) the bootstrap and the fused step run
+on each rank's block of the image rows of its data index's samples
+(`parallel.spatial`), and the loss-grid labels come split as the feature
+grid. Every reduction over pixels above runs over data × spatial (the
+"pixels" group): the blocks may be uneven (65 feature rows as 33/32), so
+the confidences are sums over the global pixel count, not means of means;
+the valid counts, the prototype moments, the logs and the gradients are
+sums. K1 labels a rank's own pixels. The bootstrap's source labels come at
+full resolution, split as the images; each rank fetches the label rows its
+feature rows read. The state stays whole and equal on every rank, as JAX
+replicates it. Evaluation, samples, prediction dumps and the train loop do
+not run on that grid (JAX has none of them there): they raise.
 """
 
 from __future__ import annotations
@@ -79,6 +93,7 @@ from ..ops import prototypes as P
 from ..ops.interp import resize_nearest, upsample_bilinear_ac
 from ..ops.monitor import Monitor
 from ..parallel import distributed as dist
+from ..parallel import spatial as S
 from ..parallel import tensor as T
 from ..parallel.mesh import resolve
 from ..utils import checkpoint as ckpt
@@ -111,15 +126,35 @@ def dump_logits_batch(base: str, index: int, logits_nchw: torch.Tensor) -> None:
 
 
 def global_counts(pseudolabels, *src_labels):
-    """The losses' denominators under data parallelism, in one all-reduce:
-    the global batch's valid pseudo-labels, each source batch's valid
-    pixels, and the target's pixel count. On a data axis of 1 all None: each
-    loss counts its own batch, as on one device."""
-    world = dist.data_world()
-    if world == 1:
+    """The losses' denominators under data parallelism and on a spatial
+    axis, in one all-reduce: the global batch's valid pseudo-labels, each
+    source batch's valid pixels, and the target's pixel count. With one
+    rank of pixels all None: each loss counts its own batch, as on one
+    device."""
+    if dist.pixel_world() == 1:
         return None, [None] * len(src_labels), None
-    trg, *src = dist.all_sum(L.valid_count(pseudolabels), *map(L.valid_count, src_labels))
-    return trg, src, world * pseudolabels.numel()
+    trg, *src = dist.all_sum(L.valid_count(pseudolabels), *map(L.valid_count, src_labels),
+                             group="pixels")
+    return trg, src, S.global_pixels(*pseudolabels.shape)
+
+
+def pixel_share(x):
+    """m ↦ this rank's share of a global mean whose local value over x's
+    (N, h, W) pixels is m: m over the data axis where every rank holds as
+    many pixels, m weighted by x's part of the global pixels on a spatial
+    axis."""
+    if not S.active():
+        world = dist.data_world()
+        return lambda m: m / world
+    part = x.numel() / S.global_pixels(*x.shape)
+    return lambda m: m * part
+
+
+def refuse_spatial(what: str) -> None:
+    """Raise for host work that JAX does not run on a spatial axis."""
+    if S.active():
+        raise ValueError(f"{what} does not run on a spatial axis: it takes the PROTO_ONLINE "
+                         "bootstrap and fused step only, as JAX's make_mesh does")
 
 
 def _softmax(x):
@@ -130,6 +165,13 @@ def _softmax(x):
 def _conf(p, dim=1):
     """Mean max-probability confidence (reference prototypes.py:215)."""
     return p.max(dim=dim).values.mean()
+
+
+def pixel_means(means, x, sums=()):
+    """`distributed.pixel_means` of this rank's means over the pixels of x
+    (N, C, h, W): (global means, global sums)."""
+    n, _, h, w = x.shape
+    return dist.pixel_means(means, n * h * w, S.global_pixels(n, h, w), sums)
 
 
 def _flat(x):
@@ -222,7 +264,7 @@ class ProtoOnlineAdapter(T.ShardedModel):
 
     def __init__(self, model, variables, cfg, cfg_spec, num_classes: int, logger=None,
                  device="cuda"):
-        _, tp = resolve(cfg)
+        _, tp = resolve(cfg, spatial=True)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -344,11 +386,13 @@ class ProtoOnlineAdapter(T.ShardedModel):
                 static_main = fwd(state.static_params, state.static_batch_stats, trg_images,
                                   train=False)
                 prior_static = _softmax(static_main["out"])
-                conf_ema, conf_static = dist.all_mean(_conf(prior_ema), _conf(prior_static))
+                (conf_ema, conf_static), _ = pixel_means(
+                    [_conf(prior_ema), _conf(prior_static)], prior_ema)
                 mon = monitor.add(mon, "prior EMA", conf_ema)
                 mon = monitor.add(mon, "prior static", conf_static)
             else:
-                mon = monitor.add(mon, "prior EMA", dist.all_mean(_conf(prior_ema))[0])
+                (conf_ema,), _ = pixel_means([_conf(prior_ema)], prior_ema)
+                mon = monitor.add(mon, "prior EMA", conf_ema)
 
             def dyn_forward():
                 main = fwd(state.dynamic_params, state.dynamic_batch_stats, trg_images,
@@ -368,8 +412,8 @@ class ProtoOnlineAdapter(T.ShardedModel):
             scale = P.inv_std(state.proto, metric)
             _, hard, prop_max = K.pseudo_labels(
                 feat, state.proto.mean, prior_flat, state.proto.tau, pseudo_thresh, scale)
-            conf_dyn, conf_prior, conf_proto = dist.all_mean(_conf(dyn_p), _conf(prior),
-                                                             prop_max.mean())
+            (conf_dyn, conf_prior, conf_proto), _ = pixel_means(
+                [_conf(dyn_p), _conf(prior), prop_max.mean()], prior_ema)
             mon = monitor.add(mon, "prior dynamic", conf_dyn, enable=calc_dyn)
             mon = monitor.add(mon, "prior", conf_prior)
             mon = monitor.add(mon, "prototypes", conf_proto)
@@ -381,9 +425,9 @@ class ProtoOnlineAdapter(T.ShardedModel):
 
             # ---- prototype EMA: the class moments of the global batch -----
             onehot = P.onehot_assign(_flat(ema_main["out"]).float())
-            conf_soft, vect, sq, sums = dist.all_sum(_conf(soft, dim=-1),
-                                                     *P.class_moments(feat, onehot))
-            mon = monitor.add(mon, "pseudolabel confidence", conf_soft / dist.data_world())
+            (conf_soft,), (vect, sq, sums) = pixel_means(
+                [_conf(soft, dim=-1)], prior_ema, P.class_moments(feat, onehot))
+            mon = monitor.add(mon, "pseudolabel confidence", conf_soft)
             proto = P.ma(state.proto.replace(tau=new_tau), vect, sq, sums, ma_lambda)
             return (mon, switch, calc_dyn, hard.view(b, hh, ww),
                     soft.view(b, hh, ww, C).permute(0, 3, 1, 2), proto)
@@ -412,7 +456,6 @@ class ProtoOnlineAdapter(T.ShardedModel):
         r0, r1 = self.lr_ratios
         fwd = self._forward
         teachers = self._build_teachers()
-        world = dist.data_world()
         sharded = set(self.plan)
 
         def step(state: AdaptState, trg_images, src_images, src_labels, lr_base: float):
@@ -421,6 +464,8 @@ class ProtoOnlineAdapter(T.ShardedModel):
             mon, switch, calc_dyn, pseudolabels, soft_nchw, proto = teachers(state, trg_images)
             trg_count, src_counts, all_pixels = global_counts(
                 pseudolabels, *(src_labels[s] for s in range(source_repeat) if have_src))
+            # this rank's share of a mean over the global batch's pixels
+            share = pixel_share(pseudolabels)
 
             # ---- student: source slices (BN stats frozen) + target slice --
             live = dict(state.params)
@@ -455,9 +500,9 @@ class ProtoOnlineAdapter(T.ShardedModel):
             reg = L.regular_loss(regularizer, out_t, count=all_pixels) if reg_weight > 0 else zero
             js = L.js_divergence(out_t, pseudolabels, count=trg_count) if js_d > 0 else zero
             # a term of the parameters alone enters once: on the ranks of data
-            # index 0, each with its shards and the whole leaves
+            # (and spatial) index 0, each with its shards and the whole leaves
             mreg = mreg_log = zero
-            if model_reg > 0 and dist.data_rank() == 0:
+            if model_reg > 0 and dist.pixel_rank() == 0:
                 mreg = mreg_log = L.ewc_loss(model_reg, state.static_params, live)
                 if sharded:  # its value: the shards' terms summed over the model group
                     part = L.ewc_loss(model_reg, state.static_params,
@@ -482,10 +527,11 @@ class ProtoOnlineAdapter(T.ShardedModel):
                     "buff_loss": buff_ce_w * buff_ce_last + buff_rce_w * buff_rce_last,
                     "pseudolabel_pixel_num": L.valid_count(pseudolabels),
                     "output & prototype agreement":
-                        (pseudolabels == out_t.argmax(dim=1)).float().mean() / world,
-                    "model": _conf(_softmax(out_t)) / world,
+                        share((pseudolabels == out_t.argmax(dim=1)).float().mean()),
+                    "model": share(_conf(_softmax(out_t))),
                 }
-                logs = dict(zip(shares, dist.all_sum(*(v.float() for v in shares.values()))))
+                logs = dict(zip(shares, dist.all_sum(*(v.float() for v in shares.values()),
+                                                     group="pixels")))
                 mon = monitor.add(mon, "model", logs.pop("model"))
                 optim.update(state.params, grads, state.opt_momentum, labels,
                              lr_base * r0, lr_base * r1, momentum, weight_decay)
@@ -530,11 +576,15 @@ class ProtoOnlineAdapter(T.ShardedModel):
         feat = _flat(main["feat"]).float()
         hh, ww = main["out"].shape[2:]
         if from_source:
-            lbl = resize_nearest(labels, (hh, ww)).reshape(-1).long()
+            if S.active():  # label rows of this rank's feature rows, wherever they lie
+                lbl = S.resize_nearest_labels(labels, (S.global_height(hh), ww))
+            else:
+                lbl = resize_nearest(labels, (hh, ww))
+            lbl = lbl.reshape(-1).long()
             onehot = (lbl[:, None] == torch.arange(C, device=lbl.device)).float()  # 255 → zero row
         else:
             onehot = P.onehot_assign(_flat(main["out"]).float())
-        vect, sq, sums = dist.all_sum(*P.class_moments(feat, onehot))
+        vect, sq, sums = dist.all_sum(*P.class_moments(feat, onehot), group="pixels")
         state.proto = P.append(state.proto, vect, sq, sums)
 
     def calculate_prototypes(self, loader) -> None:
@@ -593,6 +643,7 @@ class ProtoOnlineAdapter(T.ShardedModel):
         return not bool(value_or(self.cfg_spec.SKIP_PROTO_EVAL, False))
 
     def evaluate(self, loader) -> dict:
+        refuse_spatial("evaluation")
         with_proto = self._proto_eval()
         keys = ["model"] + (["proto"] if with_proto else [])
         C = self.num_classes
@@ -643,6 +694,7 @@ class ProtoOnlineAdapter(T.ShardedModel):
         comes to the host in one copy. Under data parallelism every rank
         predicts its rows, and rank 0 renders the global batch's (the ranks'
         rows in rank order), so that the samples are those of one device."""
+        refuse_spatial("sample rendering")
         from ..data.metadata import load_dataset_info
         from ..utils.viz import MaskSample, denormalize_rgb, save_sample
 
@@ -708,6 +760,7 @@ class ProtoOnlineAdapter(T.ShardedModel):
         counter per domain (reference adaptation_model.py:218-232); under data
         parallelism rank 0 writes the global batch, the ranks' rows in rank
         order."""
+        refuse_spatial("PREDICTION_SAVE")
         set_ = self.cfg_spec.set_
         base = os.path.join(str(self.cfg_spec.PREDICTION_SAVE), "_".join(str(set_)))
         counter = self.prediction_counter.setdefault(set_, 0)
@@ -721,6 +774,7 @@ class ProtoOnlineAdapter(T.ShardedModel):
     # train loop (reference prototypes.py:466-520)
     # ------------------------------------------------------------------
     def train(self, trainloader, targetloader, validation_loaders) -> None:
+        refuse_spatial("the train loop")
         spec = self.cfg_spec
         auto_dynamic = bool(value_or(spec.AUTO_DYNAMIC, False))
         if not auto_dynamic:  # AUTO_DYNAMIC refreshes the dynamic teacher itself

@@ -25,6 +25,12 @@ on every model rank. The stem's conv (64 channels), the SE's squeeze (80)
 and the classifiers (one channel a class) are narrower than JAX's 128 and
 never sharded, so they take their input as it is. With whole parameters
 none of it does anything.
+
+On a spatial axis (`parallel.spatial`) every rank runs the model on its
+block of the image's rows: the forward enters the image's global height in
+the row table (`spatial.begin`), the layers fetch the rows their windows
+read (`layers`), and the SE block's mean is a sum and a count over the
+spatial group.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import distributed as dist
+from ..parallel import spatial as S
 from ..parallel import tensor as T
 from .layers import (Conv2d, Dropout2d, GroupNorm, Linear, TorchBatchNorm, max_pool_ceil,
                      rematerialized)
@@ -126,7 +134,12 @@ class SEBlock(nn.Module):
 
     def forward(self, x):
         fc1, relu, fc2, sigmoid = self.se
-        s = fc2(T.fan_in(relu(fc1(x.mean(dim=(2, 3)))), fc2)[0])
+        if S.active():  # the mean over every rank's rows of a sample
+            total = dist.summed(x.float().sum(dim=(2, 3)), group="spatial")[0]
+            mean = (total / (S.global_height(x.shape[2]) * x.shape[3])).to(x.dtype)
+        else:
+            mean = x.mean(dim=(2, 3))
+        s = fc2(T.fan_in(relu(fc1(mean)), fc2)[0])
         if T.shards(fc2) > 1:
             s = T.gather_channels(s)
         return x * sigmoid(s)[:, :, None, None]
@@ -207,6 +220,8 @@ class DeepLabV2(nn.Module):
     def forward(self, x, train=False, update_stats=True, generator=None, with_aux=True):
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
+        if S.active():
+            S.begin(x)
         x = F.relu(self.bn1(self.conv1(x), train, update_stats))
         x = max_pool_ceil(x, window=3, stride=2, padding=1)
         x = self.layer1(x, train, update_stats)

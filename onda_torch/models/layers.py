@@ -11,6 +11,14 @@ backward all-reduces the per-channel sums of dy and dy·x̂ before its closed
 form, and the running update uses the global count. Dropout draws its mask
 for the global batch and keeps this rank's rows.
 
+On a spatial axis (`parallel.spatial`) each rank holds a block of every
+tensor's rows: a convolution whose window spans rows, and the ceil-mode max
+pool, fetch the rows their output block reads from the ranks that hold
+them; BatchNorm weights each rank's raw moments by its element count (the
+blocks may be uneven) and takes the global count in its backward and its
+running update; GroupNorm sums its per-sample moments over the spatial
+group; dropout draws one mask for every spatial rank of a data index.
+
 Under tensor parallelism (`parallel.tensor`) a norm whose weight is a
 channel shard normalises its shard (K2 at (N, C/tp, H, W)) and gathers the
 result over the model group; a sharded GroupNorm does so when its groups
@@ -32,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
 from ..parallel import distributed as dist
+from ..parallel import spatial as S
 from ..parallel import tensor as T
 
 def rematerialized(block, x, train: bool, update_stats: bool):
@@ -74,7 +83,10 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return self._conv_forward(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
+        x, weight, bias = _cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt)
+        if S.active() and (self.kernel_size[0] > 1 or self.stride[0] > 1):
+            return S.conv2d(x, weight, bias, self.stride, self.padding, self.dilation)
+        return self._conv_forward(x, weight, bias)
 
 
 class Linear(nn.Linear):
@@ -96,16 +108,18 @@ class _BNTrain(torch.autograd.Function):
     constants: the backward is the full closed form
         dx = γ·inv · (dy − mean(dy) − x̂·mean(dy·x̂)),
     which already accounts for the statistics' dependence on x. Under data
-    parallelism the means run over the global batch (one all-reduce of the
-    two sums), while dγ and dβ stay this rank's: the gradient bucket sums
-    them over the ranks (`optim.grads`)."""
+    parallelism, and on a spatial axis, the means run over the global batch's
+    `count` pixels (one all-reduce of the two sums), while dγ and dβ stay
+    this rank's: the gradient bucket sums them over the ranks
+    (`optim.grads`)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, mean, var, eps):
+    def forward(ctx, x, weight, bias, mean, var, eps, count):
         inv = torch.rsqrt(var + eps)
         shape = (1, -1, 1, 1)
         y = ((x.float() - mean.view(shape)) * (inv * weight).view(shape) + bias.view(shape))
         ctx.save_for_backward(x, mean, inv, weight)
+        ctx.count = count
         return y.to(x.dtype)
 
     @staticmethod
@@ -113,30 +127,34 @@ class _BNTrain(torch.autograd.Function):
         x, mean, inv, weight = ctx.saved_tensors
         shape = (1, -1, 1, 1)
         dy = dy.float()
-        n = x.shape[0] * x.shape[2] * x.shape[3]
         x_hat = (x.float() - mean.view(shape)) * inv.view(shape)
         dbeta = dy.sum(dim=(0, 2, 3))
         dgamma = (dy * x_hat).sum(dim=(0, 2, 3))
         dx = None
         if ctx.needs_input_grad[0]:
-            sum_dy, sum_dy_xhat = dist.all_sum(dbeta, dgamma)
-            n *= dist.data_world()
+            sum_dy, sum_dy_xhat = dist.all_sum(dbeta, dgamma, group="pixels")
+            n = ctx.count
             dx = (weight * inv).view(shape) * (
                 dy - (sum_dy / n).view(shape) - x_hat * (sum_dy_xhat / n).view(shape))
             dx = dx.to(x.dtype)
         return (dx, dgamma if ctx.needs_input_grad[1] else None,
-                dbeta if ctx.needs_input_grad[2] else None, None, None, None)
+                dbeta if ctx.needs_input_grad[2] else None, None, None, None, None)
 
 
 def bn_train(x, weight, bias, eps: float = 1e-5):
     """Train-mode batch norm: returns (y, batch mean, biased batch var), the
-    statistics of the global batch under data parallelism."""
-    if dist.data_world() == 1:
+    statistics of the global batch under data parallelism and on a spatial
+    axis (each rank's raw moments weighted by its share of the pixels,
+    `distributed.pixel_means`)."""
+    count = x.shape[0] * x.shape[2] * x.shape[3]
+    total = S.global_pixels(x.shape[0], x.shape[2], x.shape[3])
+    if dist.pixel_world() == 1:
         mean, var = kernels.bn_stats(x.detach())
     else:
-        mean, mean_sq = dist.all_mean(kernels.bn_moments(x.detach()))[0]
+        (moments,), _ = dist.pixel_means([kernels.bn_moments(x.detach())], count, total)
+        mean, mean_sq = moments
         mean, var = mean.float(), torch.clamp(mean_sq - mean * mean, min=0.0).float()
-    return _BNTrain.apply(x, weight, bias, mean, var, eps), mean, var
+    return _BNTrain.apply(x, weight, bias, mean, var, eps, total), mean, var
 
 
 class TorchBatchNorm(nn.Module):
@@ -147,7 +165,7 @@ class TorchBatchNorm(nn.Module):
     * running statistics in eval mode;
     * the running update uses the unbiased batch variance n/(n−1), with a
       per-module momentum (0.1 by default); n counts the global batch under
-      data parallelism;
+      data parallelism and on a spatial axis;
     * with a channel shard of its weight (tensor parallelism) it normalises
       those channels of its input (cut from a whole input when it gets one)
       and returns the whole output, gathered over the model group.
@@ -174,7 +192,7 @@ class TorchBatchNorm(nn.Module):
         if train:
             y, mean, var = bn_train(x, self.weight, self.bias, self.eps)
             if update_stats:
-                n = x.shape[0] * x.shape[2] * x.shape[3] * dist.data_world()
+                n = S.global_pixels(x.shape[0], x.shape[2], x.shape[3])
                 with torch.no_grad():
                     m = self.momentum
                     self.running_mean.mul_(1 - m).add_(m * mean)
@@ -193,8 +211,9 @@ class GroupNorm(nn.GroupNorm):
     returns the input's type (built with `dtype` there, so bf16 under bf16);
     the GN backbone's (`f32_out`) returns f32 whatever comes in, as flax's
     does when built with no dtype: f32 parameters promote a bf16 input, so
-    that backbone passes f32 between its convolutions. Takes the BatchNorm
-    slot's `train` and `update_stats` and ignores them."""
+    that backbone passes f32 between its convolutions. On a spatial axis the
+    per-sample moments are sums over the spatial group (in f64). Takes the
+    BatchNorm slot's `train` and `update_stats` and ignores them."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
                  f32_out: bool = False):
@@ -210,14 +229,35 @@ class GroupNorm(nn.GroupNorm):
         elif n > 1:
             x = T.gather_channels(x)
             weight, bias = T.gather_channels(weight, 0), T.gather_channels(bias, 0)
-        y = F.group_norm(x.float(), groups, weight, bias, self.eps)
+        if S.active():
+            y = _group_norm_rows(x.float(), groups, weight, bias, self.eps)
+        else:
+            y = F.group_norm(x.float(), groups, weight, bias, self.eps)
         y = y if self.f32_out else y.to(x.dtype)
         return T.gather_channels(y) if local else y
 
 
+def _group_norm_rows(x, groups: int, weight, bias, eps: float):
+    """GroupNorm of this rank's rows on a spatial axis: each sample's
+    moments per group summed in f64 over the spatial group (differentiably),
+    the normalisation in f32."""
+    n, c, h, w = x.shape
+    xs = x.reshape(n, groups, -1)
+    x64 = xs.double()
+    count = torch.full((n, groups), float(xs.shape[-1]), dtype=torch.float64, device=x.device)
+    s1, s2, count = dist.summed(x64.sum(-1), (x64 * x64).sum(-1), count, group="spatial")
+    mean = s1 / count
+    var = torch.clamp(s2 / count - mean * mean, min=0.0)
+    y = (xs - mean.float()[..., None]) * torch.rsqrt(var + eps).float()[..., None]
+    return y.reshape(n, c, h, w) * weight.view(1, -1, 1, 1) + bias.view(1, -1, 1, 1)
+
+
 def max_pool_ceil(x, window: int, stride: int, padding: int):
     """MaxPool2d with ceil_mode=True (reference deeplabv2.py:289-291): 256 → 129
-    for k=3, s=2, p=1, which gives the 1/8+1 output grid."""
+    for k=3, s=2, p=1, which gives the 1/8+1 output grid. On a spatial axis
+    the ceil row exists on the last rank only (`spatial.max_pool_ceil`)."""
+    if S.active():
+        return S.max_pool_ceil(x, window, stride, padding)
     return F.max_pool2d(x, window, stride, padding, ceil_mode=True)
 
 
@@ -225,9 +265,9 @@ def dropout2d(x, rate: float, train: bool, generator=None):
     """Channel-wise dropout (torch nn.Dropout2d) drawing from `generator`; a
     None generator in train mode disables it, as a None rng does in JAX.
     Under data parallelism every rank draws the global batch's mask and keeps
-    its own rows, so the ranks' generators stay equal; the model ranks of one
-    data index, which hold the same rows of the whole tensor, draw the same
-    mask."""
+    its own rows, so the ranks' generators stay equal; the model ranks, and
+    the spatial ranks, of one data index, which hold the same samples, draw
+    the same mask."""
     if not train or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate

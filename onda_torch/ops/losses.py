@@ -6,7 +6,8 @@ framework/utils/loss.py and methods/prototypes.py:29-39, quirks included.
 
 A loss that is a mean over pixels takes an optional `count`, the number of
 pixels it divides by (the valid ones for hard labels, all of them otherwise).
-Under data parallelism the step passes the count of the global batch, so
+Under data parallelism, and on a spatial axis (where a rank holds a block
+of each image's rows), the step passes the count of the global batch, so
 that each rank's value is its share of the global loss: the ranks' values,
 and their gradients, sum to the loss of the global batch. By default the
 count is this batch's own.

@@ -41,6 +41,18 @@ told otherwise; at tp 1 it is the world, so data parallelism makes the same
 calls as before. `gather_model` concatenates the model ranks' channel
 shards. `COUNTS` counts the calls and bytes by group.
 
+The spatial mesh axis (`parallel.spatial`, JAX's `make_mesh(shape=(d, s),
+axes=("data", "spatial"))`) arranges the ranks as a (data × spatial) grid
+the same way (`form_grid(1, s)`: rank r at (r // s, r % s)): the spatial
+group holds the ranks of one data index (they split the image's rows), the
+data group those of one spatial index. Every sum over pixels then runs over
+data × spatial, the "pixels" group (`pixel_world`, `pixel_rank`): the world
+on that grid, the data group otherwise, so the other paths make the calls
+they made before. The shares of the pixels may be uneven (65 feature rows
+split 33/32), so a mean over pixels is a sum and a count (`pixel_means`),
+and `summed` is the all-reduce that autograd differentiates (its backward
+sums the gradients over the group: each rank's loss reads the sum).
+
 Only rank 0 writes files (`is_primary`): metrics, checkpoints, prototype
 pickles, samples and prediction dumps. The ranks of one model index compute
 the same state; under tensor parallelism each holds its own channel shards.
@@ -59,12 +71,14 @@ import torch.distributed as dist
 from . import shared_card
 
 # collective calls made (all-reduces, broadcasts, all-gathers) and the bytes
-# they moved since the last reset, by group (`counts()` adds the groups up)
+# they moved since the last reset, by group (`counts()` adds the groups up);
+# the spatial group's entry comes with its first call
 COUNTS = {name: {"collectives": 0, "bytes": 0} for name in ("data", "model", "world")}
 TIMEOUT = datetime.timedelta(minutes=10)  # a rank that stops waits this long, then fails
-# the grid: the model axis's size and this rank's data and model groups (none
-# at tp 1: the data group is then the world)
-_GRID = {"tp": 1, "data": None, "model": None}
+# the grid: the model and spatial axes' sizes (one of them 1) and this rank's
+# data, model and spatial groups (none on an axis of 1: the data group is
+# then the world)
+_GRID = {"tp": 1, "sp": 1, "data": None, "model": None, "spatial": None}
 
 
 def reset_counts() -> None:
@@ -79,8 +93,9 @@ def counts() -> dict:
 
 
 def _count(group: str, nbytes: int) -> None:
-    COUNTS[group]["collectives"] += 1
-    COUNTS[group]["bytes"] += nbytes
+    entry = COUNTS.setdefault(group, {"collectives": 0, "bytes": 0})
+    entry["collectives"] += 1
+    entry["bytes"] += nbytes
 
 
 def choose_backend(device_type: str, ranks_on_host: int, cards_on_host: int) -> str:
@@ -118,7 +133,7 @@ def initialize(device: str | torch.device = "cuda") -> torch.device:
 
 def destroy() -> None:
     """Leave the process group, if this process joined one, and its grid."""
-    _GRID.update(tp=1, data=None, model=None)
+    _GRID.update(tp=1, sp=1, data=None, model=None, spatial=None)
     if dist.is_initialized():
         shared_card.close_all()
         dist.destroy_process_group()
@@ -132,28 +147,36 @@ def world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def form_grid(tp: int) -> None:
-    """Arrange the ranks as a (world // tp) × tp grid: rank r at data index
-    r // tp and model index r % tp. Every rank makes every group, in the same
-    order (`dist.new_group` is a collective). tp 1 is the plain world; a grid
-    already formed at tp is kept."""
+def form_grid(tp: int, sp: int = 1) -> None:
+    """Arrange the ranks as a (world // n) × n grid, n the model axis's size
+    tp or the spatial axis's sp (the other one 1): rank r at data index
+    r // n and inner index r % n. Every rank makes every group, in the same
+    order (`dist.new_group` is a collective). n 1 is the plain world; a grid
+    already formed at (tp, sp) is kept."""
     w = world()
+    if tp > 1 and sp > 1:
+        raise ValueError("the spatial axis does not combine with a model axis "
+                         "(OTHERS.TENSOR_PARALLEL): JAX's meshes have one or the other")
     if tp < 1 or w % tp:
         raise ValueError(f"a model axis of {tp} does not divide the {w} ranks")
-    if tp == _GRID["tp"]:
+    if sp < 1 or w % sp:
+        raise ValueError(f"a spatial axis of {sp} does not divide the {w} ranks")
+    if (tp, sp) == (_GRID["tp"], _GRID["sp"]):
         return
-    data = model = None
-    if tp > 1:
+    n = max(tp, sp)
+    data = inner = None
+    if n > 1:
         r = rank()
-        for d in range(w // tp):
-            ranks = [d * tp + m for m in range(tp)]
+        for d in range(w // n):
+            ranks = [d * n + m for m in range(n)]
             group = dist.new_group(ranks)
-            model = group if r in ranks else model
-        for m in range(tp):
-            ranks = [d * tp + m for d in range(w // tp)]
+            inner = group if r in ranks else inner
+        for m in range(n):
+            ranks = [d * n + m for d in range(w // n)]
             group = dist.new_group(ranks)
             data = group if r in ranks else data
-    _GRID.update(tp=tp, data=data, model=model)
+    _GRID.update(tp=tp, sp=sp, data=data, model=inner if tp > 1 else None,
+                 spatial=inner if sp > 1 else None)
 
 
 def model_world() -> int:
@@ -165,24 +188,48 @@ def model_rank() -> int:
     return rank() % _GRID["tp"]
 
 
+def spatial_world() -> int:
+    """The spatial axis's size: the ranks that split one data index's rows."""
+    return _GRID["sp"]
+
+
+def spatial_rank() -> int:
+    return rank() % _GRID["sp"]
+
+
 def data_world() -> int:
     """The data axis's size: the ranks that split the global batch."""
-    return world() // _GRID["tp"]
+    return world() // (_GRID["tp"] * _GRID["sp"])
 
 
 def data_rank() -> int:
+    return rank() // (_GRID["tp"] * _GRID["sp"])
+
+
+def pixel_world() -> int:
+    """The ranks that split the pixels of the global batch: data × spatial."""
+    return data_world() * _GRID["sp"]
+
+
+def pixel_rank() -> int:
     return rank() // _GRID["tp"]
 
 
 def _group(name: str):
-    """(process group, size, this rank's index in it) of "data", "model" or
-    "world"; the group None is the world."""
+    """(process group, size, this rank's index in it, the group's name in
+    `COUNTS`) of "data", "model", "spatial", "world" or "pixels" (data ×
+    spatial: the world on a spatial grid, else the data group); the group
+    None is the world."""
+    if name == "pixels":
+        name = "world" if _GRID["sp"] > 1 else "data"
     if name == "data":
-        return _GRID["data"], data_world(), data_rank()
+        return _GRID["data"], data_world(), data_rank(), name
     if name == "model":
-        return _GRID["model"], model_world(), model_rank()
+        return _GRID["model"], model_world(), model_rank(), name
+    if name == "spatial":
+        return _GRID["spatial"], spatial_world(), spatial_rank(), name
     if name == "world":
-        return None, world(), rank()
+        return None, world(), rank(), name
     raise ValueError(f"no group {name!r}")
 
 
@@ -225,11 +272,12 @@ def host_local_batch_indices(n_samples: int, global_batch: int, process_index: i
 
 def all_sum(*tensors: torch.Tensor, group: str = "data"):
     """The elementwise sums of `tensors` over the ranks of `group` ("data",
-    the default, "model" or "world"), in one all-reduce of a flat bucket
+    the default, "model", "spatial", "world" or "pixels"), in one all-reduce
+    of a flat bucket
     (the tensors must share a dtype and a device). Returns a tuple of new
     tensors, views of the bucket; in a group of one rank the arguments
     themselves, with no collective call."""
-    handle, size, _ = _group(group)
+    handle, size, _, group = _group(group)
     if size == 1:
         return tensors
     dtypes = {t.dtype for t in tensors}
@@ -250,10 +298,50 @@ def all_mean(*tensors: torch.Tensor, group: str = "data"):
     """The means over the ranks of `group` of per-rank means over equal
     shares of the global batch: the global means. One all-reduce; the
     arguments themselves in a group of one rank."""
-    _, size, _ = _group(group)
+    _, size, _, _ = _group(group)
     if size == 1:
         return tensors
     return tuple(t / size for t in all_sum(*tensors, group=group))
+
+
+def pixel_means(means, count: int, total: int, sums=()):
+    """Global reductions over the pixels of the global batch, in one
+    all-reduce over the "pixels" group: `means` are this rank's means over
+    its `count` pixels of the global batch's `total` (tensors of one dtype
+    with `sums`), `sums` its sums. Returns (the global means, the global
+    sums). Off a spatial grid every data rank holds as many pixels and the
+    means are averaged (`all_mean`); on one the shares may be uneven, and
+    each mean enters weighted by its count."""
+    means, sums = list(means), list(sums)
+    if _GRID["sp"] == 1:
+        out = all_sum(*means, *sums, group="pixels")
+        w = data_world()
+        return [m / w if w > 1 else m for m in out[:len(means)]], list(out[len(means):])
+    out = all_sum(*(m * count for m in means), *sums, group="pixels")
+    return [s / total for s in out[:len(means)]], list(out[len(means):])
+
+
+class _Summed(torch.autograd.Function):
+    """`all_sum` that autograd differentiates: every rank reads the sum, so
+    each one's gradient of its own part is the sum of the ranks' gradients
+    of the result."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        return tuple(t.clone() for t in all_sum(*tensors, group=group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *all_sum(*(g.contiguous() for g in grads), group=ctx.group))
+
+
+def summed(*tensors: torch.Tensor, group: str):
+    """`all_sum(*tensors, group=group)`, differentiable; the arguments
+    themselves in a group of one rank."""
+    if _group(group)[1] == 1:
+        return tensors
+    return _Summed.apply(group, *tensors)
 
 
 def _card_channel(t: torch.Tensor, handle, size: int, group: str):
@@ -309,7 +397,7 @@ def _gather(x: torch.Tensor, group: str, dim: int) -> torch.Tensor:
     rank's slot but its own zero: the sum is exact) gathers them, which gloo
     can do for card tensors too (it moves them by all-reduce and broadcast
     only). `x` itself in a group of one rank."""
-    handle, size, index = _group(group)
+    handle, size, index, group = _group(group)
     if size == 1:
         return x
     card = _card_channel(x, handle, size, group)
@@ -329,6 +417,12 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     axis in data order: the global batch of per-rank slices (the model ranks
     of a data index hold the same rows)."""
     return _gather(x, "data", 0)
+
+
+def gather_spatial(x: torch.Tensor) -> torch.Tensor:
+    """The spatial ranks' x (equal shapes), stacked in spatial order:
+    (spatial_world(), *x.shape), on every rank of the spatial group."""
+    return _gather(x[None], "spatial", 0)
 
 
 def gather_model(x: torch.Tensor, dim: int = 1) -> torch.Tensor:

@@ -25,6 +25,15 @@ TENSOR_PARALLEL is its runtime's, not the maths', and the port has none.
 TENSOR_PARALLEL runs on every path of the CLI, as JAX's `data_parallel_setup`
 serves every adapter: the PROTO_ONLINE family, ADVENT, PROTO_ADVENT, SEGMENT
 training and EVALUATION mode.
+
+The spatial axis has no config key, in JAX or here: JAX reaches it through
+`make_mesh(shape=(d, s), axes=("data", "spatial"))`, the port through
+`spatial_grid((d, s))`, which arranges torchrun's ranks as that grid before
+the adapter is made (`parallel.spatial` shards the image's rows over the
+spatial axis). It runs what JAX runs on it: the PROTO_ONLINE bootstrap and
+fused step. `resolve` keeps the grid for the adapter that asks for it
+(`spatial=True`) and raises for every other caller (the CLI, ADVENT,
+PROTO_ADVENT, SEGMENT, EVALUATION) and for OTHERS.TENSOR_PARALLEL with it.
 """
 
 from __future__ import annotations
@@ -106,10 +115,46 @@ def data_axis(cfg) -> int:
     return data_parallel_size(None if unset(dp) else dp, batch)
 
 
-def resolve(cfg) -> tuple[int, int]:
+def spatial_grid(shape, batch_size: int | None = None) -> tuple[int, int]:
+    """Arrange this run's ranks as a (data × spatial) grid of `shape` (d, s),
+    JAX's `make_mesh(shape=(d, s), axes=("data", "spatial"))`: rank r at data
+    index r // s and spatial index r % s (`distributed.form_grid`, a
+    collective every rank joins). Each rank then takes its data index's rows
+    of every global batch and its spatial index's block of their image rows
+    (`spatial.shard_rows`). Raises ValueError for a grid that is not the
+    ranks', and for a `batch_size` that the data axis does not divide.
+    Returns (d, s)."""
+    d, s = (int(v) for v in shape)
+    n = distributed.world()
+    if d < 1 or s < 1 or d * s != n:
+        raise ValueError(f"a (data × spatial) grid of {d} × {s} needs {d * s} ranks; this run "
+                         f"has {n}: the spatial axis must divide the ranks")
+    if batch_size and batch_size % d:
+        raise ValueError(f"BATCH_SIZE={batch_size} does not divide the data axis of {d}")
+    distributed.form_grid(1, s)
+    return d, s
+
+
+def resolve(cfg, spatial: bool = False) -> tuple[int, int]:
     """`data_axis`, then the grid of this run's ranks formed
     (`distributed.form_grid`, a collective every rank joins); returns the
-    (data, model) axis sizes."""
+    (data, model) axis sizes. On a spatial grid (`spatial_grid`) the grid is
+    kept for a caller that runs on it (`spatial`), which gets (data, 1);
+    every other caller, OTHERS.TENSOR_PARALLEL and a batch the data axis
+    does not divide raise ValueError."""
+    if distributed.spatial_world() > 1:
+        sp = distributed.spatial_world()
+        if not spatial:
+            raise ValueError(f"a spatial axis of {sp} runs the PROTO_ONLINE bootstrap and fused "
+                             "step only (as JAX's make_mesh does): not the CLI, evaluation, "
+                             "ADVENT, PROTO_ADVENT or SEGMENT")
+        tp = _tensor_parallel_option(cfg)
+        if tp is True or (tp not in (None, False) and int(tp) > 1):
+            raise ValueError(f"OTHERS.TENSOR_PARALLEL={tp} does not combine with the spatial axis")
+        data, batch = distributed.data_world(), int(cfg.TRAINING.BATCH_SIZE)
+        if batch % data:
+            raise ValueError(f"BATCH_SIZE={batch} does not divide the data axis of {data}")
+        return data, 1
     data = data_axis(cfg)
     model = grid_shape(_tensor_parallel_option(cfg))[1]
     distributed.form_grid(model)

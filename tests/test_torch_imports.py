@@ -21,10 +21,12 @@ def _sources():
 
 
 def test_the_scan_covers_every_port_package():
-    """The sources scanned include the data-parallel package."""
+    """The sources scanned include the parallel package (the spatial axis
+    among it) and the metadata scanner's entry point."""
     scanned = {os.path.relpath(p, ROOT) for p in _sources()}
     for rel in ("onda_torch/parallel/__init__.py", "onda_torch/parallel/distributed.py",
-                "onda_torch/parallel/mesh.py"):
+                "onda_torch/parallel/mesh.py", "onda_torch/parallel/spatial.py",
+                "onda_torch/make_metadata.py", "onda_torch/data/metadata.py"):
         assert rel in scanned
 
 

@@ -16,7 +16,10 @@ its rows of each global batch (rank-major: rows [r·b, (r+1)·b)) and runs the
 scenario's kind: `proto` (the default) bootstraps the prototypes, evaluates
 and takes PROTO_ONLINE steps; `tensor_parallel` does so on a (data × model)
 grid (OTHERS.TENSOR_PARALLEL), then saves and loads whole-state files;
-`adversarial` takes ADVENT or PROTO_ADVENT steps; `segment` runs
+`adversarial` takes ADVENT or PROTO_ADVENT steps; `spatial_forward` runs
+the model on a (data × spatial) grid (`mesh.spatial_grid`), each rank on its
+block of its data index's image rows, and `spatial_step` bootstraps the
+prototypes and takes hybrid steps there; `segment` runs
 `SegmentTrainer.train` (both on a grid where the scenario names a "tp");
 `evaluation` makes the
 EVALUATION runner on a directory of checkpoints, evaluates, sweeps and dumps
@@ -612,6 +615,82 @@ def run_evaluation(sc, state_dict, rank, world, snap):
     return out
 
 
+# ---- the spatial axis ------------------------------------------------------
+
+def spatial_rows(x, row_dim):
+    """This rank's rows of a global batch on a (data × spatial) grid: its
+    data index's samples, its spatial index's block of their rows."""
+    from onda_torch.parallel import spatial
+
+    d, b = distributed.data_rank(), len(x) // distributed.data_world()
+    return spatial.shard_rows(x[d * b:(d + 1) * b], row_dim)
+
+
+def run_spatial_forward(sc, state_dict, rank, world, snap):
+    """The model's forward on a grid of sc["grid"] (data, spatial), in eval
+    mode and in train mode (batch statistics, no update): this rank's
+    blocks of "out" and "feat", and the collectives by group."""
+    from onda_torch.parallel import mesh
+
+    mesh.spatial_grid(sc["grid"], len(sc["image"]))
+    model = model_of(state_dict, False)
+    x = spatial_rows(nchw(sc["image"]), 2)
+    out = {"position": (distributed.data_rank(), distributed.spatial_rank())}
+    distributed.reset_counts()
+    with torch.no_grad():
+        for train in (False, True):
+            _, main = model(x, train=train, update_stats=False, with_aux=False)
+            out[f"train={train}"] = {k: v.clone() for k, v in main.items()}
+    out["collectives"] = {g: dict(c) for g, c in distributed.COUNTS.items()}
+    return out
+
+
+def run_spatial_step(sc, state_dict, rank, world, snap):
+    """hybrid_switch.yml's bootstrap (from full-resolution source labels)
+    and sc["steps"] fused steps on a grid of sc["grid"] (data, spatial),
+    every input cut to this rank's rows (the loss-grid labels as the feature
+    grid): per step the logs, this rank's hard pseudo-labels (K1's first
+    launch), the collectives by group and the digests of the state; the
+    prototypes after the bootstrap and the step, Σ|params| in f64 and the
+    selected parameters (rank 0)."""
+    from onda_torch.parallel import mesh
+
+    mesh.spatial_grid(sc["grid"], sc["batch"])
+    ad = make_adapter(state_dict, "hybrid_switch", sc["spec"], snap, sc["hw"], sc["batch"])
+    boot = sc["boot"]
+    ad.calculate_prototypes([{"image": spatial_rows(nchw(boot["image"]), 2),
+                              "label": spatial_rows(torch.tensor(boot["label"]), 1)}])
+    out = {"position": (distributed.data_rank(), distributed.spatial_rank()),
+           "boot_proto": {k: v.clone() for k, v in vars(ad.state.proto).items()}, "logs": [],
+           "hard": [], "collectives": [], "digests": []}
+    step = ad.step_fn(True, 1, False)
+    launch = K.pseudo_labels
+
+    def recording(feat, *args, **kwargs):
+        result = launch(feat, *args, **kwargs)
+        if len(out["hard"]) < len(out["logs"]) + 1:  # the step's first launch: the hard labels
+            out["hard"].append(result[1].clone())
+        return result
+
+    K.pseudo_labels = recording
+    try:
+        for src, trg in sc["steps"]:
+            labels = spatial_rows(torch.tensor(src["label_res"]), 1)[None].long()
+            distributed.reset_counts()
+            ad.state, logs = step(ad.state, spatial_rows(nchw(trg["image"]), 2),
+                                  spatial_rows(nchw(src["image"]), 2)[None], labels, sc["lr"])
+            out["collectives"].append({g: dict(c) for g, c in distributed.COUNTS.items()})
+            out["logs"].append(dict(logs.items()))
+            out["hard"][-1] = out["hard"][-1].view(labels.shape[1], labels.shape[2], -1)
+            out["digests"].append(digests_of(state_tensors(ad.state)))
+    finally:
+        K.pseudo_labels = launch
+    out["proto"] = {k: v.clone() for k, v in vars(ad.state.proto).items()}
+    out["abs_params"] = float(sum(v.double().abs().sum() for v in ad.state.params.values()))
+    out["params"] = ({k: ad.state.params[k].clone() for k in SELECTED} if rank == 0 else {})
+    return out
+
+
 @contextlib.contextmanager
 def _patched(owner, name, value):
     saved = owner.__dict__.get(name)
@@ -626,7 +705,8 @@ def _patched(owner, name, value):
 
 
 KINDS = {"adversarial": run_adversarial, "segment": run_segment, "evaluation": run_evaluation,
-         "tensor_parallel": run_tensor_parallel, "chain": run_chain}
+         "tensor_parallel": run_tensor_parallel, "chain": run_chain,
+         "spatial_forward": run_spatial_forward, "spatial_step": run_spatial_step}
 
 
 def main():
