@@ -16,6 +16,8 @@
                                          # phase 12 (the data-parallel ranks:
                                          # 12.1-12.5) and phase 13 (the
                                          # tensor-parallel grids: 13.1-13.5)
+    python3 chip_smoke.py --quality-only # phases 1-4, 15 (the quality run)
+                                         # and 16 (DeepLab-v3)
 
 Phases:
  1. card name and power limit; the TF32 settings of each phase;
@@ -31,7 +33,9 @@ Phases:
     rank's batch 2 of phase 12, and batch 8; a phase-13 rank's channel shards
     and a phase-14 rank's block of rows, timed summed over a rank's 53
     inputs) and at training_fog.yml's batch 4, 128x64 (phase 8.1's SEGMENT
-    run), and at
+    run), at every BatchNorm input of phase 16's DeepLab-v3 models (16.2's
+    at b4 1024x512, timed summed over each forward: the image-pooling
+    branch's (4, 256, 1, 1) among them; 16.1's at b2 64x64), and at
     adversarial shapes (odd planes, one element, planes that start at an odd
     element), f32 and bf16, NCHW and channels_last, each call repeated to show
     that the result is the same bit for bit; its raw-moments output (mean and
@@ -199,8 +203,26 @@ Phases:
     halo rows on the spatial group, host syncs, peak memory); 14.2 the same
     on JAX's (2 x 2) shape, batch-invariant, 1 timed step. 14.1's ranks are
     a job of phase 13's (1 x 2) torchrun, 14.2's of 13.2's four ranks; the
-    one-process references and the checks are phase 14's own. Every phase
-    prints its seconds, and the end the whole script's.
+    one-process references and the checks are phase 14's own.
+ 15. the GPU quality run (`onda_torch.quality_run`, ROADMAP M19) cut in
+    depth: its 1024x512 shift storm in bf16 at b4, 8 train and 4 val frames
+    a domain, 2 Adam pretraining epochs and 1 adaptation epoch of the CLI
+    over [[60], [30]]: the JSON's keys and finite values, the `.pth` loading
+    strict, the step count, K2 53 a pretraining step, K2 53 a bootstrap
+    batch, K1 2 and K2 159 an adaptation step (K1 1 a validation batch with
+    prototypes: none, SKIP_PROTO_EVAL), every K1/K2 shape fed among phases
+    3-4's; the pretraining and adaptation step ms, the peak memory, and the
+    seconds from the launch of a fresh CLI process on the run's config to
+    its first adapted step with the kernel build directory warm (what JAX's
+    OTHERS.AOT_CACHE cuts);
+ 16. DeepLab-v3 (`onda_torch.models.deeplabv3`): 16.1 resnet50 v3+ OS16,
+    mobilenetv2 v3 OS16 and mobilenetv2 v3+ OS8 at b2 64x64 on the card
+    against the CPU (plain K2), eval and train mode (outputs, running
+    statistics), TF32 off; 16.2 resnet50 v3+ OS16 and mobilenetv2 v3 OS16 at
+    b4 1024x512 f32: a train-mode forward and the backward of a CE loss
+    (finite; K2 once per BatchNorm: 61 and 57) and an eval forward, timed,
+    with the peak memory; every K2 shape fed among phase 4's.
+ Every phase prints its seconds, and the end the whole script's.
 
 Kernel times are device times: the device is held busy (`torch.cuda._sleep`)
 while the host queues the timed calls, so the host's time to queue a launch
@@ -390,7 +412,7 @@ def check_k1(torch, K, P):
     return {"name": "pseudo_labels_kernel", "route": "cuda",
             "source": "onda_torch/csrc/pseudo_labels.cu",
             "replaces": "onda_tpu/ops/pallas_kernels.py:60",
-            "shape": f"P={n_pix} F={n_feat} C={n_cls} f32, mahalanobis",
+            "shape": f"P={main[0]} F={main[1]} C={main[2]} f32, mahalanobis",
             "checked_shapes": [list(c) for c in cases],
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "bound_share": share(b_ms, ms),
@@ -409,7 +431,6 @@ def bn_input_shapes(torch, batch=4, hw=(512, 1024), tp=1, rows=None):
     with `rows` (s, r), on spatial index r of a spatial axis of s: its block
     of each input's rows (`parallel.spatial.split`)."""
     from onda_torch.models import build_deeplab_v2
-    from onda_torch.models.layers import TorchBatchNorm
     from onda_torch.parallel import spatial as S
     from onda_torch.parallel import tensor as T
 
@@ -421,12 +442,21 @@ def bn_input_shapes(torch, batch=4, hw=(512, 1024), tp=1, rows=None):
     with torch.device("meta"):
         model = build_deeplab_v2(19, (3, 4, 6, 3), "ProDA")
     plan = T.tensor_parallel_plan(dict(model.named_parameters()), tp) if tp > 1 else {}
+    return forward_bn_shapes(torch, model, batch, hw,
+                             cut=lambda name: tp if f"{name}.weight" in plan else 1)
+
+
+def forward_bn_shapes(torch, model, batch, hw, cut=lambda name: 1):
+    """The input shape of every BatchNorm call of one forward of a model on
+    the meta device at (batch, 3, *hw), each BatchNorm's channels divided by
+    cut(its name)."""
+    from onda_torch.models.layers import TorchBatchNorm
+
     shapes = []
     for name, mod in model.named_modules():
         if isinstance(mod, TorchBatchNorm):
-            cut = tp if f"{name}.weight" in plan else 1
-            mod.register_forward_pre_hook(lambda m, args, cut=cut: shapes.append(
-                (args[0].shape[0], args[0].shape[1] // cut, *args[0].shape[2:])))
+            mod.register_forward_pre_hook(lambda m, args, c=cut(name): shapes.append(
+                (args[0].shape[0], args[0].shape[1] // c, *args[0].shape[2:])))
     model(torch.empty(batch, 3, *hw, device="meta"))
     return shapes
 
@@ -457,7 +487,11 @@ def check_k2_once(torch, K, x, tag):
     ref_mean = x64.mean(dim=(0, 2, 3))
     ref_var = x64.var(dim=(0, 2, 3), unbiased=False)
     amax = x64.abs().max().item()
-    flat = ref_var == 0  # one value per channel: only the f32 rounding of x² is left
+    # a channel whose variance is under 1% of its E[x²] (one value, or a few
+    # close values far from 0: the image-pooling branch's (N, 256, 1, 1) at
+    # small N) keeps of E[x²] − E[x]² only the f32 rounding of x²: its error
+    # is held to that, as a zero variance's is
+    flat = ref_var <= 1e-2 * (ref_var + ref_mean * ref_mean)
     result = None
     for layout, xl in k2_layouts(torch, x).items():
         mean, var = K.bn_stats(xl)
@@ -475,7 +509,8 @@ def check_k2_once(torch, K, x, tag):
         # under 1e-4
         ok = e_mean <= 1e-6 * amax and e_var <= 1e-4 and e_flat <= 1e-6 * amax**2
         check(ok, f"K2 {tag} {layout}: mean err {e_mean:.3e} (limit {1e-6 * amax:.3e}), var rel "
-                  f"err {e_var:.3e} (limit 1e-4), zero-var err {e_flat:.3e}")
+                  f"err {e_var:.3e} (limit 1e-4), near-zero-var err {e_flat:.3e} (limit "
+                  f"{1e-6 * amax**2:.3e}, {int(flat.sum())} channels)")
         raw, raw2 = K.bn_moments(xl), K.bn_moments(xl)
         torch.cuda.synchronize()
         check(torch.equal(raw, raw2), f"K2 {tag} {layout}: two raw-moment calls differ")
@@ -523,9 +558,16 @@ def check_k2(torch, K, layers, out_dir):
             grids[f"({d} x {sp}) spatial b{SP_BATCH // d} rank {r}"] = bn_input_shapes(
                 torch, batch=SP_BATCH // d, rows=(sp, r))
     grid_shapes = set().union(*grids.values())
+    # phase 16's DeepLab-v3 models: 16.2's at b4 1024x512 (timed in f32,
+    # summed over each forward) and 16.1's small inputs; phase 15's quality
+    # run feeds R50's b4 shapes, the full quality run its b8 ones, in bf16
+    v3_full = {v3_tag(*c): v3_bn_shapes(torch, *c, 4, MAIN_HW) for c in V3_FULL}
+    v3_shapes = set().union(*v3_full.values(), *(
+        v3_bn_shapes(torch, *c, V3_SMALL_INPUT[0], V3_SMALL_INPUT[1]) for c in V3_SMALL))
+    timed_f32 = grid_shapes.union(*v3_full.values())
     extra = (set(segment_bn_shapes(torch)) | set(segment_bn_shapes(torch, tp=TP_SIZE))
              | set(bn_input_shapes(torch, batch=2))
-             | set(bn_input_shapes(torch, batch=8)) | grid_shapes)
+             | set(bn_input_shapes(torch, batch=8)) | grid_shapes | v3_shapes)
     others = sorted(extra - set(distinct), key=lambda s: -math.prod(s))
     g = torch.Generator(device="cuda").manual_seed(2)
     rows, max_err, raw_err = [], 0.0, 0.0
@@ -540,7 +582,7 @@ def check_k2(torch, K, layers, out_dir):
             e_mean, e_var, e_var_abs, e_raw = check_k2_once(torch, K, x, f"{shape} {dtype}")
             rows.append({"shape": shape, "dtype": str(dtype), "mean_abs_err": e_mean,
                          "var_rel_err": e_var, "raw_moments_abs_err": e_raw})
-            if shape not in distinct and (shape not in grid_shapes or dtype != torch.float32):
+            if shape not in distinct and (shape not in timed_f32 or dtype != torch.float32):
                 continue
             if dtype == torch.float32:
                 max_err = max(max_err, e_mean, e_var_abs)
@@ -583,6 +625,15 @@ def check_k2(torch, K, layers, out_dir):
               f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, torch.var_mean {t[2]:.4f} ms, bound "
               f"{t[3]:.4f} ms, {100 * share(t[3], t[0]):.1f}% of the bound; raw moments "
               f"{tp_totals[grid]['moments_ms']:.4f} ms")
+    v3_totals = {}
+    for tag, fed in v3_full.items():
+        t = [sum(per_shape[(s, "torch.float32")][i] for s in fed) for i in range(4)]
+        v3_totals[tag] = {"bn_calls": len(fed), "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+                          "bound_ms": t[3], "shapes": len(set(fed))}
+        print(f"K2 over the {len(fed)} BN inputs of one DeepLab-{tag} forward at b4 "
+              f"{MAIN_HW[1]}x{MAIN_HW[0]} (f32, phase 16.2; {len(set(fed))} shapes): kernel "
+              f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, torch.var_mean {t[2]:.4f} ms, bound "
+              f"{t[3]:.4f} ms, {100 * share(t[3], t[0]):.1f}% of the bound")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "k2_shapes.json"), "w") as f:
         json.dump({"checks": rows, "timings": [
@@ -616,7 +667,8 @@ def check_k2(torch, K, layers, out_dir):
             "max_abs_err": max_err, "ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[3],
             "bound_by": "bytes", "bound_share": share(tot[3], tot[0]), "library_ms": tot[2],
             "moments_ms": moments_ms, "moments_max_abs_err": raw_err,
-            "tensor_parallel_ranks": tp_totals, "check": "pass"}
+            "tensor_parallel_ranks": tp_totals, "deeplab_v3_forwards": v3_totals,
+            "check": "pass"}
 
 
 # ---------------------------------------------------------------------------
@@ -4829,6 +4881,376 @@ def spatial_path(torch, K, launched, checked):
     return paths, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the GPU quality run (python -m onda_torch.quality_run), cut in depth
+# ---------------------------------------------------------------------------
+
+# the tool's knobs for phase 15: its 1024x512 and bf16, b4, 8 train and 4 val
+# frames a domain, 2 pretraining epochs and 1 adaptation epoch
+QUALITY_KNOBS = {"ONDA_QUALITY_BATCH": "4", "ONDA_QUALITY_NTRAIN": "8", "ONDA_QUALITY_NVAL": "4",
+                 "ONDA_QUALITY_PRETRAIN_EPOCHS": "2", "ONDA_QUALITY_UDA_EPOCHS": "1",
+                 "ONDA_QUALITY_PRECISION": "bf16"}
+QUALITY_KEYS = ["precision", "src_miou_pretrained", "source_pre", "heavy_pre", "heavy_post",
+                "source_post", "recovered", "steps", "wall_s"]
+FIRST_STEP_DEADLINE = 300  # seconds a fresh CLI run may take to its first adapted step
+
+
+@contextlib.contextmanager
+def timed_calls(torch, owner, name, times, wrap_result=False):
+    """owner.name timed on the host clock between device syncs, each call's
+    ms appended to `times`; with `wrap_result` the function it returns is
+    timed instead (the step that `step_fn` makes)."""
+    orig = getattr(owner, name)
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+            return out
+        return call
+
+    if wrap_result:
+        setattr(owner, name, lambda *a, **kw: timed(orig(*a, **kw)))
+    else:
+        setattr(owner, name, timed(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def first_step_seconds(cfg, work, log_path):
+    """A fresh `python -m onda_torch.train_ouda --cfg` process on `cfg` (a
+    dict): the seconds from its launch to its first adapted step's record in
+    metrics.jsonl, and that record; the process is stopped there."""
+    import yaml
+
+    snap = os.path.join(work, "fresh_cli")
+    cfg = {**cfg, "OTHERS": {**cfg["OTHERS"], "SNAPSHOT_DIR": snap}}
+    path = os.path.join(work, "fresh_cli.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    metrics = os.path.join(snap, "metrics.jsonl")
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "onda_torch.train_ouda", "--cfg", path],
+                                cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                check(proc.poll() is None, f"the fresh CLI run exited ({proc.returncode}) "
+                                           f"before its first step; its output: {log_path}")
+                check(time.perf_counter() - t0 < FIRST_STEP_DEADLINE,
+                      f"no adapted step within {FIRST_STEP_DEADLINE} s of the fresh CLI run")
+                if os.path.exists(metrics):
+                    with open(metrics) as f:
+                        steps = [json.loads(line) for line in f if line.endswith("\n")
+                                 and "Total target loss" in line]
+                    if steps:
+                        return time.perf_counter() - t0, steps[0]
+                time.sleep(0.05)
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def quality_path(torch, K, card, work, out_dir, checked, build_s):
+    """Phase 15: `onda_torch.quality_run.run` on the card with QUALITY_KNOBS
+    (pretraining, then the CLI over the storm), its launches counted by part
+    and every K1/K2 shape it feeds recorded; then the time from the launch of
+    a fresh CLI process on the run's config to its first adapted step."""
+    import yaml
+
+    from onda_torch import quality_run, registry
+    from onda_torch.methods.proto_online import ProtoOnlineAdapter
+
+    release(torch)
+    root = os.path.join(work, "quality")
+    env = {**QUALITY_KNOBS, "ONDA_QUALITY_DIR": root}
+    knobs = quality_run.knobs(env)
+    marks, pre_ms, step_ms, boot = {}, [], [], []
+    pretrain, calculate = quality_run.pretrain_adam, ProtoOnlineAdapter.calculate_prototypes
+
+    def pretrain_counted(*args, **kwargs):
+        out = pretrain(*args, **kwargs)
+        marks["pretrain"] = dict(K.launches)
+        return out
+
+    def calculate_counted(self, loader):
+        before = dict(K.launches)
+        calculate(self, loader)
+        boot.append((len(loader), {k: K.launches[k] - before[k] for k in before}))
+
+    log_path = os.path.join(out_dir, "quality_run.txt")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(timed_calls(torch, quality_run, "adam_step", pre_ms))
+        stack.enter_context(timed_calls(torch, ProtoOnlineAdapter, "step_fn", step_ms,
+                                        wrap_result=True))
+        quality_run.pretrain_adam = pretrain_counted
+        ProtoOnlineAdapter.calculate_prototypes = calculate_counted
+        stack.callback(setattr, quality_run, "pretrain_adam", pretrain)
+        stack.callback(setattr, ProtoOnlineAdapter, "calculate_prototypes", calculate)
+        shapes = stack.enter_context(KernelShapes(K))
+        log = stack.enter_context(open(log_path, "w"))
+        stack.enter_context(contextlib.redirect_stdout(log))
+        t = time.perf_counter()
+        result = quality_run.run("cuda", env=env)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    total = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 15 result: {json.dumps(result)}")
+
+    check(list(result) == QUALITY_KEYS, f"quality run keys {list(result)}")
+    for key in QUALITY_KEYS[1:]:
+        value = result[key]
+        check(isinstance(value, bool) or (value is not None and math.isfinite(value)),
+              f"quality run: {key} = {value}")
+    with open(knobs["out"]) as f:
+        check(json.load(f) == result, "the written result differs from the printed one")
+    pth = os.path.join(root, "source_bf16.pth")
+    model = quality_run.build_model(registry.LAYERS["DeepLabv2-Resnet50"], "bf16")
+    model.load_state_dict(registry.load_state_dict(pth), strict=True)
+    del model
+    per_epoch = knobs["n_train"] // knobs["batch"]
+    steps = 2 * knobs["uda_epochs"] * per_epoch  # the storm's two target domains
+    check(result["steps"] == steps, f"quality run: {result['steps']} steps, expected {steps}")
+    n_pre = knobs["pretrain_epochs"] * per_epoch
+    check(len(pre_ms) == n_pre and len(step_ms) == steps,
+          f"timed {len(pre_ms)} pretraining and {len(step_ms)} adaptation steps, expected "
+          f"{n_pre} and {steps}")
+    pre = marks["pretrain"]
+    check(pre == {"pseudo_labels_kernel": 0, "bn_stats_kernel": 53 * n_pre},
+          f"pretraining launched {pre}, expected K2 53 a step")
+    check(len(boot) == 1 and boot[0][1] == {"pseudo_labels_kernel": 0,
+                                            "bn_stats_kernel": 53 * boot[0][0]},
+          f"bootstrap launches {boot}, expected K2 53 a batch (one bootstrap)")
+    with open(os.path.join(root, "cfg_bf16.yml")) as f:
+        cfg = yaml.safe_load(f)  # the config the run drove the CLI with
+    spec = cfg["METHOD"]["ADAPTATION"][cfg["METHOD"]["ADAPTATION"]["NAME"]]
+    # K1 once a validation batch when evaluation scores the prototypes (3
+    # sets, one evaluation before adaptation and one an epoch of each domain)
+    val_batches = 3 * (1 + 2 * knobs["uda_epochs"]) * -(-knobs["n_val"] // knobs["batch"])
+    proto_val = 0 if spec.get("SKIP_PROTO_EVAL") else val_batches
+    cli = {k: total[k] - pre[k] for k in total}
+    want = {"pseudo_labels_kernel": 2 * steps + proto_val,
+            "bn_stats_kernel": 53 * boot[0][0] + 159 * steps}
+    check(cli == want, f"the CLI run launched {cli}, expected {want} (K1 2 and K2 159 a step, "
+                       f"K2 53 a bootstrap batch, K1 1 a validation batch with prototypes)")
+    k1_fed = shapes.k1 - {tuple(c) for c in checked["k1"]}
+    k2_fed = {s for s, _ in shapes.k2} - {tuple(c) for c in checked["k2"]}
+    check(not k1_fed and not k2_fed, f"phase 15 fed unchecked shapes: K1 {k1_fed}, K2 {k2_fed}")
+    print(f"phase 15 launches: pretraining {pre} ({n_pre} steps), the CLI {cli} ({steps} steps, "
+          f"{boot[0][0]} bootstrap batches, {proto_val} validation batches with prototypes); "
+          f"{len(shapes.k1)} K1 and {len(shapes.k2)} K2 shape/type pairs fed, all among those "
+          f"phases 3-4 checked")
+
+    first_s, first = first_step_seconds(cfg, work, os.path.join(out_dir, "fresh_cli.txt"))
+    pre_med = statistics.median(pre_ms[per_epoch:]) if n_pre > per_epoch else pre_ms[-1]
+    step_med = statistics.median(step_ms[1:])
+    numbers = {"result": result, "seconds": seconds, "peak_gib": peak / 2**30,
+               "pretrain_step_ms": pre_med, "adapt_step_ms": step_med,
+               "pretrain_ms": pre_ms, "adapt_ms": step_ms, "first_step_s": first_s,
+               "first_step_compile_run_s": first.get("Step compile+run seconds"),
+               "kernel_build_s": build_s}
+    print(f"phase 15, the quality run at b{knobs['batch']} {quality_run.W}x{quality_run.H} bf16, "
+          f"{knobs['n_train']}/{knobs['n_val']} frames a domain, {knobs['pretrain_epochs']} + "
+          f"{knobs['uda_epochs']} epochs [{card}]: {seconds:.3f} s; pretraining step "
+          f"{pre_med:.3f} ms (median after its first epoch; all "
+          f"{', '.join(f'{t:.3f}' for t in pre_ms)}), adaptation step {step_med:.3f} ms "
+          f"(median after the first; all {', '.join(f'{t:.3f}' for t in step_ms)}), peak memory "
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated)")
+    print(f"phase 15 cold start: a fresh CLI process (`python -m onda_torch.train_ouda`) on the "
+          f"run's config reached its first adapted step {first_s:.3f} s after its launch, with "
+          f"the kernel build directory warm (its step 0 took "
+          f"{first.get('Step compile+run seconds', float('nan')):.3f} s); the cold build of "
+          f"phases 1-2 took {build_s:.3f} s [{card}]")
+    return {"quality_pretrain": pre, "quality_cli": cli}, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the DeepLab-v3 zoo
+# ---------------------------------------------------------------------------
+
+V3_SMALL = (("resnet50", True, 16), ("mobilenetv2", False, 16), ("mobilenetv2", True, 8))
+V3_SMALL_INPUT = (2, (64, 64))   # 16.1's batch and (H, W)
+V3_FULL = (("resnet50", True, 16), ("mobilenetv2", False, 16))  # 16.2, b4 at MAIN_HW
+V3_TIMED = 3  # 16.2's timed calls of each, after one
+# 16.1's bounds on max|card − CPU| / max|CPU| of an output, and of a running
+# mean in units of its BatchNorm's largest running std (a variance: of its
+# largest running variance; a channel's mean may be ≈0, as behind a linear
+# bottleneck): eval mode runs the same f32 arithmetic in another order;
+# train mode normalises by batch statistics over 32 values a channel in an
+# OS16 stage (2 in the pooling branch), K2 folding them in f64 where the
+# plain version sums in f32
+V3_BOUNDS = {"eval": 1e-4, "train": 2e-3, "stats": 2e-3}
+
+
+def v3_tag(backbone, plus, os_):
+    return f"{backbone} v3{'+' if plus else ''} OS{os_}"
+
+
+def v3_bn_shapes(torch, backbone, plus, os_, batch, hw):
+    """Input shape of every BatchNorm call of one DeepLab-v3 forward (meta tensors)."""
+    from onda_torch.models.deeplabv3 import build_deeplab_v3
+
+    with torch.device("meta"):
+        model = build_deeplab_v3(19, backbone, plus, os_)
+    return forward_bn_shapes(torch, model, batch, hw)
+
+
+def seeded_v3(torch, config, seed):
+    from onda_torch.models.deeplabv3 import build_deeplab_v3
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build_deeplab_v3(19, *config)
+
+
+def rel_gap(torch, got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    check(got.shape == want.shape and torch.isfinite(got).all(), "non-finite or misshapen")
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def v3_path(torch, K, card, checked):
+    """Phase 16: 16.1 (`v3_small`) and 16.2 (`v3_full`), every K1/K2 shape
+    they feed recorded and held to phase 4's checked ones."""
+    release(torch)
+    with KernelShapes(K) as shapes:
+        small = v3_small(torch, card)
+        paths, numbers = v3_full(torch, K, card)
+    numbers["small_input_gaps"] = small
+    unchecked = {s for s, _ in shapes.k2} - {tuple(c) for c in checked["k2"]}
+    check(not shapes.k1 and not unchecked, f"phase 16 fed K1 {shapes.k1} and K2 shapes that "
+                                           f"phase 4 did not check: {unchecked}")
+    print(f"phase 16: {len(shapes.k2)} K2 shape/type pairs fed (16.1 on the card and the CPU, "
+          f"16.2), all among those phase 4 checked")
+    return paths, numbers
+
+
+def v3_small(torch, card):
+    """16.1: each V3_SMALL model on the card against the same on the CPU
+    (plain K2) at V3_SMALL_INPUT, eval and train mode, TF32 off; returns
+    the gaps by model."""
+    from torch.func import functional_call
+
+    batch, hw = V3_SMALL_INPUT
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn(batch, 3, *hw, generator=g)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for config in V3_SMALL:
+            runs = {}
+            for device in ("cpu", "cuda"):
+                model = seeded_v3(torch, config, 3).to(device)
+                xd = x.to(device)
+                with torch.no_grad():
+                    ev = model(xd)[1]
+                    buffers = {k: v.clone() for k, v in model.named_buffers()}
+                    tr = functional_call(model, {**dict(model.named_parameters()), **buffers},
+                                         (xd,), {"train": True, "update_stats": True})[1]
+                runs[device] = ev, tr, buffers
+            (ev_c, tr_c, st_c), (ev_g, tr_g, st_g) = runs["cpu"], runs["cuda"]
+            stats = {}
+            for k in st_c:  # each running statistic in units of its channels' spread
+                if k.endswith("running_mean") or k.endswith("running_var"):
+                    spread = st_c[k.rsplit(".", 1)[0] + ".running_var"].max()
+                    unit = spread.sqrt() if k.endswith("running_mean") else spread
+                    stats[k] = ((st_g[k].cpu() - st_c[k]).abs().max() / unit).item()
+            worst = max(stats, key=stats.get)
+            gaps = {"eval": max(rel_gap(torch, ev_g[k], ev_c[k]) for k in ("out", "feat")),
+                    "train": max(rel_gap(torch, tr_g[k], tr_c[k]) for k in ("out", "feat")),
+                    "stats": stats[worst]}
+            tag = f"16.1 {v3_tag(*config)}"
+            for key, gap in gaps.items():
+                check(gap <= V3_BOUNDS[key],
+                      f"{tag}: {key} card vs CPU {gap:.3e} > {V3_BOUNDS[key]} (statistics: the "
+                      f"worst {worst}, max|CPU| {st_c[worst].abs().max().item():.6e}, max|card| "
+                      f"{st_g[worst].abs().max().item():.6e}, max gap "
+                      f"{(st_g[worst].cpu() - st_c[worst]).abs().max().item():.6e}; "
+                      f"{sum(v > V3_BOUNDS['stats'] for v in stats.values())} of {len(stats)} "
+                      f"tensors over the bound: "
+                      f"{sorted(k for k, v in stats.items() if v > V3_BOUNDS['stats'])[:12]})")
+            print(f"phase {tag}, b{batch} {hw[1]}x{hw[0]}, card vs CPU (plain K2), max gap / "
+                  f"max|CPU|: eval {gaps['eval']:.3e}, train {gaps['train']:.3e}, running "
+                  f"statistics {gaps['stats']:.3e} (bounds {V3_BOUNDS}) [{card}]")
+            out[v3_tag(*config)] = gaps
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+def v3_full(torch, K, card):
+    """16.2: each V3_FULL model at b4 1024x512 f32, a train-mode forward and
+    the backward of a CE loss (K2 once per BatchNorm) timed, and an eval
+    forward timed. Returns (launches by path, numbers)."""
+    from onda_torch.models.layers import TorchBatchNorm
+    from onda_torch.ops import losses as L
+
+    paths, numbers = {}, {}
+    for config in V3_FULL:
+        tag = v3_tag(*config)
+        base = release(torch)
+        model = seeded_v3(torch, config, 4).cuda()
+        n_bn = sum(isinstance(m, TorchBatchNorm) for m in model.modules())
+        g = torch.Generator(device="cuda").manual_seed(17)
+        xb = torch.randn(4, 3, *MAIN_HW, device="cuda", generator=g)
+        labels = torch.randint(0, 19, (4, *MAIN_HW), device="cuda", generator=g)
+        params = [p for p in model.parameters()]
+        losses = []
+
+        def train_step():
+            out = model(xb, train=True, update_stats=True)[1]["out"]
+            loss = L.cross_entropy_2d(out, labels)
+            grads = torch.autograd.grad(loss, params)
+            losses.append(loss.detach())
+            return out, grads
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        out, grads = train_step()
+        check(torch.isfinite(out).all() and all(torch.isfinite(gr).all() for gr in grads),
+              f"16.2 {tag}: non-finite logits or gradients")
+        del out, grads
+        fwd_bwd = timed_ms(torch, train_step, warmup=0, n=V3_TIMED)
+        launches = dict(K.launches)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(math.isfinite(v.item()) for v in losses), f"16.2 {tag}: non-finite loss")
+        want = {"pseudo_labels_kernel": 0, "bn_stats_kernel": n_bn * (1 + V3_TIMED)}
+        check(launches == want, f"16.2 {tag}: launched {launches}, expected K2 {n_bn} a forward")
+        with torch.no_grad():
+            K.reset_launches()
+            eval_ms = timed_ms(torch, lambda: model(xb)[1]["out"], warmup=1, n=V3_TIMED)
+            check(K.launches["bn_stats_kernel"] == 0, f"16.2 {tag}: eval mode launched K2")
+        name = f"v3_{config[0]}{'_plus' if config[1] else ''}_os{config[2]}"
+        paths[name] = launches
+        numbers[tag] = {"bn_calls": n_bn, "fwd_bwd_ms": statistics.median(fwd_bwd),
+                        "eval_ms": statistics.median(eval_ms), "peak_gib": peak / 2**30,
+                        "loss": losses[-1].item()}
+        print(f"phase 16.2 {tag}, b4 {MAIN_HW[1]}x{MAIN_HW[0]} f32, seeded weights [{card}]: "
+              f"train-mode forward + backward of a CE loss "
+              f"{', '.join(f'{t:.3f}' for t in fwd_bwd)} ms (median "
+              f"{numbers[tag]['fwd_bwd_ms']:.3f}), eval forward "
+              f"{', '.join(f'{t:.3f}' for t in eval_ms)} ms (median "
+              f"{numbers[tag]['eval_ms']:.3f}); peak memory {peak / 2**30:.3f} GiB "
+              f"({base / 2**30:.3f} GiB allocated before); K2 {n_bn} a forward; loss "
+              f"{losses[-1].item():.6f}")
+        del model, params, xb, labels, losses
+    return paths, numbers
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank-jobs"]:  # a rank of phase 12 or 13, under torch.distributed.run
         import faulthandler
@@ -4845,6 +5267,8 @@ def main() -> int:
                         help="also time phase 8.2's step with the aux head computed, in turns")
     parser.add_argument("--parallel-only", action="store_true",
                         help="phases 1-4, phase 7's dataset and phases 12-13 only")
+    parser.add_argument("--quality-only", action="store_true",
+                        help="phases 1-4, 15 (the quality run) and 16 (DeepLab-v3) only")
     parser.add_argument("--out-dir", default=os.path.join(HERE, "build", "chip_smoke"),
                         help="where the per-shape K2 table, the profile and the comparison go")
     args = parser.parse_args()
@@ -4884,7 +5308,7 @@ def main() -> int:
         k1 = check_k1(torch, K, P)
     with phase_clock("4"):
         k2 = check_k2(torch, K, layers, args.out_dir)
-    if not args.parallel_only:
+    if not (args.parallel_only or args.quality_only):
         with phase_clock("5"):
             small_input_check(torch)
     if args.compare:
@@ -4894,18 +5318,20 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = True
         print("main path: cudnn.allow_tf32=True (PyTorch's default: convolutions in TF32), "
               "cuda.matmul.allow_tf32=False")
-        if not args.parallel_only:
+        checked = {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]}
+        if not (args.parallel_only or args.quality_only):
             with phase_clock("6"):
                 paths["in_memory"], summary = main_path(torch, K, args.profile, args.out_dir)
         work = tempfile.mkdtemp(prefix="onda_cli_")
         try:
-            root = os.path.join(work, "weather_cityscapes") + "/"
-            with phase_clock("7 (dataset)"):
-                rows, img_bytes = write_dataset(root, seed=7)
-            print(f"phase 7 dataset: {len(rows)} frames of {FRAME_HW[1]}x{FRAME_HW[0]} "
-                  f"(intensities {CLI_INTENSITIES}, {CLI_FRAMES} per intensity), mean image "
-                  f"PNG {img_bytes / len(rows) / 1e6:.3f} MB")
-            if not args.parallel_only:
+            if not args.quality_only:
+                root = os.path.join(work, "weather_cityscapes") + "/"
+                with phase_clock("7 (dataset)"):
+                    rows, img_bytes = write_dataset(root, seed=7)
+                print(f"phase 7 dataset: {len(rows)} frames of {FRAME_HW[1]}x{FRAME_HW[0]} "
+                      f"(intensities {CLI_INTENSITIES}, {CLI_FRAMES} per intensity), mean image "
+                      f"PNG {img_bytes / len(rows) / 1e6:.3f} MB")
+            if not (args.parallel_only or args.quality_only):
                 with phase_clock("7"):
                     (paths["cli"], paths["cli_resumed"]), summary["cli"] = cli_path(
                         torch, K, args.out_dir, summary["frames_per_s"], work, root, rows)
@@ -4923,34 +5349,41 @@ def main() -> int:
                 paths.update(options)
                 with phase_clock("11"):
                     shipped, summary["shipped_configs"] = shipped_configs_path(
-                        torch, K, args.out_dir, work, root, rows,
-                        {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]})
+                        torch, K, args.out_dir, work, root, rows, checked)
                 paths.update(shipped)
-            checked = {"k1": k1["checked_shapes"], "k2": k2["checked_shapes"]}
-            with phase_clock("12"):
-                one = one_process_references(torch)  # of 12.1 and 13.1-13.2
-                refs = family_references(torch)  # of 12.3 and 13.4
-                launched = data_parallel_ranks(torch, args.out_dir, work, root, rows)
-                parallel, summary["data_parallel"] = data_parallel_path(
-                    torch, K, args.out_dir, work, root, rows, one, launched)
-                paths.update(parallel)
-                families, summary["data_parallel_families"] = data_parallel_families_path(
-                    torch, K, args.out_dir, work, root, rows, refs, launched)
-                paths.update(families)
-            with phase_clock("13"):
-                launched = tensor_parallel_ranks(torch, args.out_dir, work, root, rows)
-                grid, summary["tensor_parallel"] = tensor_parallel_path(
-                    torch, K, args.out_dir, work, root, rows, one, launched)
-                paths.update(grid)
-                del one
-                grid, summary["tensor_parallel_families"] = tensor_parallel_families_path(
-                    torch, K, args.out_dir, work, root, rows, refs, checked, launched)
-                paths.update(grid)
-                del refs
-            with phase_clock("14"):
-                spatial, summary["spatial"] = spatial_path(torch, K, launched, checked)
-                paths.update(spatial)
-                del launched
+            if not args.quality_only:
+                with phase_clock("12"):
+                    one = one_process_references(torch)  # of 12.1 and 13.1-13.2
+                    refs = family_references(torch)  # of 12.3 and 13.4
+                    launched = data_parallel_ranks(torch, args.out_dir, work, root, rows)
+                    parallel, summary["data_parallel"] = data_parallel_path(
+                        torch, K, args.out_dir, work, root, rows, one, launched)
+                    paths.update(parallel)
+                    families, summary["data_parallel_families"] = data_parallel_families_path(
+                        torch, K, args.out_dir, work, root, rows, refs, launched)
+                    paths.update(families)
+                with phase_clock("13"):
+                    launched = tensor_parallel_ranks(torch, args.out_dir, work, root, rows)
+                    grid, summary["tensor_parallel"] = tensor_parallel_path(
+                        torch, K, args.out_dir, work, root, rows, one, launched)
+                    paths.update(grid)
+                    del one
+                    grid, summary["tensor_parallel_families"] = tensor_parallel_families_path(
+                        torch, K, args.out_dir, work, root, rows, refs, checked, launched)
+                    paths.update(grid)
+                    del refs
+                with phase_clock("14"):
+                    spatial, summary["spatial"] = spatial_path(torch, K, launched, checked)
+                    paths.update(spatial)
+                    del launched
+            if not args.parallel_only:
+                with phase_clock("15"):
+                    quality, summary["quality_run"] = quality_path(
+                        torch, K, card, work, args.out_dir, checked, PHASE_SECONDS["1-2 (builds)"])
+                    paths.update(quality)
+                with phase_clock("16"):
+                    zoo, summary["deeplab_v3"] = v3_path(torch, K, card, checked)
+                    paths.update(zoo)
         finally:
             shutil.rmtree(work, ignore_errors=True)
     for k in (k1, k2):

@@ -1,5 +1,6 @@
 """Carry weights of the JAX package across: Flax variables → this port's state_dict
-(the DeepLab model's here; the discriminators' in `flax_disc_to_state_dict`).
+(the DeepLab-v2 model's here; the discriminators' in `flax_disc_to_state_dict`,
+DeepLab-v3's in `flax_v3_to_state_dict`).
 
 The input is the JAX model's variables as a nested dict of numpy arrays
 (`{"params": ..., "batch_stats": ...}`); the output is a state_dict of the
@@ -95,16 +96,37 @@ def _with_bn_counters(out: dict) -> dict:
     return out
 
 
-def flax_disc_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """State_dict of the port's `FCDiscriminator` / `DCGANDiscriminator` from
-    the JAX discriminator's variables: `conv{i}/kernel` HWIO → `conv{i}.weight`
-    OIHW, `bias` as is, and for DCGAN `bn{i}/scale` → `bn{i}.weight` with its
-    running buffers and a `num_batches_tracked` counter (0)."""
+def _by_scope(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The state_dict of a port model whose module names are the flax scopes
+    joined with '.': `kernel` HWIO → `weight` OIHW (a depthwise kernel
+    (kh, kw, 1, C) → (C, 1, kh, kw)), `scale` → `weight`, `bias` and the
+    running buffers as they are, a `num_batches_tracked` counter (0) beside
+    every BatchNorm; a ResNet stage's `downsample_conv`/`downsample_bn`
+    become `deeplabv2.ResLayer`'s `downsample.0`/`downsample.1`."""
     out = {}
     for (_, *scope, leaf), value in _flatten(variables):
         value = np.array(value, np.float32)
         if leaf == "kernel":
             value = value.transpose(_AXES[4])
+        scope = [{"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}.get(s, s)
+                 for s in scope]
         key = ".".join(scope + [{**_BN_LEAF, "kernel": "weight"}[leaf]])
         out[key] = torch.from_numpy(np.ascontiguousarray(value))
     return _with_bn_counters(out)
+
+
+def flax_disc_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """State_dict of the port's `FCDiscriminator` / `DCGANDiscriminator` from
+    the JAX discriminator's variables: `conv{i}/kernel` HWIO → `conv{i}.weight`
+    OIHW, `bias` as is, and for DCGAN `bn{i}/scale` → `bn{i}.weight` with its
+    running buffers and a `num_batches_tracked` counter (0)."""
+    return _by_scope(variables)
+
+
+def flax_v3_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """State_dict of the port's `DeepLabV3` from the JAX v3 variables (which
+    have no reference-layout names): `backbone/block3_1/depthwise/conv/kernel`
+    → `backbone.block3_1.depthwise.conv.weight`, `aspp/pool/bn/running_var`
+    → `aspp.pool.bn.running_var`, `backbone/layer1/0/downsample_bn/scale` →
+    `backbone.layer1.0.downsample.1.weight`, `classifier/bias` as is."""
+    return _by_scope(variables)

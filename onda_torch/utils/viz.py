@@ -12,6 +12,18 @@ import zlib
 import numpy as np
 
 
+def png_file(h: int, w: int, color: int, idat_chunks) -> bytes:
+    """A PNG of 8-bit (H, W) gray (`color` 0) or RGB (2) rows whose filtered,
+    deflated stream is split over `idat_chunks`."""
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + b"".join(chunk(b"IDAT", part) for part in idat_chunks) + chunk(b"IEND", b""))
+
+
 def write_png(path: str, array: np.ndarray) -> str:
     """Write an (H, W) uint8 gray or (H, W, 3) uint8 RGB array as a PNG, every
     row with the Up filter (each byte minus the byte above it)."""
@@ -24,15 +36,7 @@ def write_png(path: str, array: np.ndarray) -> str:
     filtered[:, 0] = 2  # Up
     filtered[0, 1:] = rows[0]
     np.subtract(rows[1:], rows[:-1], out=filtered[1:, 1:])  # uint8 arithmetic wraps mod 256
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    color = 2 if array.ndim == 3 else 0
-    header = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
-    data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(filtered.tobytes())) + chunk(b"IEND", b""))
+    data = png_file(h, w, 2 if array.ndim == 3 else 0, [zlib.compress(filtered.tobytes())])
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(data)

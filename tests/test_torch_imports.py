@@ -22,11 +22,14 @@ def _sources():
 
 def test_the_scan_covers_every_port_package():
     """The sources scanned include the parallel package (the spatial axis
-    among it) and the metadata scanner's entry point."""
+    among it), the metadata scanner's entry point, the quality run with its
+    synthetic dataset, and the DeepLab-v3 zoo."""
     scanned = {os.path.relpath(p, ROOT) for p in _sources()}
     for rel in ("onda_torch/parallel/__init__.py", "onda_torch/parallel/distributed.py",
                 "onda_torch/parallel/mesh.py", "onda_torch/parallel/spatial.py",
-                "onda_torch/make_metadata.py", "onda_torch/data/metadata.py"):
+                "onda_torch/make_metadata.py", "onda_torch/data/metadata.py",
+                "onda_torch/quality_run.py", "onda_torch/data/synthetic.py",
+                "onda_torch/models/deeplabv3.py"):
         assert rel in scanned
 
 
