@@ -1322,10 +1322,11 @@ def run_cli(torch, K, cfg_path, log_path):
 
 
 def step_stage_ms(records):
-    """Per-step stage times from the SpeedMeter's running averages (the
-    average over steps 0..k, logged at step k, differenced); ms."""
+    """Per-step host stage times from OTHERS.SCHEDULE's running averages in
+    seconds (the average over steps 0..k, logged at step k, differenced);
+    ms. The stages' device keys (`time/... device`, already ms) are left out."""
     out = {}
-    for key in [k for k in records[0] if k.startswith("time/")]:
+    for key in [k for k in records[0] if k.startswith("time/") and not k.endswith(" device")]:
         avg = [r[key] for r in records]
         out[key] = [1e3 * ((k + 1) * avg[k] - k * avg[k - 1] if k else avg[0]) for k in range(len(avg))]
     return out

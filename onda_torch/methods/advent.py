@@ -22,7 +22,8 @@ tensor. No host sync is inside the step.
 Around the step, `train` feeds the source replay and the target stream
 through `DeviceFeeder`s, evaluates the student, renders samples and writes
 `advent_state.pt` once per epoch and at the end (`run_adversarial`, which
-PROTO_ADVENT shares).
+PROTO_ADVENT shares). Under OTHERS.SCHEDULE the loop records its phases and
+the step its `student` and `update` stages (`timing.SpanRecorder`).
 
 Under OTHERS.DATA_PARALLEL across ranks (`parallel`; each rank holds the
 local slice of the global batch) the step is the global batch's, as GSPMD
@@ -71,7 +72,7 @@ from ..parallel.mesh import resolve
 from ..utils import checkpoint as ckpt
 from . import optim
 from .proto_online import LazyLogs, ProtoOnlineAdapter
-from .timing import samples_due
+from .timing import SpanRecorder, samples_due
 
 SOURCE_LABEL, TARGET_LABEL = 0.0, 1.0  # advent.py:35
 # the JAX package draws d_aux from key 1 and d_main from key 2; the port seeds
@@ -165,18 +166,32 @@ def run_adversarial(adapter, step, trainloader, targetloader, validation_loaders
     base_lr, lr_d = float(spec.LEARNING_RATE), float(spec.LEARNING_RATE_D)
     power = float(spec.POWER)
     samples_every = int(value_or(adapter.cfg.OTHERS.GENERATE_SAMPLES_EVERY, 10))
+    # OTHERS.SCHEDULE: the loop's spans and their log keys, as the prototype loop's
+    schedule = bool(value_or(adapter.cfg.OTHERS.SCHEDULE, False))
+    spans = adapter.spans
     for i_iter in range(steps):
-        lr = base_lr * (1.0 - i_iter / steps) ** power if power else base_lr
-        logs = step(next(src_feed), next(trg_feed), lr, lr_d)
-        if (i_iter + 1) % len(targetloader) == 0:
-            logs.update(adapter.evaluate_all(validation_loaders))
-            # reference advent_da.py:208-211 (its `% samples_every` of an
-            # already-0 remainder is always 0: samples every epoch)
-            if samples_due(samples_every, i_iter, len(targetloader)):
-                logs.update(adapter.test_on_samples(validation_loaders))
-            if save_per_epoch:
-                adapter.save_model()
-        adapter._log(logs)
+        with spans.step(i_iter):
+            spans.phase("fetch")
+            lr = base_lr * (1.0 - i_iter / steps) ** power if power else base_lr
+            src, trg = next(src_feed), next(trg_feed)
+            spans.phase("dispatch")
+            logs = step(src, trg, lr, lr_d)
+            spans.phase("host_work")
+            if (i_iter + 1) % len(targetloader) == 0:
+                logs.update(adapter.evaluate_all(validation_loaders))
+                # reference advent_da.py:208-211 (its `% samples_every` of an
+                # already-0 remainder is always 0: samples every epoch)
+                if samples_due(samples_every, i_iter, len(targetloader)):
+                    logs.update(adapter.test_on_samples(validation_loaders))
+                if save_per_epoch:
+                    adapter.save_model()
+            spans.phase("log_sync")
+            if schedule:
+                logs.keys()  # force the packed device-to-host read
+            spans.phase("log")
+            if schedule:
+                logs.update(spans.loop_logs())
+            adapter._log(logs)
 
 
 class AdventAdapter(T.ShardedModel):
@@ -209,6 +224,7 @@ class AdventAdapter(T.ShardedModel):
         self.cfg_spec = cfg_spec
         self.num_classes = num_classes
         self.logger = logger
+        self.spans = SpanRecorder(self.device, enabled=bool(value_or(cfg.OTHERS.SCHEDULE, False)))
         self.disc = FCDiscriminator(num_classes).to(self.device)
         self.plan_shards(variables, tp)
         variables = {name: self._shard(tree) for name, tree in variables.items()}
@@ -251,55 +267,60 @@ class AdventAdapter(T.ShardedModel):
         r0, r1 = self._lr_ratios()
         world = dist.data_world()
         sharded, d_sharded = set(self.plan), set(self.disc_plan)
+        spans = self.spans
 
         def step(state: AdventState, src_images, src_labels, trg_images, lr_base: float,
                  lr_d: float):
-            # the source CEs' denominator: the global batch's valid pixels
-            # (None: the CE counts its own batch, as on one device)
-            src_count = dist.all_sum(L.valid_count(src_labels))[0] if world > 1 else None
-            live = dict(state.params)
-            for k in trainable:
-                live[k] = state.params[k].detach().requires_grad_(True)
+            with spans.span("student", device=True):
+                # the source CEs' denominator: the global batch's valid pixels
+                # (None: the CE counts its own batch, as on one device)
+                src_count = dist.all_sum(L.valid_count(src_labels))[0] if world > 1 else None
+                live = dict(state.params)
+                for k in trainable:
+                    live[k] = state.params[k].detach().requires_grad_(True)
 
-            def forward(images, update_stats):
-                aux, main = functional_call(model, (live, state.batch_stats), (images,), {
-                    "train": True, "update_stats": update_stats, "with_aux": multi,
-                    "generator": state.generator})
-                up = (lambda o: upsample_bilinear_ac(_logits(o).float(), hw))
-                return (up(aux) if multi else None), up(main)
+                def forward(images, update_stats):
+                    aux, main = functional_call(model, (live, state.batch_stats), (images,), {
+                        "train": True, "update_stats": update_stats, "with_aux": multi,
+                        "generator": state.generator})
+                    up = (lambda o: upsample_bilinear_ac(_logits(o).float(), hw))
+                    return (up(aux) if multi else None), up(main)
 
-            # the running statistics come from the target slice alone
-            src_aux, src_main = forward(src_images, False)
-            trg_aux, trg_main = forward(trg_images, True)
-            seg = l_seg_main * L.cross_entropy_2d(src_main, src_labels, count=src_count)
-            ent_main = entropy_map(trg_main)
-            adv = l_adv_main * fool_loss(disc, state.d_main, ent_main, world)
-            if multi:
-                seg = seg + l_seg_aux * L.cross_entropy_2d(src_aux, src_labels, count=src_count)
-                ent_aux = entropy_map(trg_aux)
-                adv = adv + l_adv_aux * fool_loss(disc, state.d_aux, ent_aux, world)
-            grads = (optim.grid_grads(seg + adv, live, trainable, (), sharded) if sharded
-                     else optim.grads(seg + adv, live, trainable))
-            del live
+                # the running statistics come from the target slice alone
+                src_aux, src_main = forward(src_images, False)
+                trg_aux, trg_main = forward(trg_images, True)
+                seg = l_seg_main * L.cross_entropy_2d(src_main, src_labels, count=src_count)
+                ent_main = entropy_map(trg_main)
+                adv = l_adv_main * fool_loss(disc, state.d_main, ent_main, world)
+                if multi:
+                    seg = seg + l_seg_aux * L.cross_entropy_2d(src_aux, src_labels,
+                                                               count=src_count)
+                    ent_aux = entropy_map(trg_aux)
+                    adv = adv + l_adv_aux * fool_loss(disc, state.d_aux, ent_aux, world)
+                grads = (optim.grid_grads(seg + adv, live, trainable, (), sharded) if sharded
+                         else optim.grads(seg + adv, live, trainable))
+                del live
 
-            d_loss, d_main_g = discriminator_loss(disc, state.d_main, entropy_map(src_main.detach()),
-                                                  ent_main, world)
-            if multi:
-                loss_aux, d_aux_g = discriminator_loss(
-                    disc, state.d_aux, entropy_map(src_aux.detach()), ent_aux, world)
-                d_loss = d_loss + loss_aux
-                d_main_g, d_aux_g = sum_grads(d_main_g, d_aux_g, sharded=d_sharded)
-            else:
-                (d_main_g,) = sum_grads(d_main_g, sharded=d_sharded)
-            optim.update(state.params, grads, state.opt_momentum, labels, lr_base * r0,
-                         lr_base * r1, momentum, weight_decay)
-            optim.adam_update(state.d_main, d_main_g, state.d_main_opt, lr_d)
-            if multi:  # without MULTI_LEVEL d_aux and its Adam state stay as they are
-                optim.adam_update(state.d_aux, d_aux_g, state.d_aux_opt, lr_d)
-            # the ranks' shares summed: the global batch's losses
-            logs = dict(zip(("Discriminator loss", "Segmentation loss", "Adversarial loss"),
-                            dist.all_sum(d_loss, seg.detach(), adv.detach())))
-            return dataclasses.replace(state, step=state.step + 1), LazyLogs(logs)
+            with spans.span("update", device=True):
+                d_loss, d_main_g = discriminator_loss(
+                    disc, state.d_main, entropy_map(src_main.detach()), ent_main, world)
+                if multi:
+                    loss_aux, d_aux_g = discriminator_loss(
+                        disc, state.d_aux, entropy_map(src_aux.detach()), ent_aux, world)
+                    d_loss = d_loss + loss_aux
+                    d_main_g, d_aux_g = sum_grads(d_main_g, d_aux_g, sharded=d_sharded)
+                else:
+                    (d_main_g,) = sum_grads(d_main_g, sharded=d_sharded)
+                optim.update(state.params, grads, state.opt_momentum, labels, lr_base * r0,
+                             lr_base * r1, momentum, weight_decay)
+                optim.adam_update(state.d_main, d_main_g, state.d_main_opt, lr_d)
+                if multi:  # without MULTI_LEVEL d_aux and its Adam state stay as they are
+                    optim.adam_update(state.d_aux, d_aux_g, state.d_aux_opt, lr_d)
+                # the ranks' shares summed: the global batch's losses
+                logs = LazyLogs(dict(zip(
+                    ("Discriminator loss", "Segmentation loss", "Adversarial loss"),
+                    dist.all_sum(d_loss, seg.detach(), adv.detach()))), spans)
+            return dataclasses.replace(state, step=state.step + 1), logs
 
         return step
 

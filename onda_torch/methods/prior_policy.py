@@ -28,19 +28,24 @@ import torch
 
 from ..config import value_or
 from .state import DYNAMIC, STATIC, SwitchState
+from .timing import NULL
 
 
-def _gated_dynamic(dyn_forward, compute, template):
-    """Run the dynamic teacher only when `compute` holds (one host read)."""
-    if bool(compute):
+def _gated_dynamic(dyn_forward, compute, template, spans):
+    """Run the dynamic teacher only when `compute` holds (one host read, a
+    `sync` span of `spans` where given)."""
+    with NULL if spans is None else spans.sync("gate"):
+        fire = bool(compute)
+    if fire:
         return dyn_forward()
     return torch.zeros_like(template)
 
 
 def compute_prior(policy: str, spec, monitor, mon_state, switch: SwitchState, prior_ema,
-                  prior_static, dyn_forward, frozen: bool):
+                  prior_static, dyn_forward, frozen: bool, spans=None):
     """Assemble the teacher prior. `prior_static` is None when STATIC_LAMBDA is 0;
-    `frozen` keeps the switch state as it is (evaluation)."""
+    `frozen` keeps the switch state as it is (evaluation); `spans` records
+    the gate's host read."""
     ema_l = float(spec.EMA_LAMBDA)
     static_l = float(spec.STATIC_LAMBDA)
     dyn_l = float(spec.DYNAMIC_LAMBDA)
@@ -61,7 +66,7 @@ def compute_prior(policy: str, spec, monitor, mon_state, switch: SwitchState, pr
         if thresh > 0:
             replace = avg_static < thresh
             calc_dyn = replace
-            dyn_p = _gated_dynamic(dyn_forward, calc_dyn, prior_ema)
+            dyn_p = _gated_dynamic(dyn_forward, calc_dyn, prior_ema, spans)
             prior = torch.where(replace, dyn_l * dyn_p, base_prior + dyn_l * dyn_p)
         else:  # the dynamic teacher runs every step: there is no gate to read
             calc_dyn = torch.ones((), dtype=torch.bool, device=dev)
@@ -77,7 +82,7 @@ def compute_prior(policy: str, spec, monitor, mon_state, switch: SwitchState, pr
             ps = (avg_static > float(value_or(spec.SWITCH_PRIOR_THRESH, 0.86))).float()
         logs["percentage_static"] = ps
         calc_dyn = (ps < 1.0) if dyn_l > 0 else false
-        dyn_p = _gated_dynamic(dyn_forward, calc_dyn, prior_ema)
+        dyn_p = _gated_dynamic(dyn_forward, calc_dyn, prior_ema, spans)
         prior = base_prior * ps + (1.0 - ps) * dyn_l * dyn_p
         return prior, dyn_p, calc_dyn, switch, logs
 
@@ -90,7 +95,7 @@ def compute_prior(policy: str, spec, monitor, mon_state, switch: SwitchState, pr
         current = switch.current if frozen else new_current.long()
         switch = SwitchState(current=current, current_dev=switch.current_dev)
         calc_dyn = (current == DYNAMIC) if dyn_l > 0 else false
-        dyn_p = _gated_dynamic(dyn_forward, calc_dyn, prior_ema)
+        dyn_p = _gated_dynamic(dyn_forward, calc_dyn, prior_ema, spans)
         prior = torch.where(calc_dyn, dyn_l * dyn_p, base_prior)
         return prior, dyn_p, calc_dyn, switch, logs
 
@@ -107,7 +112,7 @@ def compute_prior(policy: str, spec, monitor, mon_state, switch: SwitchState, pr
         if not frozen:
             switch = SwitchState(current=new_current.long(), current_dev=new_dev.long())
         calc_dyn = (switch.current == DYNAMIC) if dyn_l > 0 else false
-        dyn_p = _gated_dynamic(dyn_forward, calc_dyn, prior_ema)
+        dyn_p = _gated_dynamic(dyn_forward, calc_dyn, prior_ema, spans)
         prior = torch.where(calc_dyn, dyn_l * dyn_p, base_prior)
         return prior, dyn_p, calc_dyn, switch, logs
 

@@ -85,6 +85,7 @@ class ProtoAdventAdapter(ProtoOnlineAdapter):
         teachers = self._build_teachers()
         world = dist.data_world()
         sharded = set(self.plan)
+        spans = self.spans
 
         def step(state: AdaptState, d_state: dict, src_images, src_labels, trg_images,
                  lr_base: float, lr_d: float):
@@ -164,7 +165,7 @@ class ProtoAdventAdapter(ProtoOnlineAdapter):
                 logs["dev avg prior static"] = monitor.dev_avg(mon, "prior static")
             new_state = dataclasses.replace(state, proto=proto, monitor=mon, switch=switch,
                                             step=state.step + 1)
-            return new_state, d_state, LazyLogs(logs)
+            return new_state, d_state, LazyLogs(logs, spans)
 
         return step
 

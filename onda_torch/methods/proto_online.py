@@ -27,7 +27,9 @@ batch's copy overlaps the step), inserts pseudo-labeled target frames into a
 replay buffer, refreshes the dynamic teacher under AUTO_DYNAMIC, dumps the
 raw target logits under PREDICTION_SAVE, evaluates, renders samples and
 checkpoints once per epoch. Under OTHERS.ASYNC_SAVE the checkpoint's disk
-write runs in the background (`utils.checkpoint`).
+write runs in the background (`utils.checkpoint`). Under OTHERS.SCHEDULE,
+or while OTHERS.PROFILE traces, the loop records its phases and the step
+its `teachers`, `student` and `update` stages (`timing.SpanRecorder`).
 
 OTHERS.DATA_PARALLEL across ranks (`parallel`; one process per rank under
 torchrun, each with the local slice of the global batch) computes the step
@@ -100,7 +102,7 @@ from ..utils import checkpoint as ckpt
 from . import optim
 from .prior_policy import POLICY_BY_METHOD, compute_prior
 from .state import AdaptState, clone_tree, make_adapt_state
-from .timing import SpeedMeter, samples_due
+from .timing import NULL, SpanRecorder, samples_due
 
 MONITOR_KEYS = (
     "model",
@@ -198,13 +200,15 @@ def _stack(arrays):
 
 class LazyLogs(dict):
     """Step logs: scalars packed into one f32 device tensor, read on the host
-    (one device-to-host copy) the first time any of them is looked at; array
-    entries (e.g. soft_predictions) are there from the start."""
+    (one device-to-host copy, a `sync` span of `spans` where given) the
+    first time any of them is looked at; array entries (e.g.
+    soft_predictions) are there from the start."""
 
-    def __init__(self, logs: dict):
+    def __init__(self, logs: dict, spans=None):
         keys = sorted(k for k, v in logs.items() if not isinstance(v, torch.Tensor) or v.dim() == 0)
         super().__init__({k: v for k, v in logs.items() if k not in keys})
         self._scalar_keys = keys
+        self._spans = spans
         self._packed = torch.stack([torch.as_tensor(logs[k]).detach().float().reshape(())
                                     .to(self._device(logs)) for k in keys]) if keys else None
 
@@ -217,7 +221,9 @@ class LazyLogs(dict):
 
     def _materialize(self):
         if self._packed is not None:
-            super().update(zip(self._scalar_keys, self._packed.tolist()))
+            with NULL if self._spans is None else self._spans.sync("logs"):
+                values = self._packed.tolist()
+            super().update(zip(self._scalar_keys, values))
             self._packed = None
 
     def __getitem__(self, key):
@@ -271,6 +277,7 @@ class ProtoOnlineAdapter(T.ShardedModel):
         self.cfg_spec = cfg_spec
         self.num_classes = num_classes
         self.logger = logger
+        self.spans = SpanRecorder(self.device, enabled=bool(value_or(cfg.OTHERS.SCHEDULE, False)))
         self.policy = POLICY_BY_METHOD.get(cfg.METHOD.ADAPTATION.NAME, "base")
 
         mon_args = {}
@@ -366,7 +373,9 @@ class ProtoOnlineAdapter(T.ShardedModel):
         update) → static-teacher forward → switch policy, gating the dynamic
         teacher → K1 pseudo-labels (hard at the old τ, soft at the drifted τ)
         → prototype EMA. Returns (monitor, switch, dynamic fired, hard labels
-        (N, h, w), soft labels NCHW, prototypes)."""
+        (N, h, w), soft labels NCHW, prototypes). The `teachers` span holds
+        it, with the EMA forward, the static forward, the gate and K1 with
+        the prototypes as host-only children."""
         spec = self.cfg_spec
         monitor, policy, C = self.monitor, self.policy, self.num_classes
         metric = spec.DISTANCE_MEASURE
@@ -375,62 +384,70 @@ class ProtoOnlineAdapter(T.ShardedModel):
         static_on = float(spec.STATIC_LAMBDA) > 0
         conf_reg_thresh = self.conf_reg_thresh
         fwd = self._forward
+        spans = self.spans
 
         @torch.no_grad()
         def teachers(state: AdaptState, trg_images):
+            with spans.span("teachers", device=True):
+                return stages(state, trg_images)
+
+        def stages(state: AdaptState, trg_images):
             mon = state.monitor
-            ema_main = fwd(state.ema_params, state.batch_stats, trg_images, train=True)
-            prior_ema = _softmax(ema_main["out"])
+            with spans.span("ema_forward"):
+                ema_main = fwd(state.ema_params, state.batch_stats, trg_images, train=True)
+                prior_ema = _softmax(ema_main["out"])
             prior_static = None
-            if static_on:
-                static_main = fwd(state.static_params, state.static_batch_stats, trg_images,
-                                  train=False)
-                prior_static = _softmax(static_main["out"])
-                (conf_ema, conf_static), _ = pixel_means(
-                    [_conf(prior_ema), _conf(prior_static)], prior_ema)
-                mon = monitor.add(mon, "prior EMA", conf_ema)
-                mon = monitor.add(mon, "prior static", conf_static)
-            else:
-                (conf_ema,), _ = pixel_means([_conf(prior_ema)], prior_ema)
-                mon = monitor.add(mon, "prior EMA", conf_ema)
+            with spans.span("static_forward"):
+                if static_on:
+                    static_main = fwd(state.static_params, state.static_batch_stats, trg_images,
+                                      train=False)
+                    prior_static = _softmax(static_main["out"])
+                    (conf_ema, conf_static), _ = pixel_means(
+                        [_conf(prior_ema), _conf(prior_static)], prior_ema)
+                    mon = monitor.add(mon, "prior EMA", conf_ema)
+                    mon = monitor.add(mon, "prior static", conf_static)
+                else:
+                    (conf_ema,), _ = pixel_means([_conf(prior_ema)], prior_ema)
+                    mon = monitor.add(mon, "prior EMA", conf_ema)
 
             def dyn_forward():
                 main = fwd(state.dynamic_params, state.dynamic_batch_stats, trg_images,
                            train=False)
                 return _softmax(main["out"])
 
-            prior, dyn_p, calc_dyn, switch, plogs = compute_prior(
-                policy, spec, monitor, mon, state.switch, prior_ema, prior_static,
-                dyn_forward, frozen=False)
+            with spans.span("gate"):
+                prior, dyn_p, calc_dyn, switch, plogs = compute_prior(
+                    policy, spec, monitor, mon, state.switch, prior_ema, prior_static,
+                    dyn_forward, frozen=False, spans=spans)
             if "percentage_static" in plogs:
                 mon = monitor.add(mon, "percentage_static", plogs["percentage_static"])
-
             # ---- K1 pseudo-labels: hard at the old τ, soft at the new τ
-            b, _, hh, ww = prior_ema.shape
-            feat = _flat(ema_main["feat"]).float().contiguous()
-            prior_flat = _flat(prior).contiguous()
-            scale = P.inv_std(state.proto, metric)
-            _, hard, prop_max = K.pseudo_labels(
-                feat, state.proto.mean, prior_flat, state.proto.tau, pseudo_thresh, scale)
-            (conf_dyn, conf_prior, conf_proto), _ = pixel_means(
-                [_conf(dyn_p), _conf(prior), prop_max.mean()], prior_ema)
-            mon = monitor.add(mon, "prior dynamic", conf_dyn, enable=calc_dyn)
-            mon = monitor.add(mon, "prior", conf_prior)
-            mon = monitor.add(mon, "prototypes", conf_proto)
-            tau_bump = monitor.avg(mon, "prototypes") > conf_reg_thresh
-            new_tau = state.proto.tau + 0.001 * tau_bump.float()
-            mon = monitor.add(mon, "tau", new_tau, enable=tau_bump)
-            soft, _, _ = K.pseudo_labels(
-                feat, state.proto.mean, prior_flat, new_tau, pseudo_thresh, scale)
+            with spans.span("k1_prototypes"):
+                b, _, hh, ww = prior_ema.shape
+                feat = _flat(ema_main["feat"]).float().contiguous()
+                prior_flat = _flat(prior).contiguous()
+                scale = P.inv_std(state.proto, metric)
+                _, hard, prop_max = K.pseudo_labels(
+                    feat, state.proto.mean, prior_flat, state.proto.tau, pseudo_thresh, scale)
+                (conf_dyn, conf_prior, conf_proto), _ = pixel_means(
+                    [_conf(dyn_p), _conf(prior), prop_max.mean()], prior_ema)
+                mon = monitor.add(mon, "prior dynamic", conf_dyn, enable=calc_dyn)
+                mon = monitor.add(mon, "prior", conf_prior)
+                mon = monitor.add(mon, "prototypes", conf_proto)
+                tau_bump = monitor.avg(mon, "prototypes") > conf_reg_thresh
+                new_tau = state.proto.tau + 0.001 * tau_bump.float()
+                mon = monitor.add(mon, "tau", new_tau, enable=tau_bump)
+                soft, _, _ = K.pseudo_labels(
+                    feat, state.proto.mean, prior_flat, new_tau, pseudo_thresh, scale)
 
-            # ---- prototype EMA: the class moments of the global batch -----
-            onehot = P.onehot_assign(_flat(ema_main["out"]).float())
-            (conf_soft,), (vect, sq, sums) = pixel_means(
-                [_conf(soft, dim=-1)], prior_ema, P.class_moments(feat, onehot))
-            mon = monitor.add(mon, "pseudolabel confidence", conf_soft)
-            proto = P.ma(state.proto.replace(tau=new_tau), vect, sq, sums, ma_lambda)
-            return (mon, switch, calc_dyn, hard.view(b, hh, ww),
-                    soft.view(b, hh, ww, C).permute(0, 3, 1, 2), proto)
+                # ---- prototype EMA: the class moments of the global batch -----
+                onehot = P.onehot_assign(_flat(ema_main["out"]).float())
+                (conf_soft,), (vect, sq, sums) = pixel_means(
+                    [_conf(soft, dim=-1)], prior_ema, P.class_moments(feat, onehot))
+                mon = monitor.add(mon, "pseudolabel confidence", conf_soft)
+                proto = P.ma(state.proto.replace(tau=new_tau), vect, sq, sums, ma_lambda)
+                return (mon, switch, calc_dyn, hard.view(b, hh, ww),
+                        soft.view(b, hh, ww, C).permute(0, 3, 1, 2), proto)
 
         return teachers
 
@@ -457,65 +474,69 @@ class ProtoOnlineAdapter(T.ShardedModel):
         fwd = self._forward
         teachers = self._build_teachers()
         sharded = set(self.plan)
+        spans = self.spans
 
         def step(state: AdaptState, trg_images, src_images, src_labels, lr_base: float):
             dev = trg_images.device
             zero = torch.zeros((), device=dev)
             mon, switch, calc_dyn, pseudolabels, soft_nchw, proto = teachers(state, trg_images)
-            trg_count, src_counts, all_pixels = global_counts(
-                pseudolabels, *(src_labels[s] for s in range(source_repeat) if have_src))
-            # this rank's share of a mean over the global batch's pixels
-            share = pixel_share(pseudolabels)
+            with spans.span("student", device=True):
+                trg_count, src_counts, all_pixels = global_counts(
+                    pseudolabels, *(src_labels[s] for s in range(source_repeat) if have_src))
+                # this rank's share of a mean over the global batch's pixels
+                share = pixel_share(pseudolabels)
 
-            # ---- student: source slices (BN stats frozen) + target slice --
-            live = dict(state.params)
-            for k in trainable:
-                live[k] = state.params[k].detach().requires_grad_(True)
-            trg_target = soft_nchw if soft_labels else pseudolabels
-            buff_ce = buff_ce_last = buff_rce = buff_rce_last = zero
-            if have_src:
-                # freeze: the source slices' stat updates are discarded, which
-                # is running them with update_stats=False; double: they start
-                # from the alt set and their updates become it; keep: they
-                # update the main set, which the target slice then starts from
-                src_stats = state.alt_batch_stats if bn_policy == "double" else state.batch_stats
-                for s in range(source_repeat):
-                    out_s = fwd(live, src_stats, src_images[s], train=True,
-                                update_stats=bn_policy != "freeze")["out"].float()
-                    if buff_ce_w > 0:
-                        buff_ce_last = L.cross_entropy_2d(out_s, src_labels[s],
-                                                          count=src_counts[s])
-                        buff_ce = buff_ce + buff_ce_last
-                    if buff_rce_w > 0:
-                        buff_rce_last = L.rce(out_s, src_labels[s], count=src_counts[s])
-                        buff_rce = buff_rce + buff_rce_last
-            out_t = fwd(live, state.batch_stats, trg_images, train=True,
-                        update_stats=True)["out"].float()
-            n_trg = all_pixels if soft_labels else trg_count
-            ce = (L.cross_entropy_2d(out_t, trg_target, soft=soft_labels, count=n_trg)
-                  if rce_alpha > 0 else zero)
-            rce_l = (L.rce(out_t, trg_target, soft=soft_labels, count=n_trg)
-                     if rce_beta > 0 else zero)
-            sym = rce_alpha * ce + rce_beta * rce_l
-            reg = L.regular_loss(regularizer, out_t, count=all_pixels) if reg_weight > 0 else zero
-            js = L.js_divergence(out_t, pseudolabels, count=trg_count) if js_d > 0 else zero
-            # a term of the parameters alone enters once: on the ranks of data
-            # (and spatial) index 0, each with its shards and the whole leaves
-            mreg = mreg_log = zero
-            if model_reg > 0 and dist.pixel_rank() == 0:
-                mreg = mreg_log = L.ewc_loss(model_reg, state.static_params, live)
-                if sharded:  # its value: the shards' terms summed over the model group
-                    part = L.ewc_loss(model_reg, state.static_params,
-                                      {k: v for k, v in live.items() if k in sharded}).detach()
-                    mreg_log = mreg.detach() - part + dist.all_sum(part, group="model")[0]
-            total_t = sym + reg_weight * reg + js_d * js + mreg
-            total = total_t + buff_ce_w * buff_ce + buff_rce_w * buff_rce
-            grads = (optim.grid_grads(total, live, trainable, aux_head, sharded) if sharded
-                     else optim.grads(total, live, trainable, unused=aux_head))
-            del live
+                # ---- student: source slices (BN stats frozen) + target slice --
+                live = dict(state.params)
+                for k in trainable:
+                    live[k] = state.params[k].detach().requires_grad_(True)
+                trg_target = soft_nchw if soft_labels else pseudolabels
+                buff_ce = buff_ce_last = buff_rce = buff_rce_last = zero
+                if have_src:
+                    # freeze: the source slices' stat updates are discarded, which
+                    # is running them with update_stats=False; double: they start
+                    # from the alt set and their updates become it; keep: they
+                    # update the main set, which the target slice then starts from
+                    src_stats = (state.alt_batch_stats if bn_policy == "double"
+                                 else state.batch_stats)
+                    for s in range(source_repeat):
+                        out_s = fwd(live, src_stats, src_images[s], train=True,
+                                    update_stats=bn_policy != "freeze")["out"].float()
+                        if buff_ce_w > 0:
+                            buff_ce_last = L.cross_entropy_2d(out_s, src_labels[s],
+                                                              count=src_counts[s])
+                            buff_ce = buff_ce + buff_ce_last
+                        if buff_rce_w > 0:
+                            buff_rce_last = L.rce(out_s, src_labels[s], count=src_counts[s])
+                            buff_rce = buff_rce + buff_rce_last
+                out_t = fwd(live, state.batch_stats, trg_images, train=True,
+                            update_stats=True)["out"].float()
+                n_trg = all_pixels if soft_labels else trg_count
+                ce = (L.cross_entropy_2d(out_t, trg_target, soft=soft_labels, count=n_trg)
+                      if rce_alpha > 0 else zero)
+                rce_l = (L.rce(out_t, trg_target, soft=soft_labels, count=n_trg)
+                         if rce_beta > 0 else zero)
+                sym = rce_alpha * ce + rce_beta * rce_l
+                reg = (L.regular_loss(regularizer, out_t, count=all_pixels) if reg_weight > 0
+                       else zero)
+                js = L.js_divergence(out_t, pseudolabels, count=trg_count) if js_d > 0 else zero
+                # a term of the parameters alone enters once: on the ranks of data
+                # (and spatial) index 0, each with its shards and the whole leaves
+                mreg = mreg_log = zero
+                if model_reg > 0 and dist.pixel_rank() == 0:
+                    mreg = mreg_log = L.ewc_loss(model_reg, state.static_params, live)
+                    if sharded:  # its value: the shards' terms summed over the model group
+                        part = L.ewc_loss(model_reg, state.static_params,
+                                          {k: v for k, v in live.items() if k in sharded}).detach()
+                        mreg_log = mreg.detach() - part + dist.all_sum(part, group="model")[0]
+                total_t = sym + reg_weight * reg + js_d * js + mreg
+                total = total_t + buff_ce_w * buff_ce + buff_rce_w * buff_rce
+                grads = (optim.grid_grads(total, live, trainable, aux_head, sharded) if sharded
+                         else optim.grads(total, live, trainable, unused=aux_head))
+                del live
 
             # ---- SGD + EMA ----------------------------------------------
-            with torch.no_grad():
+            with torch.no_grad(), spans.span("update", device=True):
                 out_t = out_t.detach()
                 # the losses' shares and the batch means, summed over the ranks
                 shares = {
@@ -552,9 +573,10 @@ class ProtoOnlineAdapter(T.ShardedModel):
                     logs["soft_predictions"] = soft_nchw
                 if want_pred:  # PREDICTION_SAVE: the raw target logits
                     logs["target_logits"] = out_t
+                logs = LazyLogs(logs, spans)
             new_state = dataclasses.replace(state, proto=proto, monitor=mon, switch=switch,
                                             step=state.step + 1)
-            return new_state, LazyLogs(logs)
+            return new_state, logs
 
         return step
 
@@ -829,66 +851,73 @@ class ProtoOnlineAdapter(T.ShardedModel):
                   "skipping trace")
             profile_steps = 0
         profiler = None
-        # OTHERS.SCHEDULE: host stage timing of the loop. Batch Fetch: waiting
-        # for the fed batches; Step Dispatch: queueing the step; Host Work:
-        # insertions, evaluation, samples, checkpoints; Log Sync: reading the
-        # step's packed logs
-        meter = SpeedMeter(limit=20, enabled=bool(value_or(self.cfg.OTHERS.SCHEDULE, False)))
+        # OTHERS.SCHEDULE: the loop's spans (`timing.SpanRecorder`) and their
+        # log keys. Batch Fetch: waiting for the fed batches; Step Dispatch:
+        # queueing the step; Host Work: insertions, evaluation, samples,
+        # checkpoints; Log Sync: reading the step's packed logs; the stages'
+        # device times on a card; the step's host reads
+        schedule = bool(value_or(self.cfg.OTHERS.SCHEDULE, False))
+        spans = self.spans
         frames_done = 0
         wall_t0 = time.perf_counter()
         for i_iter in range(steps):
-            meter.reset()
-            lr = base_lr * (1.0 - i_iter / steps) ** power if power else base_lr
-            if have_src:
-                src_batch = next(src_feed)
-                src_images, src_labels = src_batch["image"], src_batch["label"].long()
-            else:
-                src_images = src_labels = None
-            if profile_steps and i_iter == profile_at:
-                profiler, profile_t0 = self._start_profile()
-            trg_batch = next(trg_feed)
-            meter.mark("Batch Fetch")
-            self.state, logs = step(self.state, trg_batch["image"], src_images, src_labels, lr)
-            meter.mark("Step Dispatch")
-            if want_pred:
-                self._save_prediction(logs.pop("target_logits"))
-            if auto_dynamic:
-                self._maybe_update_dynamic(lambda: logs["dev avg prior static"])
-            host_logs = {"Total buffer updates": self._buffer_update(
-                trg_batch, logs.pop("soft_predictions", None), update_prob, trainloader, rng)}
-            if profiler is not None and i_iter + 1 == profile_at + profile_steps:
-                logs["Total target loss"]  # the profiled steps end at their packed-log read
-                self._stop_profile(profiler, profile_t0, profile_steps)
-                profiler = None
-            if save_every and (i_iter + 1) % save_every == 0:
-                self.save_model()
-            if i_iter == 0:
-                host_logs["Step compile+run seconds"] = time.perf_counter() - wall_t0
-                frames_done = 0
-                wall_t0 = time.perf_counter()
-            else:
-                frames_done += int(trg_batch["image"].shape[0])
-            if (i_iter + 1) % len(targetloader) == 0:
-                # streaming throughput of the epoch, host feed included;
-                # evaluation and checkpoints between epochs are not counted
-                elapsed = time.perf_counter() - wall_t0
-                if elapsed > 0 and frames_done:
-                    host_logs["Adaptation frames per second"] = frames_done / elapsed
-                print("Model evaluation")
-                host_logs.update(self.evaluate_all(validation_loaders))
-                samples_every = int(value_or(self.cfg.OTHERS.GENERATE_SAMPLES_EVERY, 10))
-                if samples_due(samples_every, i_iter, len(targetloader)):
-                    host_logs.update(self.test_on_samples(validation_loaders))
-                self.save_model()
-                frames_done = 0
-                wall_t0 = time.perf_counter()
-            meter.mark("Host Work")
-            logs.update(host_logs)
-            if meter.enabled:
-                logs["Total target loss"]  # force the packed device-to-host read
-                meter.mark("Log Sync")
-                logs.update(meter.averages())
-            self._log(logs)
+            spans.enabled = schedule or 0 <= i_iter - profile_at < profile_steps
+            with spans.step(i_iter):
+                spans.phase("fetch")
+                lr = base_lr * (1.0 - i_iter / steps) ** power if power else base_lr
+                if have_src:
+                    src_batch = next(src_feed)
+                    src_images, src_labels = src_batch["image"], src_batch["label"].long()
+                else:
+                    src_images = src_labels = None
+                if profile_steps and i_iter == profile_at:
+                    profiler, profile_t0 = self._start_profile()
+                trg_batch = next(trg_feed)
+                spans.phase("dispatch")
+                self.state, logs = step(self.state, trg_batch["image"], src_images, src_labels,
+                                        lr)
+                spans.phase("host_work")
+                if want_pred:
+                    self._save_prediction(logs.pop("target_logits"))
+                if auto_dynamic:
+                    self._maybe_update_dynamic(lambda: logs["dev avg prior static"])
+                host_logs = {"Total buffer updates": self._buffer_update(
+                    trg_batch, logs.pop("soft_predictions", None), update_prob, trainloader, rng)}
+                if profiler is not None and i_iter + 1 == profile_at + profile_steps:
+                    logs["Total target loss"]  # the profiled steps end at their packed-log read
+                    self._stop_profile(profiler, profile_t0, profile_steps)
+                    profiler = None
+                if save_every and (i_iter + 1) % save_every == 0:
+                    self.save_model()
+                if i_iter == 0:
+                    host_logs["Step compile+run seconds"] = time.perf_counter() - wall_t0
+                    frames_done = 0
+                    wall_t0 = time.perf_counter()
+                else:
+                    frames_done += int(trg_batch["image"].shape[0])
+                if (i_iter + 1) % len(targetloader) == 0:
+                    # streaming throughput of the epoch, host feed included;
+                    # evaluation and checkpoints between epochs are not counted
+                    elapsed = time.perf_counter() - wall_t0
+                    if elapsed > 0 and frames_done:
+                        host_logs["Adaptation frames per second"] = frames_done / elapsed
+                    print("Model evaluation")
+                    host_logs.update(self.evaluate_all(validation_loaders))
+                    samples_every = int(value_or(self.cfg.OTHERS.GENERATE_SAMPLES_EVERY, 10))
+                    if samples_due(samples_every, i_iter, len(targetloader)):
+                        host_logs.update(self.test_on_samples(validation_loaders))
+                    self.save_model()
+                    frames_done = 0
+                    wall_t0 = time.perf_counter()
+                spans.phase("log_sync")
+                logs.update(host_logs)
+                if schedule:
+                    logs["Total target loss"]  # force the packed device-to-host read
+                spans.phase("log")
+                if schedule:
+                    logs.update(spans.loop_logs())
+                self._log(logs)
+        spans.enabled = schedule
         self.save_model()
 
     def _stacked_source(self, src_iter, source_repeat: int):
@@ -949,20 +978,25 @@ class ProtoOnlineAdapter(T.ShardedModel):
         upsampled (bilinear, align_corners) and argmaxed on the device; that
         map is the frame's `label`, and its nearest resize to the 1/8+1 grid
         its `label_res` and `stored_predictions`. Only the inserted rows come
-        to the host."""
+        to the host, in three reads (`sync` spans)."""
         if probability <= 0 or soft_nchw is None or not hasattr(trainloader, "add_from_batch"):
             return 0
         hits = np.where(rng.random(len(trg_batch["image"])) < probability)[0]
         if not len(hits):
             return 0
+
+        def host(x):
+            with self.spans.sync("buffer"):
+                return x.cpu().numpy()
+
         rows = torch.as_tensor(hits, device=soft_nchw.device)
         soft = soft_nchw.index_select(0, rows).float()
         up = upsample_bilinear_ac(soft, self.resolution_hw).argmax(dim=1).int()
-        stored = resize_nearest(up, tuple(soft.shape[2:])).cpu().numpy()
+        stored = host(resize_nearest(up, tuple(soft.shape[2:])))
         insert = {key: [value[i] for i in hits] for key, value in trg_batch.items()
                   if isinstance(value, list)}
-        insert.update(image=trg_batch["image"].index_select(0, rows).cpu().numpy(),
-                      label=up.cpu().numpy(), label_res=stored, stored_predictions=stored)
+        insert.update(image=host(trg_batch["image"].index_select(0, rows)),
+                      label=host(up), label_res=stored, stored_predictions=stored)
         for j in range(len(hits)):
             trainloader.add_from_batch(insert, j)
         return len(hits)

@@ -51,7 +51,7 @@ from ..parallel import tensor as T
 from ..parallel.mesh import resolve
 from ..utils import checkpoint as ckpt
 from . import optim
-from .timing import SpeedMeter
+from .timing import SpanRecorder
 
 HEAD_LR_SCALE = 10.0  # hard-coded in the reference (segmentation.py:59-87), not LR_RATIO
 AUX_WEIGHT = 0.1
@@ -71,6 +71,7 @@ class SegmentTrainer(T.ShardedModel):
         self.spec = cfg_spec
         self.num_classes = num_classes
         self.logger = logger
+        self.spans = SpanRecorder(self.device, enabled=bool(value_or(cfg.OTHERS.SCHEDULE, False)))
         self.plan_shards(variables, tp)
         variables = {name: self._shard(tree) for name, tree in variables.items()}
         self.params = {k: v.detach().to(self.device) for k, v in variables["params"].items()}
@@ -165,27 +166,38 @@ class SegmentTrainer(T.ShardedModel):
         base_lr = float(self.spec.LEARNING_RATE)
         power = float(self.spec.POWER)
         total = max(len(loader) * epochs, 1)
-        # OTHERS.SCHEDULE: host stage timing. Batch Fetch: waiting for the fed
-        # batch; Fused Step: queueing the step (the device runs behind it)
-        meter = SpeedMeter(enabled=bool(value_or(self.cfg.OTHERS.SCHEDULE, False)))
+        # OTHERS.SCHEDULE: the loop's spans and their log keys, averaged over
+        # the last 10 steps. Batch Fetch: waiting for the fed batch; Fused
+        # Step: queueing the step (the device runs behind it)
+        schedule = bool(value_or(self.cfg.OTHERS.SCHEDULE, False))
+        keys = {"fetch": "time/Batch Fetch", "dispatch": "time/Fused Step (fwd+loss+bwd+update)"}
+        spans = self.spans
         step_i = 0
         window = []  # the losses since the last log (reference `avrg`)
         for epoch in range(epochs):
-            for batch in DeviceFeeder(loader, self.device, keys=("image", "label")):
-                meter.mark("Batch Fetch")
-                # the reference adjusts the poly LR after optimizer.step()
-                # (segmentation.py:83-88): step i trains at lr(i-1), step 0 at
-                # the base rate, while the logged rate is lr(i)
-                lr = optim.lr_poly(base_lr, max(step_i - 1, 0), total, power)
-                window.append(self.step(batch["image"].float(), batch["label"].long(), lr))
-                meter.mark("Fused Step (fwd+loss+bwd+update)")
-                if step_i % 10 == 0:
-                    # the ranks' shares summed: the global batch's mean loss
-                    loss = dist.all_sum(torch.stack(window).mean())[0]
-                    self._log({"Segmentation loss": float(loss),
-                               "learning_rate": optim.lr_poly(base_lr, step_i, total, power),
-                               **meter.averages()})
-                    window = []
+            feed = DeviceFeeder(loader, self.device, keys=("image", "label"))
+            while True:
+                with spans.step(step_i):
+                    spans.phase("fetch")
+                    batch = next(feed, None)
+                    if batch is None:
+                        break
+                    # the reference adjusts the poly LR after optimizer.step()
+                    # (segmentation.py:83-88): step i trains at lr(i-1), step 0 at
+                    # the base rate, while the logged rate is lr(i)
+                    lr = optim.lr_poly(base_lr, max(step_i - 1, 0), total, power)
+                    spans.phase("dispatch")
+                    window.append(self.step(batch["image"].float(), batch["label"].long(), lr))
+                    if step_i % 10 == 0:
+                        spans.phase("log_sync")
+                        # the ranks' shares summed: the global batch's mean loss
+                        with spans.sync("loss"):
+                            loss = float(dist.all_sum(torch.stack(window).mean())[0])
+                        spans.phase("log")
+                        self._log({"Segmentation loss": loss,
+                                   "learning_rate": optim.lr_poly(base_lr, step_i, total, power),
+                                   **(spans.averages(keys, last=10) if schedule else {})})
+                        window = []
                 step_i += 1
             log = {"epoch": epoch}
             original = not unset(self.cfg.SCHEME.ORIGINAL_RES)

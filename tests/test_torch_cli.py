@@ -150,6 +150,31 @@ def test_resumed_run_inserts_into_the_buffer(runs):
     assert runs["second"].state.step == 3 * STEPS
 
 
+def test_steps_record_the_loop_and_stage_spans(runs):
+    """Under OTHERS.SCHEDULE every step of the first run holds the loop's
+    phases and the hybrid step's stages, each under its parent, and two host
+    reads (the gate's decision, the packed logs); the resumed run's steps
+    insert both frames into the replay buffer, three reads more. On the CPU
+    no stage has a device time."""
+    parents = {"fetch": "step", "dispatch": "step", "host_work": "step", "log_sync": "step",
+               "log": "step", "teachers": "dispatch", "ema_forward": "teachers",
+               "static_forward": "teachers", "gate": "teachers", "k1_prototypes": "teachers",
+               "student": "dispatch", "update": "dispatch"}
+    steps = runs["first"].spans.steps()
+    assert [step[0].step for step in steps] == [0, 1] * 2  # each domain's loop counts from 0
+    for step in steps:
+        assert step[0].name == "step" and step[0].parent is None
+        assert {s.name: s.parent.name for s in step[1:] if s.name != "sync"} == parents
+        assert [s.parent.name for s in step if s.name == "sync"] == ["gate", "log_sync"]
+        assert all(s.device_ms is None for s in step)
+    for r in _steps(runs["run1"]):
+        assert r["host reads"] == 2 and not [k for k in r if k.endswith(" device")]
+    assert [r["host reads"] for r in _steps(runs["run2"])] == [2 + 3] * STEPS
+    resumed = runs["second"].spans.steps()
+    assert [[s.parent.name for s in step if s.name == "sync"] for step in resumed] \
+        == [["gate", "host_work", "host_work", "host_work", "log_sync"]] * STEPS
+
+
 def test_cuda_device_without_a_card_stops(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

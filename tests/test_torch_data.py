@@ -29,6 +29,7 @@ from onda_torch.data import loader as loader_mod
 from onda_torch.data.loader import DeviceFeeder
 from onda_torch.data.metadata import Table, load_dataset_info, load_table
 from onda_torch.methods.proto_online import ProtoOnlineAdapter
+from onda_torch.methods.timing import SpanRecorder
 from onda_torch.registry import get_db
 from onda_torch.utils import viz
 from onda_torch.utils.checkpoint import checkpoints_by_mtime, save_atomic
@@ -444,7 +445,7 @@ def test_buffer_update_stores_the_same_labels_as_jax():
     soft = rng.dirichlet(np.ones(c), size=(b, hh, ww)).astype(np.float32)  # NHWC
     image = rng.normal(size=(b, h, w, 3)).astype(np.float32)
     paths = [f"f{i}.png" for i in range(b)]
-    me = types.SimpleNamespace(resolution_hw=(h, w))
+    me = types.SimpleNamespace(resolution_hw=(h, w), spans=SpanRecorder("cpu"))
     jrec, trec = _Recorder(), _Recorder()
     n_j = JaxAdapter._buffer_update(me, {"image": jnp.asarray(image), "image_path": paths},
                                     jnp.asarray(soft), 0.6, jrec, np.random.default_rng(123))

@@ -216,15 +216,13 @@ def test_metrics_match_jax(rng):
 @pytest.mark.parametrize("every,n_target", [(0, 4), (3, 4), (1, 1), (-1, 2)])
 def test_samples_due_matches_jax(every, n_target):
     from onda_tpu.methods.timing import samples_due as jax_due
-    from onda_torch.methods.timing import SpeedMeter, ThroughputMeter, samples_due
+    from onda_torch.methods.timing import SpanRecorder, samples_due
 
     assert [samples_due(every, i, n_target) for i in range(9)] == \
         [jax_due(every, i, n_target) for i in range(9)]
-    meter = SpeedMeter(limit=2)
-    meter.mark("a")
-    meter.mark("a")
-    assert set(meter.averages()) == {"time/a"}
-    tp = ThroughputMeter()
-    tp.start()
-    tp.count(4)
-    assert tp.fps() > 0
+    spans = SpanRecorder("cpu", enabled=True)
+    for i in range(3):
+        with spans.step(i):
+            spans.phase("a")
+    assert set(spans.averages({"a": "time/a"}, last=2)) == {"time/a"}
+    assert [len(step) for step in spans.steps()] == [2, 2, 2]
