@@ -42,7 +42,14 @@ Phases:
     E[x^2] in f64, what data parallelism all-reduces) against its plain
     version at the same shapes, and against the statistics output bit for
     bit; the BatchNorm autograd.Function's gradients against autograd of the
-    plain version;
+    plain version; then BatchNorm's passes after the statistics
+    (csrc/bn_norm.cu: bn_apply_kernel with the running update and in eval,
+    bn_grad_sums_kernel, bn_grad_dx_kernel) against their plain versions at
+    every distinct R50 BatchNorm input and at odd shapes, f32 and bf16, in
+    K2's four layouts (NCHW and channels_last, each also one element off a
+    16-byte boundary), the reduction
+    repeated to the same bits, and timed over one forward's 53 inputs (f32:
+    forward, backward, their plain versions and their byte bounds);
  5. a small-input check: one bootstrap and one adaptation step of a tiny model
     on the card against the same on the CPU (plain versions of both kernels),
     the same in bf16 (OTHERS.PRECISION's model), and one step each of ADVENT
@@ -672,6 +679,168 @@ def check_k2(torch, K, layers, out_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 4 (cont.): BatchNorm's passes after the statistics (csrc/bn_norm.cu)
+# ---------------------------------------------------------------------------
+
+BN_ODD_SHAPES = [(4, 256, 1, 1), (3, 17, 33, 25), (1, 1, 1, 1)]
+
+
+def check_bn_once(torch, K, x, dy, gamma, beta, rm0, rv0, tag):
+    """bn_apply (train with the running update, and eval), bn_grad_sums and
+    bn_grad_dx on the card against their plain versions run on the same card
+    tensors, in each of K2's layouts (`k2_layouts`: off a 16-byte boundary
+    the passes meet a fresh output or dy there and run all scalar); returns
+    the largest gaps of the NCHW call.
+
+    Tolerances, and why: y, inv, the running update and dx from given sums
+    repeat the plain version's operations in its order with round-to-nearest
+    f32 steps, so they agree to the rounding of rsqrtf and of a division
+    (PyTorch's card kernels divide by a scalar through its reciprocal): 2e-7
+    relative in f32 (1e-6 for dx), one bf16 step (2^-8) in bf16, where such a
+    gap can tip the final rounding; the running update takes no rsqrt or
+    division and matches bit for bit. The sums are f32 sums of up to 2M
+    products in another order: within 1e-5 of the channel's Σ|term|."""
+    n, c, h, w = x.shape
+    count = n * h * w
+    f32 = x.dtype == torch.float32
+    rel = 2e-7 if f32 else 2.0**-8
+
+    def same_layout(a, b):  # strides may differ only where a dimension has size 1
+        return a.dtype == b.dtype and all(
+            a.is_contiguous(memory_format=f) == b.is_contiguous(memory_format=f)
+            for f in (torch.contiguous_format, torch.channels_last))
+
+    def gap(got, want):  # the largest |got − want| over max|want|
+        want = want.float()
+        return ((got.float() - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+    out = None
+    for layout, xl in k2_layouts(torch, x).items():
+        dyl = (dy.contiguous(memory_format=torch.channels_last)
+               if layout.startswith("channels_last") else dy)
+        mean, var = K.bn_stats(xl)
+        got_rm, got_rv, want_rm, want_rv = rm0.clone(), rv0.clone(), rm0.clone(), rv0.clone()
+        y, inv = K.bn_apply(xl, mean, var, gamma, beta, 1e-5, (got_rm, got_rv, 0.1, count), True)
+        want_y, want_inv = K.bn_apply_plain(xl, mean, var, gamma, beta, 1e-5,
+                                            (want_rm, want_rv, 0.1, count), True)
+        y_eval = K.bn_apply(xl, rm0, rv0, gamma, beta, 1e-5)
+        want_eval = K.bn_apply_plain(xl, rm0, rv0, gamma, beta, 1e-5)
+        gaps = {"y": gap(y, want_y), "inv": gap(inv, want_inv), "eval_y": gap(y_eval, want_eval)}
+        check(same_layout(y, xl), f"BN {tag} {layout}: y's dtype or layout")
+        check(torch.equal(got_rm, want_rm) and torch.equal(got_rv, want_rv),
+              f"BN {tag} {layout}: the running update differs from the plain one's bits")
+        sums = K.bn_grad_sums(xl, dyl, mean, inv)
+        again = K.bn_grad_sums(xl, dyl, mean, inv)
+        check(all(torch.equal(a, b) for a, b in zip(sums, again)),
+              f"BN {tag} {layout}: two reductions differ (not deterministic)")
+        want_sums = K.bn_grad_sums_plain(xl, dyl, mean, inv)
+        x_hat = (xl.float() - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1)
+        mags = (dyl.float().abs().sum(dim=(0, 2, 3)),
+                (dyl.float() * x_hat).abs().sum(dim=(0, 2, 3)))
+        for key, got, want, mag in zip(("sum_dy", "sum_dy_xhat"), sums, want_sums, mags):
+            gaps[key] = ((got - want).abs() / mag.clamp(min=1e-30)).max().item()
+        for key, args in (("dx", (*sums, count)), ("eval_dx", ())):
+            dx = K.bn_grad_dx(xl, dyl, mean, inv, gamma, *args)
+            check(same_layout(dx, xl), f"BN {tag} {layout}: dx's dtype or layout")
+            gaps[key] = gap(dx, K.bn_grad_dx_plain(xl, dyl, mean, inv, gamma, *args))
+        torch.cuda.synchronize()
+        limits = {"y": rel, "inv": 2e-7, "eval_y": rel, "sum_dy": 1e-5, "sum_dy_xhat": 1e-5,
+                  "dx": max(rel, 1e-6), "eval_dx": max(rel, 1e-6)}
+        bad = {k: v for k, v in gaps.items() if not v <= limits[k]}
+        check(not bad, f"BN {tag} {layout}: gaps {bad} over their limits {limits}")
+        if layout == "nchw":
+            out = gaps
+    return out
+
+
+def bn_case(torch, shape, g):
+    """Seeded inputs of a BatchNorm at `shape`: x with channel means of about
+    twice its spread (|mean| well above the std), dy, γ, β and running
+    statistics."""
+    c = shape[1]
+    x = (torch.randn(shape, device="cuda", generator=g)
+         * (0.5 + torch.rand(1, c, 1, 1, device="cuda", generator=g))
+         + 2 * torch.randn(1, c, 1, 1, device="cuda", generator=g))
+    dy = torch.randn(shape, device="cuda", generator=g)
+    gamma = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
+    beta = 0.1 * torch.randn(c, device="cuda", generator=g)
+    return x, dy, gamma, beta, torch.randn(c, device="cuda", generator=g), \
+        0.5 + torch.rand(c, device="cuda", generator=g)
+
+
+def check_bn_passes(torch, K, out_dir):
+    """The BatchNorm passes against their plain versions at every distinct
+    BatchNorm input of one R50 b4 1024x512 forward and at odd shapes, f32
+    and bf16, each layout; then timed over the 53 inputs of one forward (f32,
+    summed with multiplicity): the forward as training runs it (with the
+    running update) and one backward (reduction and dx), each against its
+    plain version and its bound (the bytes at 3.35 TB/s: forward x read and
+    y written, backward x and dy read twice and dx written)."""
+    shapes = bn_input_shapes(torch)
+    distinct = sorted(set(shapes), key=lambda s: -math.prod(s))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows, per_shape, worst = [], {}, {}
+    for shape in distinct + BN_ODD_SHAPES:
+        x32, dy32, gamma, beta, rm, rv = bn_case(torch, shape, g)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            gaps = check_bn_once(torch, K, x, dy, gamma, beta, rm, rv, f"{shape} {dtype}")
+            rows.append({"shape": shape, "dtype": str(dtype), **gaps})
+            for k, v in gaps.items():
+                worst[(k, str(dtype))] = max(worst.get((k, str(dtype)), 0.0), v)
+            if shape not in distinct or dtype != torch.float32:
+                continue
+            n, c, h, w = shape
+            count = n * h * w
+            mean, var = K.bn_stats(x)
+            inv = torch.rsqrt(var + 1e-5)
+            run = (rm.clone(), rv.clone(), 0.1, count)
+
+            def backward(sums, dx):
+                s = sums(x, dy, mean, inv)
+                return dx(x, dy, mean, inv, gamma, *s, count)
+
+            timed = (
+                cuda_ms(torch, lambda: K.bn_apply(x, mean, var, gamma, beta, 1e-5, run)),
+                cuda_ms(torch, lambda: K.bn_apply_plain(x, mean, var, gamma, beta, 1e-5, run)),
+                cuda_ms(torch, lambda: backward(K.bn_grad_sums, K.bn_grad_dx)),
+                cuda_ms(torch, lambda: backward(K.bn_grad_sums_plain, K.bn_grad_dx_plain)))
+            nbytes = x.numel() * x.element_size()
+            per_shape[shape] = (*timed, bound_ms(2 * nbytes)[0], bound_ms(5 * nbytes)[0])
+            print(f"BN passes {shape} f32: forward {timed[0]:.4f} ms (plain {timed[1]:.4f}, "
+                  f"bound {per_shape[shape][4]:.4f}, {100 * share(per_shape[shape][4], timed[0]):.1f}%), "
+                  f"backward {timed[2]:.4f} ms (plain {timed[3]:.4f}, bound "
+                  f"{per_shape[shape][5]:.4f}, {100 * share(per_shape[shape][5], timed[2]):.1f}%)")
+            del x, dy
+        del x32, dy32
+    print("BN passes checked at " + str(len(rows)) + " shape/type pairs, 4 layouts each; largest "
+          "gaps " + ", ".join(f"{k} {d[6:]} {v:.3e}" for (k, d), v in sorted(worst.items())))
+    tot = [sum(per_shape[s][i] for s in shapes) for i in range(6)]
+    print(f"BN passes over the 53 BN inputs of one R50 forward (f32): forward kernel "
+          f"{tot[0]:.4f} ms, plain {tot[1]:.4f} ms, bound {tot[4]:.4f} ms, "
+          f"{100 * share(tot[4], tot[0]):.1f}% of the bound; backward kernels {tot[2]:.4f} ms, "
+          f"plain {tot[3]:.4f} ms, bound {tot[5]:.4f} ms, {100 * share(tot[5], tot[2]):.1f}% "
+          f"of the bound")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "bn_passes.json"), "w") as f:
+        json.dump({"checks": rows, "timings": [
+            {"shape": s, "forward_ms": v[0], "forward_plain_ms": v[1], "backward_ms": v[2],
+             "backward_plain_ms": v[3], "forward_bound_ms": v[4], "backward_bound_ms": v[5]}
+            for s, v in per_shape.items()]}, f, indent=1)
+    return {"name": "bn_norm kernels", "route": "cuda", "source": "onda_torch/csrc/bn_norm.cu",
+            "replaces": "no TPU kernel (plain jnp in onda_tpu/models/layers.py)",
+            "shape": "the 53 BatchNorm inputs of one R50 forward, b4 1024x512 f32 NCHW (times "
+                     "summed)",
+            "checked_shapes": [list(s) for s in distinct + BN_ODD_SHAPES],
+            "max_gaps": {f"{k} {d[6:]}": v for (k, d), v in worst.items()},
+            "forward_ms": tot[0], "forward_plain_ms": tot[1], "forward_bound_ms": tot[4],
+            "forward_bound_share": share(tot[4], tot[0]), "backward_ms": tot[2],
+            "backward_plain_ms": tot[3], "backward_bound_ms": tot[5],
+            "backward_bound_share": share(tot[5], tot[2]), "bound_by": "bytes",
+            "check": "pass"}
+
+
+# ---------------------------------------------------------------------------
 # --compare: an earlier package's kernels against this tree's, in turns
 # ---------------------------------------------------------------------------
 
@@ -1085,7 +1254,8 @@ def profile_step(torch, fn, path, tag) -> int:
 
     busy = sum(dev_us(e) for e in kernels) / 1e3
     names = {"pseudo_labels_kernel": ("pseudo_labels_kernel",),
-             "bn_stats_kernel": ("bn_stats_cluster_kernel", "stats_cl_kernel", "finalize_kernel")}
+             "bn_stats_kernel": ("bn_stats_cluster_kernel", "stats_cl_kernel", "finalize_kernel"),
+             "bn passes": ("bn_apply_", "bn_grad_sums_", "bn_grad_dx_")}
     ours = {name: [e for e in kernels if any(k in e.key for k in keys)]
             for name, keys in names.items()}
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
@@ -1174,8 +1344,17 @@ def main_path(torch, K, profile: bool, out_dir: str):
     step = ad.step_fn(True, 1, False)
     img = trg[0]["image"].cuda()
     s_img, s_lbl = src[0]["image"][None].cuda(), src[0]["label_res"][None].cuda()
+    K.reset_launches()
     (ad.state, logs), syncs = count_syncs(torch, lambda: step(ad.state, img, s_img, s_lbl, 1e-5))
     print(f"host syncs inside one step: {len(syncs)} {syncs}")
+    # BatchNorm's passes a step: a forward of each teacher and of the source
+    # and target slices, a backward of the two slices
+    fired = float(logs["dynamic forward fired"]) > 0.5
+    want_bn = {"bn_apply_kernel": 53 * (4 + fired), "bn_grad_sums_kernel": 106,
+               "bn_grad_dx_kernel": 106}
+    print(f"BatchNorm pass launches in one step (dynamic teacher fired: {fired}): "
+          f"{dict(K.bn_launches)}")
+    check(K.bn_launches == want_bn, f"BatchNorm pass launches {K.bn_launches}, expected {want_bn}")
     check(len(syncs) == 1, f"expected one host sync (the dynamic-teacher gate), got {len(syncs)}")
     check(math.isfinite(logs["Total target loss"]), "extra step: non-finite loss")
 
@@ -5309,6 +5488,7 @@ def main() -> int:
         k1 = check_k1(torch, K, P)
     with phase_clock("4"):
         k2 = check_k2(torch, K, layers, args.out_dir)
+        bn = check_bn_passes(torch, K, args.out_dir)
     if not (args.parallel_only or args.quality_only):
         with phase_clock("5"):
             small_input_check(torch)
@@ -5395,7 +5575,7 @@ def main() -> int:
     print(f"chip_smoke total seconds: {time.perf_counter() - t_script:.3f} (phases "
           + ", ".join(f"{k} {v:.3f}" for k, v in PHASE_SECONDS.items()) + ")")
     print(card)
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, bn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

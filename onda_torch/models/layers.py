@@ -1,8 +1,11 @@
 """Building-block layers with the semantics of `onda_tpu/models/layers.py`, NCHW.
 
 Train-mode BatchNorm takes its batch statistics from the hand-written kernel
-K2 (`ops/kernels.bn_stats`) inside a `torch.autograd.Function` whose backward
-is the closed form of `_bn_train_bwd` in plain torch. Under data parallelism
+K2 (`ops/kernels.bn_stats`); the normalisation, with the running update, is
+one more kernel (`kernels.bn_apply`, eval mode's too), inside a
+`torch.autograd.Function` whose backward is the closed form of
+`_bn_train_bwd` in two kernels (`kernels.bn_grad_sums`, `bn_grad_dx`); on
+the CPU each wrapper takes its plain version. Under data parallelism
 (`parallel.distributed`) the statistics are those of the global batch, as
 GSPMD computes them for the JAX step on a `data` mesh: K2 gives each rank's
 raw moments in f64 (`kernels.bn_moments`), one all-reduce over the data
@@ -102,50 +105,61 @@ class Linear(nn.Linear):
         return F.linear(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
 
 
-class _BNTrain(torch.autograd.Function):
-    """y = (x − mean)·(γ·rsqrt(var + eps)) + β with batch statistics, computed
-    in f32 and cast back to x's type (`_bn_train_math`). mean and var enter as
-    constants: the backward is the full closed form
+class _BatchNorm(torch.autograd.Function):
+    """y = (x − mean)·(γ·rsqrt(var + eps)) + β, computed in f32 and cast back
+    to x's type (`_bn_train_math`), in one kernel that also takes the
+    `running` update. mean and var enter as constants. With batch statistics
+    (`count` pixels) the backward is the full closed form
         dx = γ·inv · (dy − mean(dy) − x̂·mean(dy·x̂)),
-    which already accounts for the statistics' dependence on x. Under data
+    which already accounts for the statistics' dependence on x; with running
+    statistics (`count` None, eval mode) it is dx = γ·inv·dy. Under data
     parallelism, and on a spatial axis, the means run over the global batch's
-    `count` pixels (one all-reduce of the two sums), while dγ and dβ stay
-    this rank's: the gradient bucket sums them over the ranks
-    (`optim.grads`)."""
+    `count` pixels (one all-reduce of the two sums, between the backward's
+    two kernels), while dγ and dβ stay this rank's: the gradient bucket sums
+    them over the ranks (`optim.grads`)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, mean, var, eps, count):
-        inv = torch.rsqrt(var + eps)
-        shape = (1, -1, 1, 1)
-        y = ((x.float() - mean.view(shape)) * (inv * weight).view(shape) + bias.view(shape))
+    def forward(ctx, x, weight, bias, mean, var, eps, count, running):
+        y, inv = kernels.bn_apply(x, mean, var, weight, bias, eps, running, with_inv=True)
         ctx.save_for_backward(x, mean, inv, weight)
         ctx.count = count
-        return y.to(x.dtype)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
         x, mean, inv, weight = ctx.saved_tensors
-        shape = (1, -1, 1, 1)
-        dy = dy.float()
-        x_hat = (x.float() - mean.view(shape)) * inv.view(shape)
-        dbeta = dy.sum(dim=(0, 2, 3))
-        dgamma = (dy * x_hat).sum(dim=(0, 2, 3))
-        dx = None
+        # the kernels take dy in x's layout, whatever layout autograd hands over
+        dy = dy.contiguous(memory_format=torch.contiguous_format if x.is_contiguous()
+                           else torch.channels_last)
+        frozen = ctx.count is None
+        dgamma = dbeta = dx = None
+        if not frozen or ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dbeta, dgamma = kernels.bn_grad_sums(x, dy, mean, inv)
         if ctx.needs_input_grad[0]:
-            sum_dy, sum_dy_xhat = dist.all_sum(dbeta, dgamma, group="pixels")
-            n = ctx.count
-            dx = (weight * inv).view(shape) * (
-                dy - (sum_dy / n).view(shape) - x_hat * (sum_dy_xhat / n).view(shape))
-            dx = dx.to(x.dtype)
+            if frozen:
+                dx = kernels.bn_grad_dx(x, dy, mean, inv, weight)
+            else:
+                sum_dy, sum_dy_xhat = dist.all_sum(dbeta, dgamma, group="pixels")
+                dx = kernels.bn_grad_dx(x, dy, mean, inv, weight, sum_dy, sum_dy_xhat, ctx.count)
         return (dx, dgamma if ctx.needs_input_grad[1] else None,
-                dbeta if ctx.needs_input_grad[2] else None, None, None, None, None)
+                dbeta if ctx.needs_input_grad[2] else None, None, None, None, None, None)
 
 
-def bn_train(x, weight, bias, eps: float = 1e-5):
+def _normalise(x, weight, bias, mean, var, eps, count, running):
+    """`_BatchNorm` where autograd needs it, else its forward kernel alone."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _BatchNorm.apply(x, weight, bias, mean, var, eps, count, running)
+    return kernels.bn_apply(x, mean, var, weight, bias, eps, running)
+
+
+def bn_train(x, weight, bias, eps: float = 1e-5, running=None):
     """Train-mode batch norm: returns (y, batch mean, biased batch var), the
     statistics of the global batch under data parallelism and on a spatial
     axis (each rank's raw moments weighted by its share of the pixels,
-    `distributed.pixel_means`)."""
+    `distributed.pixel_means`). `running` (running_mean, running_var,
+    momentum) takes the running update, in place, with the unbiased variance
+    of the global batch."""
     count = x.shape[0] * x.shape[2] * x.shape[3]
     total = S.global_pixels(x.shape[0], x.shape[2], x.shape[3])
     if dist.pixel_world() == 1:
@@ -154,7 +168,9 @@ def bn_train(x, weight, bias, eps: float = 1e-5):
         (moments,), _ = dist.pixel_means([kernels.bn_moments(x.detach())], count, total)
         mean, mean_sq = moments
         mean, var = mean.float(), torch.clamp(mean_sq - mean * mean, min=0.0).float()
-    return _BNTrain.apply(x, weight, bias, mean, var, eps, total), mean, var
+    if running is not None:
+        running = (*running, total)
+    return _normalise(x, weight, bias, mean, var, eps, total, running), mean, var
 
 
 class TorchBatchNorm(nn.Module):
@@ -170,9 +186,10 @@ class TorchBatchNorm(nn.Module):
       those channels of its input (cut from a whole input when it gets one)
       and returns the whole output, gathered over the model group.
 
-    The running buffers are updated in place. State names follow
-    `torch.nn.BatchNorm2d` (`num_batches_tracked` included, never advanced),
-    so reference checkpoints load with `strict=True`."""
+    The running buffers are updated in place, by the normalising kernel.
+    State names follow `torch.nn.BatchNorm2d` (`num_batches_tracked`
+    included, never advanced), so reference checkpoints load with
+    `strict=True`."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -190,18 +207,12 @@ class TorchBatchNorm(nn.Module):
         if sharded and x.shape[1] == self.num_features:
             x = T.split_channels(x)
         if train:
-            y, mean, var = bn_train(x, self.weight, self.bias, self.eps)
-            if update_stats:
-                n = S.global_pixels(x.shape[0], x.shape[2], x.shape[3])
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.mul_(1 - m).add_(m * mean)
-                    self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+            running = ((self.running_mean, self.running_var, self.momentum) if update_stats
+                       else None)
+            y, _, _ = bn_train(x, self.weight, self.bias, self.eps, running)
         else:
-            shape = (1, -1, 1, 1)
-            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-            y = ((x.float() - self.running_mean.view(shape)) * inv.view(shape)
-                 + self.bias.view(shape)).to(x.dtype)
+            y = _normalise(x, self.weight, self.bias, self.running_mean, self.running_var,
+                           self.eps, None, None)
         return T.gather_channels(y) if sharded else y
 
 

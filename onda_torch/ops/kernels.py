@@ -1,5 +1,5 @@
-"""Wrappers of the hand-written Hopper kernels K1 and K2, with their plain
-versions and their launch plans.
+"""Wrappers of the hand-written Hopper kernels, with their plain versions and
+their launch plans.
 
 * K1 `pseudo_labels` (csrc/pseudo_labels.cu) replaces the Pallas kernel
   `onda_tpu/ops/pallas_kernels.py::fused_pseudo_labels`.
@@ -7,15 +7,22 @@ versions and their launch plans.
   `onda_tpu/ops/pallas_kernels.py::bn_batch_stats`; `bn_moments` is the same
   kernel writing the raw moments (mean, E[x²], f64) that data parallelism
   all-reduces.
+* BatchNorm's passes after the statistics (csrc/bn_norm.cu), which replace
+  no TPU kernel (the JAX package leaves them to XLA's fusion): `bn_apply`
+  normalises (train and eval, with the running update in the same launch),
+  `bn_grad_sums` reduces the backward's per-channel sums and `bn_grad_dx`
+  writes the input gradient. Their launches count in `bn_launches`, apart
+  from `launches`, which holds K1 and K2 alone.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises: it checks device, dtype, shape,
 contiguity and alignment, allocates the outputs with `torch.empty`, launches
 on the current stream and raises when the launch returns a CUDA error.
-`launches` counts the kernel launches of each wrapper (never the plain
-version). K2's launch geometry is computed here, in `bn_stats_plan`, so that
-the CPU tests can check that it covers every element once; K1 sizes its
-persistent grid itself, from the card's occupancy.
+`launches` and `bn_launches` count the kernel launches of each wrapper
+(never the plain version). K2's launch geometry is computed here, in
+`bn_stats_plan`, and that of the BatchNorm passes in `bn_pass_plan` and
+`bn_cl_plan`, so that the CPU tests can check that they cover every element
+once; K1 sizes its persistent grid itself, from the card's occupancy.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from . import build
 from . import prototypes as P
 
 launches = {"pseudo_labels_kernel": 0, "bn_stats_kernel": 0}
+bn_launches = {"bn_apply_kernel": 0, "bn_grad_sums_kernel": 0, "bn_grad_dx_kernel": 0}
 
 K1_MAX_CLASSES = 32        # csrc/pseudo_labels.cu: kMaxC
 # K2 (csrc/bn_stats.cu): 256-thread blocks; about 512 of them (4 on each of
@@ -37,11 +45,17 @@ K1_MAX_CLASSES = 32        # csrc/pseudo_labels.cu: kMaxC
 K2_THREADS, K2_TARGET_BLOCKS, K2_MIN_BLOCK_BYTES, K2_MAX_CLUSTER = 256, 512, 32 * 1024, 8
 K2_SPAN_ALIGN = 8          # elements: 16 bytes of bf16
 K2_CL_ROWS = 1024          # channels_last: rows per block
+# The BatchNorm passes (csrc/bn_norm.cu): 256-thread blocks; about 1024 a
+# pass (8 on each of 132 SMs) but none taking less than 4 KB of x, which
+# still fills the card at every BatchNorm input the port feeds
+BN_THREADS, BN_TARGET_BLOCKS, BN_MIN_BLOCK_BYTES = 256, 1024, 4 * 1024
+BN_CL_ROWS, BN_CL_CHANNELS = 1024, 32   # channels_last reduction: rows and channels a block
 
 
 def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
+    for counts in (launches, bn_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -58,8 +72,10 @@ def _check(rc: int, name: str) -> None:
 
 
 def _on_cpu(*tensors) -> bool:
+    """True for tensors all on the CPU (or all on the meta device, where the
+    plain versions give the shapes), False for tensors all on one card."""
     devices = {t.device.type for t in tensors if t is not None}
-    if devices == {"cpu"}:
+    if devices in ({"cpu"}, {"meta"}):
         return True
     if devices != {"cuda"} or len({t.device for t in tensors if t is not None}) != 1:
         raise ValueError(f"tensors must all be on the CPU or all on one CUDA device, got {devices}")
@@ -222,3 +238,217 @@ def bn_moments(x: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x):
         return bn_moments_plain(x)
     return _bn_launch(x, raw=True)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm's normalisation and its backward (no TPU kernel)
+# ---------------------------------------------------------------------------
+
+_NCHW = (1, -1, 1, 1)
+
+
+def bn_apply_plain(x, mean, var, weight, bias, eps: float, running=None, with_inv=False):
+    """Plain version of `bn_apply`: the expressions of `_bn_train_math` and of
+    the eval branch, y = (x − mean)·(γ·rsqrt(var + eps)) + β in f32, cast to
+    x's dtype; `running` (running_mean, running_var, momentum, n) takes the
+    running update in place, the unbiased variance from n pixels."""
+    inv = torch.rsqrt(var + eps)
+    y = ((x.float() - mean.view(_NCHW)) * (inv * weight).view(_NCHW) + bias.view(_NCHW))
+    if running is not None:
+        running_mean, running_var, m, n = running
+        with torch.no_grad():
+            running_mean.mul_(1 - m).add_(m * mean)
+            running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+    y = y.to(x.dtype)
+    return (y, inv) if with_inv else y
+
+
+def bn_grad_sums_plain(x, dy, mean, inv):
+    """Plain version of `bn_grad_sums`: each channel's Σdy and Σdy·x̂, f32,
+    x̂ = (x − mean)·inv (`_bn_train_bwd`'s dβ and dγ)."""
+    dy = dy.float()
+    x_hat = (x.float() - mean.view(_NCHW)) * inv.view(_NCHW)
+    return dy.sum(dim=(0, 2, 3)), (dy * x_hat).sum(dim=(0, 2, 3))
+
+
+def bn_grad_dx_plain(x, dy, mean, inv, weight, sum_dy=None, sum_dy_xhat=None, n: int = 1):
+    """Plain version of `bn_grad_dx`: the closed form
+    dx = γ·inv·(dy − Σdy/n − x̂·Σdy·x̂/n) in x's dtype; without the sums (the
+    statistics held constant) dx = γ·inv·dy."""
+    dy = dy.float()
+    scale = (weight * inv).view(_NCHW)
+    if sum_dy is None:
+        return (scale * dy).to(x.dtype)
+    x_hat = (x.float() - mean.view(_NCHW)) * inv.view(_NCHW)
+    dx = scale * (dy - (sum_dy / n).view(_NCHW) - x_hat * (sum_dy_xhat / n).view(_NCHW))
+    return dx.to(x.dtype)
+
+
+class BNPlan(NamedTuple):
+    blocks: int  # blocks per channel: grid (blocks, C)
+    span: int    # values of the channel's N*H*W each block takes
+
+
+def bn_pass_plan(n: int, c: int, hw: int, itemsize: int) -> BNPlan:
+    """Launch geometry of the BatchNorm passes on an NCHW tensor: block r of
+    a channel takes the values [r*span, (r+1)*span) of its N planes laid end
+    to end; about BN_TARGET_BLOCKS blocks in all, none taking less than
+    BN_MIN_BLOCK_BYTES where the channel has more, every block at least one
+    value, together covering the channel once."""
+    m = n * hw
+    blocks = max(1, min(_cdiv(BN_TARGET_BLOCKS, c), m * itemsize // BN_MIN_BLOCK_BYTES))
+    span = _cdiv(_cdiv(m, blocks), K2_SPAN_ALIGN) * K2_SPAN_ALIGN
+    return BNPlan(_cdiv(m, span), span)
+
+
+def bn_cl_plan(m: int) -> BNPlan:
+    """The reduction's geometry on a channels_last tensor of m = N*H*W rows:
+    `blocks` chunks of `span` rows, each by BN_CL_CHANNELS channels."""
+    return BNPlan(_cdiv(m, BN_CL_ROWS), BN_CL_ROWS)
+
+
+def bn_flat_blocks(total: int) -> int:
+    """Blocks of the channels_last elementwise passes, which walk the tensor
+    flat: one value a thread, at most BN_TARGET_BLOCKS blocks (they loop)."""
+    return max(1, min(BN_TARGET_BLOCKS, _cdiv(total, BN_THREADS)))
+
+
+_bn = None
+
+
+def _bn_lib():
+    global _bn
+    if _bn is None:
+        lib = build.load("bn_norm")
+        v, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.onda_bn_apply.argtypes = [v, v, i, i, i, i, ll, i, ll, v, v, v, v, f, v, v, v, f, f, f, v]
+        lib.onda_bn_grad_sums.argtypes = [v, v, i, i, i, i, ll, i, ll, v, v, v, v, v, v, v]
+        lib.onda_bn_grad_dx.argtypes = [v, v, v, i, i, i, i, ll, i, ll, v, v, v, v, v, f, v]
+        for fn in (lib.onda_bn_apply, lib.onda_bn_grad_sums, lib.onda_bn_grad_dx):
+            fn.restype = i
+        _bn = lib
+    return _bn
+
+
+def _bn_geometry(x, name):
+    """(is_bf16, channels_last, N, C, H*W, plan) of a BatchNorm pass on x."""
+    if x.dim() != 4:
+        raise ValueError(f"{name}: expected a 4-D tensor, got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: expected float32 or bfloat16, got {x.dtype}")
+    n, c, h, w = x.shape
+    if x.is_contiguous():
+        return x.dtype == torch.bfloat16, 0, n, c, h * w, bn_pass_plan(n, c, h * w, x.element_size())
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return x.dtype == torch.bfloat16, 1, n, c, h * w, bn_cl_plan(n * h * w)
+    raise ValueError(f"{name}: x must be NCHW-contiguous or channels_last")
+
+
+def _bn_vectors(name, c, **vectors):
+    for key, t in vectors.items():
+        if t is not None:
+            _require(t, f"{name}: {key}", torch.float32, (c,))
+
+
+def _same_layout(name, x, cl, other, what):
+    fmt = torch.channels_last if cl else torch.contiguous_format
+    if (other.dtype != x.dtype or other.shape != x.shape
+            or not other.is_contiguous(memory_format=fmt)):
+        raise ValueError(f"{name}: {what} must match x in dtype, shape and layout")
+
+
+def bn_apply(x, mean, var, weight, bias, eps: float, running=None, with_inv=False):
+    """y = (x − mean)·(γ·rsqrt(var + eps)) + β, computed in f32 and written
+    in x's dtype and layout, in one launch (`bn_apply_kernel`) on an
+    (N, C, H, W) f32 or bf16 tensor, NCHW-contiguous or channels_last; mean,
+    var, γ, β (C,) f32. `running` (running_mean, running_var, momentum, n)
+    updates the running statistics in place in the same launch (n: the
+    pixels of the unbiased variance). With `with_inv` returns (y, inv),
+    inv = rsqrt(var + eps)."""
+    if _on_cpu(x, mean, var, weight, bias):
+        return bn_apply_plain(x, mean, var, weight, bias, eps, running, with_inv)
+    name = "bn_apply_kernel"
+    is_bf16, cl, n, c, hw, plan = _bn_geometry(x, name)
+    _bn_vectors(name, c, mean=mean, var=var, weight=weight, bias=bias)
+    y = torch.empty_like(x)
+    inv = torch.empty_like(mean) if with_inv else None
+    rm = rv = None
+    keep = mom = unbias = 0.0
+    if running is not None:
+        rm, rv, mom, count = running
+        _bn_vectors(name, c, running_mean=rm, running_var=rv)
+        keep, unbias = 1 - mom, count / max(count - 1, 1)
+    blocks = bn_flat_blocks(x.numel()) if cl else plan.blocks
+    rc = _bn_lib().onda_bn_apply(
+        x.data_ptr(), y.data_ptr(), is_bf16, cl, n, c, hw, blocks, plan.span, mean.data_ptr(),
+        var.data_ptr(), weight.data_ptr(), bias.data_ptr(), eps,
+        None if inv is None else inv.data_ptr(), None if rm is None else rm.data_ptr(),
+        None if rv is None else rv.data_ptr(), keep, mom, unbias, _stream())
+    _check(rc, name)
+    bn_launches[name] += 1
+    return (y, inv) if with_inv else y
+
+
+_arrivals: dict = {}
+
+
+def _arrival_counts(x, stream, slots: int) -> torch.Tensor:
+    """Zeroed int32 counters, one a channel (or group of channels), kept per
+    device and stream: the reduction leaves them zeroed, so one buffer serves
+    every call on its stream."""
+    key = (x.device, stream.value)
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < slots:
+        buf = _arrivals[key] = torch.zeros(max(slots, 4096), dtype=torch.int32, device=x.device)
+    return buf
+
+
+def bn_grad_sums(x, dy, mean, inv):
+    """Each channel's (Σdy, Σdy·x̂), both (C,) f32, x̂ = (x − mean)·inv: the
+    BatchNorm backward's dβ and dγ, in one launch (`bn_grad_sums_kernel`)
+    reading x and dy once; dy in x's dtype, shape and layout."""
+    if _on_cpu(x, dy, mean, inv):
+        return bn_grad_sums_plain(x, dy, mean, inv)
+    name = "bn_grad_sums_kernel"
+    is_bf16, cl, n, c, hw, plan = _bn_geometry(x, name)
+    _same_layout(name, x, cl, dy, "dy")
+    _bn_vectors(name, c, mean=mean, inv=inv)
+    slots = _cdiv(c, BN_CL_CHANNELS) * BN_CL_CHANNELS if cl else c
+    partial = (torch.empty(2 * slots * plan.blocks, dtype=torch.float64, device=x.device)
+               if plan.blocks > 1 else None)
+    stream = _stream()
+    counts = _arrival_counts(x, stream, _cdiv(c, BN_CL_CHANNELS) if cl else c)
+    sum_dy = torch.empty_like(mean)
+    sum_dy_xhat = torch.empty_like(mean)
+    rc = _bn_lib().onda_bn_grad_sums(
+        x.data_ptr(), dy.data_ptr(), is_bf16, cl, n, c, hw, plan.blocks, plan.span,
+        mean.data_ptr(), inv.data_ptr(), None if partial is None else partial.data_ptr(),
+        counts.data_ptr(), sum_dy.data_ptr(), sum_dy_xhat.data_ptr(), stream)
+    _check(rc, name)
+    bn_launches[name] += 1
+    return sum_dy, sum_dy_xhat
+
+
+def bn_grad_dx(x, dy, mean, inv, weight, sum_dy=None, sum_dy_xhat=None, n: int = 1):
+    """The BatchNorm input gradient γ·inv·(dy − Σdy/n − x̂·Σdy·x̂/n) in x's
+    dtype and layout, in one launch (`bn_grad_dx_kernel`); without the sums
+    (the statistics held constant, eval mode) γ·inv·dy."""
+    if _on_cpu(x, dy, mean, inv, weight, sum_dy, sum_dy_xhat):
+        return bn_grad_dx_plain(x, dy, mean, inv, weight, sum_dy, sum_dy_xhat, n)
+    name = "bn_grad_dx_kernel"
+    is_bf16, cl, nb, c, hw, plan = _bn_geometry(x, name)
+    _same_layout(name, x, cl, dy, "dy")
+    _bn_vectors(name, c, mean=mean, inv=inv, weight=weight, sum_dy=sum_dy,
+                sum_dy_xhat=sum_dy_xhat)
+    if (sum_dy is None) != (sum_dy_xhat is None):
+        raise ValueError(f"{name}: give both sums or neither")
+    dx = torch.empty_like(x)
+    blocks = bn_flat_blocks(x.numel()) if cl else plan.blocks
+    rc = _bn_lib().onda_bn_grad_dx(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), is_bf16, cl, nb, c, hw, blocks, plan.span,
+        mean.data_ptr(), inv.data_ptr(), weight.data_ptr(),
+        None if sum_dy is None else sum_dy.data_ptr(),
+        None if sum_dy_xhat is None else sum_dy_xhat.data_ptr(), float(n), _stream())
+    _check(rc, name)
+    bn_launches[name] += 1
+    return dx

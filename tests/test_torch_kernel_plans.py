@@ -209,3 +209,120 @@ def test_cuda_kernels_match_plain(n_pix, n_cls):
                 # is 0 (one value a channel) only the f32 rounding of x² is left
                 torch.testing.assert_close(mean.double(), w_mean, rtol=0, atol=1e-6 * amax)
                 torch.testing.assert_close(var.double(), w_var, rtol=1e-4, atol=1e-6 * amax**2)
+
+
+# ---------------------------------------------------------------------------
+# The BatchNorm passes (csrc/bn_norm.cu): bn_apply_kernel, bn_grad_sums_kernel
+# and bn_grad_dx_kernel share one NCHW geometry, `bn_pass_plan`; each block
+# splits its plane pieces as K2's do, so K2's replay checks them.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("base_elems", [0, 1], ids=["aligned", "odd_start"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", R50_BN_SHAPES + ODD_SHAPES + [(4, 256, 1, 1), (3, 17, 33, 25)],
+                         ids=str)
+def test_bn_pass_plan_covers_every_element_once(shape, dtype, base_elems):
+    itemsize = ITEMSIZE[dtype]
+    n, c, h, w = shape
+    base = 4096 + base_elems * itemsize
+    plan = K.bn_pass_plan(n, c, h * w, itemsize)
+    assert (plan.blocks - 1) * plan.span < n * h * w <= plan.blocks * plan.span
+    assert plan.span % K.K2_SPAN_ALIGN == 0
+    start, end, kind, owner, _ = k2_pieces(shape, itemsize, base, K.K2Plan(plan.blocks, plan.span))
+    keep = end > start
+    order = np.argsort(start[keep], kind="stable")
+    start, end, kind, owner = (a[keep][order] for a in (start, end, kind, owner))
+    assert start[0] == base and end[-1] == base + n * c * h * w * itemsize
+    np.testing.assert_array_equal(start[1:], end[:-1])
+    plane_bytes = h * w * itemsize
+    first = (start - base) // plane_bytes
+    np.testing.assert_array_equal(first, (end - 1 - base) // plane_bytes)
+    np.testing.assert_array_equal(first % c, owner)
+    body = kind == 1
+    assert (start[body] % 16 == 0).all() and ((end[body] - start[body]) % 16 == 0).all()
+
+
+def _fed_bn_shapes(family):
+    """The BatchNorm input shapes the port feeds in `family` (chip_smoke.py's
+    meta-device walks of the models)."""
+    import chip_smoke as CS
+
+    if family == "r50":  # and R101, ProDA-R101: the same shapes, more of them
+        return {s for b in (1, 2, 4, 8) for s in CS.bn_input_shapes(torch, batch=b)}
+    if family == "deeplab_v3":
+        return {s for config in CS.V3_FULL for s in CS.v3_bn_shapes(torch, *config, 4, CS.MAIN_HW)}
+    if family == "tensor_parallel":
+        return {s for b in (2, 4) for s in CS.bn_input_shapes(torch, batch=b, tp=CS.TP_SIZE)}
+    assert family == "spatial"
+    return {s for (d, sp), _, _ in CS.SP_GRIDS.values() for r in range(sp)
+            for s in CS.bn_input_shapes(torch, batch=CS.SP_BATCH // d, rows=(sp, r))}
+
+
+@pytest.mark.parametrize("family", ["r50", "deeplab_v3", "tensor_parallel", "spatial"])
+def test_bn_pass_plan_fills_the_card(family):
+    """At every BatchNorm shape the port feeds, down to the ASPP pooling
+    branch's (4, 256, 1, 1): at least a block for every SM, and no block
+    under BN_MIN_BLOCK_BYTES where its channel holds more."""
+    shapes = _fed_bn_shapes(family)
+    if family == "deeplab_v3":
+        assert (4, 256, 1, 1) in shapes
+    for dtype, itemsize in ITEMSIZE.items():
+        for n, c, h, w in shapes:
+            plan = K.bn_pass_plan(n, c, h * w, itemsize)
+            assert plan.blocks * c >= H100_SMS, (n, c, h, w, dtype, plan)
+            channel_bytes = n * h * w * itemsize
+            smallest = n * h * w - (plan.blocks - 1) * plan.span
+            if channel_bytes >= K.BN_MIN_BLOCK_BYTES:
+                assert plan.blocks == 1 or smallest * itemsize >= K.BN_MIN_BLOCK_BYTES / 2
+                assert plan.span * itemsize >= K.BN_MIN_BLOCK_BYTES
+            assert plan.blocks * c <= 2 * K.BN_TARGET_BLOCKS + c
+
+
+def test_bn_cl_plan_covers_every_row_once():
+    """channels_last: the reduction's chunks of rows tile the N*H*W rows."""
+    for m in (1, 1023, 1024, 1025, 4 * 65 * 129):
+        plan = K.bn_cl_plan(m)
+        rows = np.zeros(m, np.int64)
+        for b in range(plan.blocks):
+            rows[b * plan.span:min((b + 1) * plan.span, m)] += 1
+        np.testing.assert_array_equal(rows, 1)
+        assert (plan.blocks - 1) * plan.span < m
+    assert K.bn_flat_blocks(1) == 1 and K.bn_flat_blocks(10**9) == K.BN_TARGET_BLOCKS
+
+
+def test_bn_plan_constants_match_the_source():
+    bn = _constants("bn_norm.cu")
+    assert (bn["kThreads"], bn["kClChannels"]) == (K.BN_THREADS, K.BN_CL_CHANNELS)
+
+
+def test_bn_kernel_names_stay_off_the_k1_k2_meters():
+    """The benchmark bills device time to K1 and K2 by substrings of kernel
+    names; no BatchNorm pass may carry one."""
+    text = (CSRC / "bn_norm.cu").read_text()
+    names = set(re.findall(r"__global__ void __launch_bounds__\(kThreads\)\s+(\w+)", text))
+    assert names == {"bn_apply_kernel", "bn_grad_sums_kernel", "bn_grad_dx_kernel",
+                     "bn_apply_cl_kernel", "bn_grad_sums_cl_kernel", "bn_grad_dx_cl_kernel"}
+    for name in names:
+        for meter in ("bn_stats_cluster_kernel", "stats_cl_kernel", "finalize_kernel",
+                      "pseudo_labels_kernel"):
+            assert meter not in name
+    assert set(K.bn_launches) == {"bn_apply_kernel", "bn_grad_sums_kernel", "bn_grad_dx_kernel"}
+    assert set(K.launches) == {"pseudo_labels_kernel", "bn_stats_kernel"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", R50_BN_SHAPES + [(4, 256, 1, 1), (3, 17, 33, 25), (1, 1, 1, 1)],
+                         ids=str)
+def test_cuda_bn_passes_match_plain(shape, dtype):
+    """bn_apply (train with the running update, and eval), bn_grad_sums and
+    bn_grad_dx on the card against their plain versions, at the R50 shapes
+    and odd ones, in K2's four layouts: chip_smoke.py phase 4's check, whose
+    docstring gives each tolerance and its reason."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import chip_smoke as CS
+
+    x, dy, gamma, beta, rm, rv = CS.bn_case(torch, shape, torch.Generator(device="cuda").manual_seed(3))
+    CS.check_bn_once(torch, K, x.to(dtype), dy.to(dtype), gamma, beta, rm, rv, f"{shape} {dtype}")
