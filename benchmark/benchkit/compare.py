@@ -24,23 +24,21 @@ rest are read beside them.
   ‖mean_p − mean_r‖ / ‖mean_r‖ over the classes' mean features: the start,
   checked by itself, through forwards that no pseudo-label touches.
 
-The worst leaf is read, not compared: it is the stem or a `layer1` leaf,
-whose gradient is a sum over hundreds of thousands of positions that
-nearly cancels, so that TF32's rounding (and, over the later steps, which
-pixels pass the pseudo-label threshold) moves it by several percent. The
-90th percentile stays clear of it.
+The worst leaf is read, not compared: it is a leaf near the input, whose
+gradient is a sum over hundreds of thousands of positions that nearly
+cancels, so that TF32's rounding (and, over the later steps, which pixels
+pass the pseudo-label threshold) moves it by several percent. The 90th
+percentile stays clear of it.
 
 The program's gradient is read from its optimizers' state after its first
-step: SGD's momentum after k chained updates (`first_gradients`), Adam's
-first moment.
+step: SGD's momentum after k chained updates (`first_gradients`, k the
+model's multiplicity of the leaf), Adam's first moment.
 """
 
 from __future__ import annotations
 
 import math
 import statistics
-
-from .reference import sgd_multiplicity
 
 ADAM_B1 = 0.9
 QUIET = 1e-3  # a leaf whose reference gradient is under this share of the median's
@@ -57,20 +55,22 @@ def chain(k: int, lr: float, mu: float, wd: float):
     return a, c
 
 
-def first_gradients(momentum: dict, p0: dict, aux_trained: bool, lr_backbone: float,
+def first_gradients(momentum: dict, p0: dict, model, aux_trained: bool, lr_backbone: float,
                     lr_head: float, mu: float, wd: float) -> dict:
     """Each trained leaf's first gradient, worked out from its optimizer's
-    state after one step: the student's from SGD's momentum, the
-    discriminators' from Adam's first moment."""
+    state after one step: the student's from SGD's momentum, after the
+    chained updates `model.multiplicity` gives the leaf at the head's LR
+    where it starts with one of `model.HEADS`; the discriminators' from
+    Adam's first moment."""
     out = {}
     for name, buf in momentum.items():
         if name.startswith("d_"):
             out[name] = buf.double() / (1.0 - ADAM_B1)
             continue
-        k = sgd_multiplicity(name, aux_trained)
+        k = model.multiplicity(name, aux_trained)
         if not k:
             continue
-        lr = lr_head if name.startswith(("layer5", "layer6")) else lr_backbone
+        lr = lr_head if name.startswith(model.HEADS) else lr_backbone
         a, c = chain(k, lr, mu, wd)
         out[name] = (buf.double() - c * p0[name].double()) / a
     return out
@@ -101,14 +101,15 @@ def quantile(ordered, q: float) -> float:
     return ordered[lo] + (pos - lo) * (ordered[hi] - ordered[lo])
 
 
-def gaps(got: dict, want: dict, head=("layer5.", "layer6.")) -> dict:
+def gaps(got: dict, want: dict, heads) -> dict:
     """Every number the comparison reads: `loss_gap` (the first step's
     losses), `loss_gap_<k>` for each later step k, `grad_gap`, `change_gap`
     and `grad_diff` with their 90th percentile (`_q90`) and worst leaf
     (`_worst`) beside the median, `grad_diff_head`, the heads' leaves'
     gradient difference together over their norm, and `grad_diff_head_q10`,
     the tenth percentile of the heads' leaves' `grad_diff` (the leaves where
-    rounding is least amplified). The cell's limits file names those
+    rounding is least amplified; a head's leaf starts with one of the
+    model's `heads` prefixes). The cell's limits file names those
     compared."""
     rel = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in w}
            for g, w in zip(got["losses"], want["losses"])]
@@ -132,10 +133,11 @@ def gaps(got: dict, want: dict, head=("layer5.", "layer6.")) -> dict:
         diff = {k: float((g[k].double() - w[k].double()).norm()) / max(want["grad"][k], median)
                 for k in want["grad"]}
         out.update(spread_of("grad_diff", diff))
-        heads = [k for k in want["grad"] if k.startswith(head)]
-        if heads:  # the quietest tenth of the heads' leaves
-            out["grad_diff_head_q10"] = quantile(sorted(diff[k] for k in heads), 0.1)
-            num = math.sqrt(sum(float((g[k].double() - w[k].double()).norm()) ** 2 for k in heads))
-            den = math.sqrt(sum(want["grad"][k] ** 2 for k in heads))
+        in_heads = [k for k in want["grad"] if k.startswith(heads)]
+        if in_heads:  # the quietest tenth of the heads' leaves
+            out["grad_diff_head_q10"] = quantile(sorted(diff[k] for k in in_heads), 0.1)
+            num = math.sqrt(sum(float((g[k].double() - w[k].double()).norm()) ** 2
+                                for k in in_heads))
+            den = math.sqrt(sum(want["grad"][k] ** 2 for k in in_heads))
             out["grad_diff_head"] = num / den
     return out

@@ -1,5 +1,9 @@
 """The yardstick's arithmetic: the operations a step needs, the bytes K1 and
-K2 must move, the chip's peaks, and the union of device intervals.
+K2 must move, the chip's peaks, and the union of device intervals. What
+depends on the model comes from the cell's reference model
+(`harness.Model`): its forward's convolutions and dense layers, its norm
+inputs, its feature grid and its width F, counted on the meta device and
+cached on the model's name and shape keys.
 
 Frozen copies, kept here so that the yardstick does not move with the
 program: the byte counts of `chip_smoke.py::check_k1` and `check_k2`
@@ -18,27 +22,24 @@ from . import reference as R
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor cores (700 W)
-K1_FEATURES = 256
 K2_KERNELS = ("bn_stats_cluster_kernel", "stats_cl_kernel", "finalize_kernel")
 K1_KERNELS = ("pseudo_labels_kernel",)
 
 
-def feature_grid(hw):
-    """The model's 1/8 + 1 output grid of an (H, W) input."""
-    return hw[0] // 8 + 1, hw[1] // 8 + 1
+def meta_params(model) -> dict:
+    return {k: torch.empty(s, device="meta") for k, s in model.shapes().items()}
 
 
 @functools.lru_cache(maxsize=None)
-def forward_flops(layers, hw, aux: bool) -> float:
+def forward_flops(model, hw, aux: bool) -> float:
     """2·N·K over every convolution and dense layer of one image's forward
     (the main head, and the aux head with `aux`), counted on the meta
     device by PyTorch's FLOP counter over the reference model."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    shapes = R.model_shapes(layers)
-    P = {k: torch.empty(s, device="meta") for k, s in shapes.items()}
+    P = meta_params(model)
     with FlopCounterMode(display=False) as counter:
-        R.Net(layers)(P, torch.empty(1, 3, *hw, device="meta"), False, aux=aux)
+        model.Net()(P, torch.empty(1, 3, *hw, device="meta"), False, aux=aux)
     return float(counter.get_total_flops())
 
 
@@ -53,7 +54,7 @@ def disc_flops(hw) -> float:
     return float(counter.get_total_flops())
 
 
-def step_flops(spec: dict, layers, hw, batch: int, fired: bool = True) -> float:
+def step_flops(spec: dict, model, hw, batch: int, fired: bool = True) -> float:
     """The operations one step needs, from the configuration's "step_flops":
     `model` forward-equivalents of the model an image (a backward counts as
     twice its forward, no recomputation counted), `gated` more on a step
@@ -66,7 +67,7 @@ def step_flops(spec: dict, layers, hw, batch: int, fired: bool = True) -> float:
     and backward on both batches (6), and for each of its two
     discriminators the target map's forward and input backward (the fool
     loss) and both maps' forward and weight backward (its own loss): 12."""
-    f = forward_flops(tuple(layers), tuple(hw), bool(spec.get("aux_head", False)))
+    f = forward_flops(model, tuple(hw), bool(spec.get("aux_head", False)))
     out = batch * f * (spec["model"] + (spec.get("gated", 0) if fired else 0))
     if spec.get("disc"):
         out += batch * spec["disc"] * disc_flops(tuple(hw))
@@ -74,12 +75,12 @@ def step_flops(spec: dict, layers, hw, batch: int, fired: bool = True) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def bn_input_shapes(layers, hw, batch: int):
+def bn_input_shapes(model, hw, batch: int):
     """The input shape of every BatchNorm of one forward at (batch, 3, *hw),
     in call order, from the reference model on the meta device."""
     shapes = []
-    P = {k: torch.empty(s, device="meta") for k, s in R.model_shapes(layers).items()}
-    net = R.Net(layers, observe=lambda x: shapes.append(tuple(x.shape)))
+    P = meta_params(model)
+    net = model.Net(observe=lambda x: shapes.append(tuple(x.shape)))
     net(P, torch.empty(batch, 3, *hw, device="meta"), False)
     return tuple(shapes)
 
@@ -91,7 +92,7 @@ def k2_bytes(shape) -> int:
     return 4 * n * c * h * w + 2 * c * 4
 
 
-def k1_bytes(n_pix: int, n_feat: int = K1_FEATURES, n_cls: int = 19) -> int:
+def k1_bytes(n_pix: int, n_feat: int, n_cls: int = 19) -> int:
     """K1 on P pixels: features, prototypes, prior, scale and τ read once;
     soft labels, hard labels and the per-pixel maximum written once."""
     return 4 * (n_pix * n_feat + n_cls * n_feat + 2 * n_pix * n_cls + n_feat + 1 + 2 * n_pix)
@@ -104,20 +105,21 @@ def bound_s(nbytes: float, flops: float) -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
 
 
-def k2_step_bound_s(forwards: int, layers, hw, batch: int) -> float:
+def k2_step_bound_s(forwards: int, model, hw, batch: int) -> float:
     """K2's least time a step of `forwards` train-mode forwards at `batch`:
-    each input's bytes, or its 3 operations an element (sum, square, add),
-    whichever bounds it, summed over the calls."""
+    each of the model's BatchNorm inputs' bytes, or its 3 operations an
+    element (sum, square, add), whichever bounds it, summed over the
+    calls."""
     return forwards * sum(bound_s(k2_bytes(s), 3.0 * s[0] * s[1] * s[2] * s[3])
-                          for s in bn_input_shapes(tuple(layers), tuple(hw), batch))
+                          for s in bn_input_shapes(model, tuple(hw), batch))
 
 
-def k1_step_bound_s(calls: int, hw, batch: int, n_feat: int = K1_FEATURES,
-                    n_cls: int = 19) -> float:
-    """K1's least time a step of `calls` calls on the batch's feature grid,
-    each bound by its bytes or its 2·P·C·F + P·F operations."""
-    h, w = feature_grid(hw)
-    p = batch * h * w
+def k1_step_bound_s(calls: int, model, hw, batch: int, n_cls: int = 19) -> float:
+    """K1's least time a step of `calls` calls on the batch's pixels of the
+    model's feature grid, P of them, at its width F: each call bound by its
+    bytes or its 2·P·C·F + P·F operations."""
+    h, w = model.feature_grid(hw)
+    p, n_feat = batch * h * w, model.FEATURES
     return calls * bound_s(k1_bytes(p, n_feat, n_cls), 2.0 * p * n_cls * n_feat + p * n_feat)
 
 

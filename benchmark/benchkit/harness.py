@@ -15,10 +15,12 @@ window's steps, so no epoch end falls inside it.
 
 Everything cell-specific comes from files found by name: the cell in
 `BENCHMARK.json`, its configuration in `benchmark/configs/`, the
-configuration's method in `benchmark/methods/` (the program's side: log
-keys, state, faults) and `benchmark/references/` (its plain reference), its
-traffic in `benchmark/traffic/`, its limits in `benchmark/limits/` and each
-per-layer metric's reader in `benchmark/metrics/`.
+configuration's reference model in `benchmark/models/` (its layout,
+forward, feature grid, heads and SGD multiplicities), its method in
+`benchmark/methods/` (the program's side: log keys, state, faults) and
+`benchmark/references/` (its plain reference), its traffic in
+`benchmark/traffic/`, its limits in `benchmark/limits/` and each per-layer
+metric's reader in `benchmark/metrics/`.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import compare, counts, faults, frames, reference
+from . import compare, faults, frames, reference
 from .trace import Tracer, top
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -79,11 +81,62 @@ class Cell:
         moved = {m["name"] for m in self.end_to_end}
         self.per_layer = [m for m in manifest["per_layer"]
                           if (name in m["workloads"] if "workloads" in m else m["moves"] in moved)]
+        self.model = Model(root, self.config)
         self.method = load_module(root, "methods", self.config["method"])
         self.reference = load_module(root, "references", self.config["method"])
-        self.layers = tuple(self.config["layers"])
         self.batch = int(self.traffic["batch"])
         self.hw = tuple(self.traffic["frame_hw"])
+
+
+def frozen(value):
+    """A configuration's value with its lists as tuples, to hash."""
+    return tuple(map(frozen, value)) if isinstance(value, list) else value
+
+
+class Model:
+    """A configuration's reference model: the file `benchmark/models/<model>.py`
+    that its "model" names, with the configuration's values of the file's
+    `SHAPE_KEYS` bound. The file gives `shapes(<keys>, classes)` (name →
+    shape, the program's layout), `Net(<keys>, compute, observe)` (its
+    forward, a `benchkit.reference.Net`), `FEATURES` (the prototypes' width
+    F), `feature_grid(hw)`, `HEADS` (the prefixes of the leaves stepped at
+    the head's LR), `multiplicity(name, aux_trained)` (the chained SGD
+    updates a step gives a leaf; 0: frozen) and, where the default draw of
+    `benchkit.reference.seeded_weights` gets a leaf wrong, `drawn(<keys>)`
+    (leaf → the fan_in it is drawn at). Two models are equal, and hash
+    alike, where the file's name and those values are: the counts of
+    `benchkit.counts` are cached on it."""
+
+    def __init__(self, root, config: dict):
+        self.name = config["model"]
+        self.module = load_module(root, "models", self.name)
+        self.shape = {k: frozen(config[k]) for k in self.module.SHAPE_KEYS}
+        self.FEATURES, self.HEADS = int(self.module.FEATURES), tuple(self.module.HEADS)
+
+    def key(self):
+        return self.name, tuple(self.shape.items())
+
+    def __eq__(self, other):
+        return isinstance(other, Model) and self.key() == other.key()
+
+    def __hash__(self):
+        return hash(self.key())
+
+    def shapes(self, classes: int = 19) -> dict:
+        return self.module.shapes(**self.shape, classes=classes)
+
+    def Net(self, compute=None, observe=None):
+        return self.module.Net(**self.shape, compute=compute, observe=observe)
+
+    def feature_grid(self, hw):
+        return tuple(self.module.feature_grid(tuple(hw)))
+
+    def multiplicity(self, name: str, aux_trained: bool) -> int:
+        return self.module.multiplicity(name, aux_trained)
+
+    def drawn(self) -> dict:
+        drawn = getattr(self.module, "drawn", None)
+        return drawn(**self.shape) if drawn else {}
 
 
 def load_module(root, folder: str, name: str):
@@ -142,13 +195,14 @@ class FrameStream:
             yield {"image": self.images[i:i + self.batch]}
 
 
-def source_frames(seed, n, hw, device):
-    """(FrameSet of host arrays) of n seeded source frames and labels."""
+def source_frames(seed, n, hw, grid, device):
+    """(FrameSet of host arrays) of n seeded source frames and labels, and
+    the labels resized by nearest to the model's feature grid."""
     g = frames.generator(seed, SOURCE_FRAMES, device)
     image = torch.cat([frames.normalize(frames.frame_batch(g, min(8, n - i), hw, device))
                        for i in range(0, n, 8)])
     label = frames.label_batch(frames.generator(seed, SOURCE_LABELS, device), n, hw, device)
-    label_res = frames.pil_nearest(label, counts.feature_grid(hw))
+    label_res = frames.pil_nearest(label, grid)
     return FrameSet(image.cpu().numpy(), label.cpu().numpy(), label_res.cpu().numpy())
 
 
@@ -230,9 +284,9 @@ def replay_order(n: int, batch: int, seed: int, steps: int) -> list:
     return out
 
 
-def weight_shapes(method, layers) -> dict:
+def weight_shapes(method, model: Model) -> dict:
     """The model's leaves and those the method keeps beside it."""
-    return {**reference.model_shapes(layers), **method.extra_shapes(layers)}
+    return {**model.shapes(), **method.extra_shapes(model)}
 
 
 # ---------------------------------------------------------------------------
@@ -332,9 +386,9 @@ class Run:
         """Both sides' weights: one seeded draw of every leaf, each leaf the
         configuration's `weight_scale` names multiplied by its factor."""
         cell = self.cell
-        out = reference.seeded_weights(weight_shapes(cell.method, cell.layers),
+        out = reference.seeded_weights(weight_shapes(cell.method, cell.model),
                                        frames.generator(self.seed, WEIGHTS, self.device),
-                                       self.device)
+                                       self.device, cell.model.drawn())
         for name, factor in cell.config.get("weight_scale", {}).items():
             out[name] = out[name] * float(factor)
         return out
@@ -360,7 +414,8 @@ class Run:
         seed_cfg = int(cfg.TRAINING.RANDOM_SEED)
 
         dev = self.device
-        self.source = source_frames(self.seed, int(cfg.TRAINING.REPLAY_BUFFER), cell.hw, dev)
+        self.source = source_frames(self.seed, int(cfg.TRAINING.REPLAY_BUFFER), cell.hw,
+                                    cell.model.feature_grid(cell.hw), dev)
         if traffic["feed"] == "mem":
             self.target_images = target_frames(self.seed, int(traffic["distinct_frames"]),
                                                cell.hw, dev, pin=self.cuda)
@@ -382,8 +437,8 @@ class Run:
         replay = ReplayBuffer(self.source, cell.batch, seed=int(cfg.TRAINING.RANDOM_SEED))
         model, _ = registry.get_model(cfg, 19, device=dev)
         shapes = {k: tuple(v.shape) for k, v in model.named_parameters()}
-        shapes.update(cell.method.extra_shapes(cell.layers))
-        if shapes != weight_shapes(cell.method, cell.layers):
+        shapes.update(cell.method.extra_shapes(cell.model))
+        if shapes != weight_shapes(cell.method, cell.model):
             raise RuntimeError("the program's parameters are not the reference's layout")
         weights = self.weights()
         with torch.no_grad():
@@ -504,7 +559,7 @@ class Run:
         spec = {**dict(self.spec), "LR_RATIO": str(self.cfg.MODEL.LR_RATIO or "1:10")}
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(self.cfg.TRAINING.RANDOM_SEED))
-        return cell.reference.adapt_steps(spec, cell.layers, weights, src, targets, src_order,
+        return cell.reference.adapt_steps(spec, cell.model, weights, src, targets, src_order,
                                           self.lrs, gen, compute)
 
     def program_readings(self) -> dict:
@@ -515,7 +570,8 @@ class Run:
         p0 = {k: v.cpu() for k, v in self.weights().items()}
         spec = self.spec
         r0, r1 = (float(v) for v in str(self.cfg.MODEL.LR_RATIO or "1:10").split(":"))
-        grads = compare.first_gradients(self.logger.snap["momentum"], p0, cell.method.AUX_TRAINED,
+        grads = compare.first_gradients(self.logger.snap["momentum"], p0, cell.model,
+                                        cell.method.AUX_TRAINED,
                                         self.lrs[0] * r0, self.lrs[0] * r1,
                                         float(spec.MOMENTUM), float(spec.WEIGHT_DECAY))
         after = self.logger.snap["params"]
@@ -533,7 +589,7 @@ class Run:
         if want is None:
             want = self.reference_readings()
         limits = self.cell.limits["limits"]
-        readings = compare.gaps(got, want)
+        readings = compare.gaps(got, want, self.cell.model.HEADS)
         checks = {k: readings.pop(k) for k in limits}
         self.worst = readings  # read, not compared
         # the kernels run on the card; on the CPU their plain versions, which launch nothing

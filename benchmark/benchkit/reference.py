@@ -1,13 +1,16 @@
-"""The plain reference: DeepLab-v2 (dilated ResNet, ProDA head), the hybrid
-teacher policy's adaptation step and ADVENT's step, in plain PyTorch.
+"""The plain reference: the operations a model is written in, the seeded
+weights, ADVENT's discriminator, the losses and the optimizers, in plain
+PyTorch. Each model's forward and layout are a model file of their own
+(`benchmark/models/<name>.py`, named by a configuration's "model"), each
+method's steps a reference of their own (`benchmark/references/`).
 
 It follows the published method (OnDA, CVPR 2022; ProDA's classifier;
 ADVENT) as the configurations state it, with no kernel, cache or batching
 of the program's: every convolution is `F.conv2d`, every normalisation
 takes its statistics with `mean` / `var`, the prototypes' distances are
 `torch.cdist`, the gradients come from autograd. It imports nothing of the
-program. Parameter names follow the OnDA checkpoints' layout, so that
-`seeded_weights` gives both sides the same weights by name.
+program. A model file names its parameters as the program's model does, so
+that `seeded_weights` gives both sides the same weights by name.
 
 `compute` is the dtype the convolutions and dense layers compute in: None
 for float32 (the reference proper, with TF32 off), torch.bfloat16 for the
@@ -26,9 +29,6 @@ import math
 import torch
 import torch.nn.functional as F
 
-STAGES = ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4))  # planes, stride, dilation
-HEAD_DILATIONS = (6, 12, 18, 24)
-FEATURES = 256
 BN_EPS = 1e-5
 DROPOUT = 0.1
 D_WIDTHS = (64, 128, 256, 512, 1)  # FCDiscriminator
@@ -37,51 +37,6 @@ D_WIDTHS = (64, 128, 256, 512, 1)  # FCDiscriminator
 # ---------------------------------------------------------------------------
 # Parameters: names, shapes and the seeded draw
 # ---------------------------------------------------------------------------
-
-
-def _head_shapes(prefix: str, cin: int, classes: int) -> dict:
-    out = {}
-    for i in range(5):
-        k = 1 if i == 0 else 3
-        out[f"{prefix}.conv2d_list.{i}.0.weight"] = (FEATURES, cin, k, k)
-        out[f"{prefix}.conv2d_list.{i}.0.bias"] = (FEATURES,)
-        out[f"{prefix}.conv2d_list.{i}.1.weight"] = (FEATURES,)
-        out[f"{prefix}.conv2d_list.{i}.1.bias"] = (FEATURES,)
-    width = 5 * FEATURES
-    out[f"{prefix}.bottleneck.0.se.0.weight"] = (width // 16, width)
-    out[f"{prefix}.bottleneck.0.se.0.bias"] = (width // 16,)
-    out[f"{prefix}.bottleneck.0.se.2.weight"] = (width, width // 16)
-    out[f"{prefix}.bottleneck.0.se.2.bias"] = (width,)
-    out[f"{prefix}.bottleneck.1.weight"] = (FEATURES, width, 3, 3)
-    out[f"{prefix}.bottleneck.1.bias"] = (FEATURES,)
-    out[f"{prefix}.bottleneck.2.weight"] = (FEATURES,)
-    out[f"{prefix}.bottleneck.2.bias"] = (FEATURES,)
-    out[f"{prefix}.head.1.weight"] = (classes, FEATURES, 1, 1)
-    return out
-
-
-def model_shapes(layers, classes: int = 19) -> dict:
-    """name → shape of every parameter of DeepLab-v2 with the ProDA head at
-    `layer6` on layer4 and the structural aux head at `layer5` on layer3."""
-    out = {"conv1.weight": (64, 3, 7, 7), "bn1.weight": (64,), "bn1.bias": (64,)}
-    cin = 64
-    for s, ((planes, _, _), blocks) in enumerate(zip(STAGES, layers), start=1):
-        for j in range(blocks):
-            p = f"layer{s}.{j}"
-            out[f"{p}.conv1.weight"] = (planes, cin, 1, 1)
-            out[f"{p}.conv2.weight"] = (planes, planes, 3, 3)
-            out[f"{p}.conv3.weight"] = (planes * 4, planes, 1, 1)
-            for b, width in (("bn1", planes), ("bn2", planes), ("bn3", planes * 4)):
-                out[f"{p}.{b}.weight"] = (width,)
-                out[f"{p}.{b}.bias"] = (width,)
-            if j == 0:
-                out[f"{p}.downsample.0.weight"] = (planes * 4, cin, 1, 1)
-                out[f"{p}.downsample.1.weight"] = (planes * 4,)
-                out[f"{p}.downsample.1.bias"] = (planes * 4,)
-            cin = planes * 4
-    out.update(_head_shapes("layer5", 1024, classes))
-    out.update(_head_shapes("layer6", 2048, classes))
-    return out
 
 
 def disc_shapes(prefix: str, classes: int = 19) -> dict:
@@ -93,23 +48,28 @@ def disc_shapes(prefix: str, classes: int = 19) -> dict:
     return out
 
 
-def seeded_weights(shapes: dict, g: torch.Generator, device) -> dict:
+def seeded_weights(shapes: dict, g: torch.Generator, device, drawn=None) -> dict:
     """Weights for `shapes` from one draw of `g`: every weight of two or more
     dimensions and every bias beside one, normal with the standard deviation
     of PyTorch's default uniform init (1/sqrt(3·fan_in)); the 1-D weights
-    and biases of the normalisations 1 and 0. Leaves in name order."""
+    and biases of the normalisations 1 and 0. `drawn`: leaf → fan_in of the
+    leaves that rule gets wrong (a model file's `drawn`), drawn normal at
+    that fan's spread. Leaves in name order."""
     names = sorted(shapes)
     fan_in = {n: math.prod(shapes[n][1:]) for n in names if len(shapes[n]) >= 2}
+    drawn = drawn or {}
 
     def fan(name):
+        if name in drawn:
+            return drawn[name]
         if name in fan_in:
             return fan_in[name]
         if name.endswith(".bias"):
             return fan_in.get(name[:-len("bias")] + "weight")
         return None
 
-    drawn = [n for n in names if fan(n) is not None]
-    flat = torch.randn(sum(math.prod(shapes[n]) for n in drawn), generator=g, device=device)
+    picked = [n for n in names if fan(n) is not None]
+    flat = torch.randn(sum(math.prod(shapes[n]) for n in picked), generator=g, device=device)
     out, pos = {}, 0
     for n in names:
         size = math.prod(shapes[n])
@@ -124,17 +84,19 @@ def seeded_weights(shapes: dict, g: torch.Generator, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The model
+# The operations a model file's forward is written in
 # ---------------------------------------------------------------------------
 
 
 class Net:
-    """The forward of one parameter set. `train`: batch statistics in every
-    BatchNorm and channel dropout drawn from `gen` (None: no dropout);
-    otherwise the initial running statistics (mean 0, var 1)."""
+    """The operations of a forward. A model file subclasses it with its
+    forward, `net(P, x, train, gen=None, aux=False)` → (aux (feat, logits)
+    or None, main (feat, logits)) of the parameters P on the batch x.
+    `train`: batch statistics in every BatchNorm and channel dropout drawn
+    from `gen` (None: no dropout); otherwise the initial running statistics
+    (mean 0, var 1)."""
 
-    def __init__(self, layers, compute=None, observe=None):
-        self.layers = tuple(layers)
+    def __init__(self, compute=None, observe=None):
         self.compute = compute
         self.observe = observe  # called with each BatchNorm's input (the FLOP and byte counts)
 
@@ -168,52 +130,6 @@ class Net:
         mask = torch.bernoulli(torch.full((x.shape[0], x.shape[1], 1, 1), keep, device=x.device),
                                generator=gen)
         return x * mask / keep
-
-    def head(self, P, pre, x, train, gen):
-        outs = []
-        for i in range(5):
-            d = 1 if i == 0 else HEAD_DILATIONS[i - 1]
-            pad = 0 if i == 0 else d
-            branch = f"{pre}.conv2d_list.{i}"
-            y = self.conv(x, P[f"{branch}.0.weight"], P[f"{branch}.0.bias"], padding=pad,
-                          dilation=d)
-            y = F.group_norm(y, 32, P[f"{pre}.conv2d_list.{i}.1.weight"],
-                             P[f"{pre}.conv2d_list.{i}.1.bias"], 1e-5)
-            outs.append(F.relu(y))
-        y = torch.cat(outs, dim=1)
-        s = F.relu(self.linear(y.mean(dim=(2, 3)), P[f"{pre}.bottleneck.0.se.0.weight"],
-                               P[f"{pre}.bottleneck.0.se.0.bias"]))
-        s = torch.sigmoid(self.linear(s, P[f"{pre}.bottleneck.0.se.2.weight"],
-                                      P[f"{pre}.bottleneck.0.se.2.bias"]))
-        y = y * s[:, :, None, None]
-        y = self.conv(y, P[f"{pre}.bottleneck.1.weight"], P[f"{pre}.bottleneck.1.bias"], padding=1)
-        feat = F.group_norm(y, 32, P[f"{pre}.bottleneck.2.weight"], P[f"{pre}.bottleneck.2.bias"],
-                            1e-5)
-        if train and gen is not None:
-            feat = self.dropout(feat, gen)
-        return feat, self.conv(feat, P[f"{pre}.head.1.weight"])
-
-    def __call__(self, P, x, train, gen=None, aux=False):
-        """(aux (feat, logits) or None, main (feat, logits))."""
-        h = F.relu(self.bn(P, "bn1", self.conv(x, P["conv1.weight"], stride=2, padding=3), train))
-        h = F.max_pool2d(h, 3, 2, 1, ceil_mode=True)
-        aux_out = None
-        for s, ((_, stride, dil), blocks) in enumerate(zip(STAGES, self.layers), start=1):
-            for j in range(blocks):
-                p = f"layer{s}.{j}"
-                st = stride if j == 0 else 1
-                y = F.relu(self.bn(P, f"{p}.bn1", self.conv(h, P[f"{p}.conv1.weight"], stride=st),
-                                   train))
-                y = F.relu(self.bn(P, f"{p}.bn2", self.conv(y, P[f"{p}.conv2.weight"],
-                                                            padding=dil, dilation=dil), train))
-                y = self.bn(P, f"{p}.bn3", self.conv(y, P[f"{p}.conv3.weight"]), train)
-                res = h if j else self.bn(P, f"{p}.downsample.1",
-                                          self.conv(h, P[f"{p}.downsample.0.weight"], stride=st),
-                                          train)
-                h = F.relu(y + res)
-            if s == 3 and aux:
-                aux_out = self.head(P, "layer5", h, train, gen)
-        return aux_out, self.head(P, "layer6", h, train, gen)
 
     @staticmethod
     def disc(D, pre, x):
@@ -259,30 +175,13 @@ def entropy_map(logits):
     return -p * torch.log2(p + 1e-30) / math.log2(p.shape[1])
 
 
-def sgd_multiplicity(name: str, aux_trained: bool):
-    """0 for a leaf SGD never moves, else how many chained updates a step
-    gives it: the reference's backbone generator yields a bottleneck's
-    parameters three times and a downsample's four (the heads, and the stem,
-    once); the BatchNorms' affine parameters are frozen, and so is the aux
-    head unless the model is multi-level."""
-    parts = name.split(".")
-    if parts[0] == "layer5" and not aux_trained:
-        return 0
-    if parts[0] in ("layer5", "layer6"):
-        return 1
-    norm = "bn" in parts[-2] or parts[-3:-1] == ["downsample", "1"]
-    if parts[-1] in ("weight", "bias") and norm:
-        return 0
-    if parts[0].startswith("layer"):
-        return 4 if "downsample" in parts else 3
-    return 1
-
-
-def sgd(params, momentum, grads, mult, lr_backbone, lr_head, mu, wd):
+def sgd(params, momentum, grads, mult, lr_backbone, lr_head, mu, wd, heads):
+    """`mult[name]` chained SGD updates of each leaf, at `lr_head` where the
+    leaf's name starts with one of the model's `heads` prefixes."""
     with torch.no_grad():
         for name, g in grads.items():
             k = mult[name]
-            lr = lr_head if name.startswith(("layer5", "layer6")) else lr_backbone
+            lr = lr_head if name.startswith(heads) else lr_backbone
             for _ in range(k):
                 momentum[name] = mu * momentum[name] + g + wd * params[name]
                 params[name] = params[name] - lr * momentum[name]

@@ -82,7 +82,7 @@ def main(argv=None) -> int:
                 run = harness.Run(cell, seed, 0.0, False, "cuda", None, T0)
                 run.prepare()
                 got = run.reference_readings(torch.bfloat16)
-                record(seed, "control_bf16", compare.gaps(got, want), t)
+                record(seed, "control_bf16", compare.gaps(got, want, cell.model.HEADS), t)
     return 0
 
 

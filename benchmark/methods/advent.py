@@ -20,7 +20,7 @@ FAULTS = ("half_batch", "altered")
 DISCS = ("d_aux", "d_main")
 
 
-def extra_shapes(layers) -> dict:
+def extra_shapes(model) -> dict:
     """The two discriminators' leaves, named `d_aux.*` and `d_main.*`."""
     out = {}
     for tree in DISCS:

@@ -16,11 +16,11 @@ import torch
 
 LOSS_KEYS = ("Total target loss", "buff_loss")  # logged a step, and compared
 READ_KEYS = LOSS_KEYS + ("dynamic forward fired", "time/Batch Fetch")
-AUX_TRAINED = False  # the structural aux head (layer5) is frozen
+AUX_TRAINED = False  # the model's structural aux head is frozen
 FAULTS = ("half_batch", "altered")
 
 
-def extra_shapes(layers) -> dict:
+def extra_shapes(model) -> dict:
     """Leaves beside the model's: none."""
     return {}
 

@@ -1,9 +1,9 @@
 """k1_roofline: K1's least time over the traced steps (its calls a step, as
-the configuration's `launches_per_step` counts them, on the batch's 1/8 + 1
-feature grid, F = 256, C = 19: the bytes at HBM3's 3.35 TB/s, or the
-operations at f32's 67 TF/s where they bound it;
-`benchkit.counts.k1_step_bound_s`) over its kernel's device time in the
-trace, in %. Nothing to read where K1 does not run."""
+the configuration's `launches_per_step` counts them, on the batch's pixels
+of the reference model's feature grid, at the model's width F, C = 19: the
+bytes at HBM3's 3.35 TB/s, or the operations at f32's 67 TF/s where they
+bound it; `benchkit.counts.k1_step_bound_s`) over its kernel's device time
+in the trace, in %. Nothing to read where K1 does not run."""
 
 from benchkit import counts
 from benchkit.trace import seconds_of
@@ -18,5 +18,5 @@ def read(run):
     if device_s <= 0:
         return None
     first, last = log.trace_steps
-    bound_s = (last - first) * counts.k1_step_bound_s(calls, cell.hw, cell.batch)
+    bound_s = (last - first) * counts.k1_step_bound_s(calls, cell.model, cell.hw, cell.batch)
     return 100.0 * bound_s / device_s

@@ -1,5 +1,6 @@
 """k2_roofline: K2's least time over the traced steps (each BatchNorm
-input read once and its mean and variance written once, at HBM3's
+input of the reference model's forward, as the model's norm inputs give
+them, read once and its mean and variance written once, at HBM3's
 3.35 TB/s, or its operations at f32's 67 TF/s where they bound it;
 `benchkit.counts.k2_step_bound_s`, over the configuration's
 `k2_forwards_per_step`) over its kernels' device time in the
@@ -18,5 +19,5 @@ def read(run):
         return None
     first, last = log.trace_steps
     bound_s = (last - first) * counts.k2_step_bound_s(cell.config["k2_forwards_per_step"],
-                                                     cell.layers, cell.hw, cell.batch)
+                                                     cell.model, cell.hw, cell.batch)
     return 100.0 * bound_s / device_s

@@ -1,7 +1,8 @@
 """The plain reference of ADVENT on a multi-level model: the student's
 segmentation CE on the source and adversarial BCE on the target's entropy
 maps with SGD, the two discriminators' BCE with Adam, in plain PyTorch on
-`benchkit.reference`'s model. It imports nothing of the program.
+the configuration's reference model (`benchmark/models/`). It imports
+nothing of the program.
 """
 
 from __future__ import annotations
@@ -10,10 +11,10 @@ import torch
 import torch.nn.functional as F
 
 from benchkit.reference import (Net, adam, bce_logits, change_norms, cross_entropy, entropy_map,
-                                host_copy, leaf_norms, sgd, sgd_multiplicity)
+                                host_copy, leaf_norms, sgd)
 
 
-def adapt_steps(spec: dict, layers, weights: dict, source: dict, targets, src_order, lrs,
+def adapt_steps(spec: dict, model, weights: dict, source: dict, targets, src_order, lrs,
                 seed_gen, compute=None, steps=3):
     """The first `steps` ADVENT steps of a multi-level model from `weights`:
     the student's leaves and the discriminators' ("d_aux.*", "d_main.*").
@@ -23,11 +24,11 @@ def adapt_steps(spec: dict, layers, weights: dict, source: dict, targets, src_or
     "fired" and "proto"."""
     discs = {k: v for k, v in weights.items() if k.startswith("d_")}
     weights = {k: v for k, v in weights.items() if not k.startswith("d_")}
-    net = Net(layers, compute)
+    net = model.Net(compute)
     p0 = {k: v.clone() for k, v in {**weights, **discs}.items()}
     params = {k: v.clone() for k, v in weights.items()}
     D = {k: v.clone() for k, v in discs.items()}
-    mult = {k: sgd_multiplicity(k, aux_trained=True) for k in params}
+    mult = {k: model.multiplicity(k, aux_trained=True) for k in params}
     trainable = [k for k in params if mult[k]]
     momentum = {k: torch.zeros_like(params[k]) for k in trainable}
     adam_state = {"t": 0, "m": {k: torch.zeros_like(v) for k, v in D.items()},
@@ -64,7 +65,7 @@ def adapt_steps(spec: dict, layers, weights: dict, source: dict, targets, src_or
             out["grad"] = {**leaf_norms(grads), **leaf_norms(d_grads)}
             out["grad_tensors"] = {**host_copy(grads), **host_copy(d_grads)}
         sgd(params, momentum, grads, mult, lrs[k] * r0, lrs[k] * r1, float(spec["MOMENTUM"]),
-            float(spec["WEIGHT_DECAY"]))
+            float(spec["WEIGHT_DECAY"]), model.HEADS)
         adam(D, adam_state, d_grads, float(spec["LEARNING_RATE_D"]))
         del grads, d_grads
     out["change"] = change_norms({**{k: params[k] for k in trainable}, **D}, p0)

@@ -2,8 +2,9 @@
 policy: the prototypes bootstrapped from the source, then the adaptation
 steps (EMA, static and gated dynamic teachers, the prototypes' pseudo-labels,
 their moving average, the student's CE, RCE and MRKLD on the target and CE
-on the source, SGD and the model EMA), in plain PyTorch on
-`benchkit.reference`'s model. It imports nothing of the program.
+on the source, SGD and the model EMA), in plain PyTorch on the
+configuration's reference model (`benchmark/models/`). It imports nothing
+of the program.
 """
 
 from __future__ import annotations
@@ -11,8 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from benchkit.reference import (Net, change_norms, cross_entropy, host_copy, leaf_norms, mrkld,
-                                reverse_ce, sgd, sgd_multiplicity)
+from benchkit.reference import (change_norms, cross_entropy, host_copy, leaf_norms, mrkld,
+                                reverse_ce, sgd)
 
 
 def bootstrap_prototypes(net, P, images, labels, gen, classes):
@@ -59,14 +60,15 @@ def _median(values):
     return 0.5 * (ordered[(n - 1) // 2] + ordered[n // 2])
 
 
-def adapt_steps(spec: dict, layers, weights: dict, source: dict, targets, src_order, lrs,
+def adapt_steps(spec: dict, model, weights: dict, source: dict, targets, src_order, lrs,
                 seed_gen, compute=None, steps=3):
     """The first `steps` adaptation steps of the hybrid teacher policy from
     `weights`, prototypes bootstrapped from `source`.
 
-    spec: the method's settings (the configuration's block); source:
-    {"image" (n, 3, H, W), "label" (n, H, W), "label_res" (n, h8, w8)} on the
-    device; targets[k]: step k's target batch; src_order[k]: step k's rows
+    spec: the method's settings (the configuration's block); model: the
+    configuration's reference model (`harness.Model`); source: {"image"
+    (n, 3, H, W), "label" (n, H, W), "label_res" (n, h, w) at the model's
+    feature grid} on the device; targets[k]: step k's target batch; src_order[k]: step k's rows
     of the source; lrs[k]: step k's base LR; seed_gen: the dropout
     generator, seeded as the method seeds it.
 
@@ -75,11 +77,11 @@ def adapt_steps(spec: dict, layers, weights: dict, source: dict, targets, src_or
     norm of the change over the steps, "fired": [bool], "proto": the
     bootstrapped prototypes {"mean", "sq_mean", "count"}}."""
     classes = 19
-    net = Net(layers, compute)
+    net = model.Net(compute)
     p0 = {k: v.clone() for k, v in weights.items()}
     params = {k: v.clone() for k, v in weights.items()}
     ema = {k: v.clone() for k, v in weights.items()}
-    mult = {k: sgd_multiplicity(k, aux_trained=False) for k in params}
+    mult = {k: model.multiplicity(k, aux_trained=False) for k in params}
     trainable = [k for k in params if mult[k]]
     momentum = {k: torch.zeros_like(params[k]) for k in trainable}
     mean, sq_mean, count = bootstrap_prototypes(net, params, source["image"], source["label"],
@@ -146,7 +148,7 @@ def adapt_steps(spec: dict, layers, weights: dict, source: dict, targets, src_or
             out["grad"] = leaf_norms(grads)
             out["grad_tensors"] = host_copy(grads)
         sgd(params, momentum, grads, mult, lrs[k] * r0, lrs[k] * r1, float(spec["MOMENTUM"]),
-            float(spec["WEIGHT_DECAY"]))
+            float(spec["WEIGHT_DECAY"]), model.HEADS)
         del grads
         e = float(spec["EMA_UPDATE"])
         with torch.no_grad():
