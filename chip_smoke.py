@@ -26,8 +26,9 @@ Phases:
  3. K1 (pseudo_labels_kernel) against its plain version at the main path's
     shape (P = 4*65*129, F = 256, C = 19), euclidean and mahalanobis, at a
     rank's b2 of phase 12 and b8, at a phase-14 spatial rank's pixels (b2 and
-    b1, 33 or 32 of the 65 feature rows; timed at (1 x 2)'s), and at C = 1,
-    C = 32 and P = 700 and 1 (not multiples of its 128-pixel tile);
+    b1, 33 or 32 of the 65 feature rows; timed at (1 x 2)'s), at C = 1,
+    C = 32 and P = 700 and 1 (not multiples of its 128-pixel tile), and at
+    SegFormer-B5's P = 4*128*256, F = 768 (one block a SM; timed);
  4. K2 (bn_stats_kernel) against a float64 reference at every distinct
     BatchNorm input shape of DeepLabv2-R50 at batch 4, 1024x512 (and a
     rank's batch 2 of phase 12, and batch 8; a phase-13 rank's channel shards
@@ -35,7 +36,8 @@ Phases:
     inputs) and at training_fog.yml's batch 4, 128x64 (phase 8.1's SEGMENT
     run), at every BatchNorm input of phase 16's DeepLab-v3 models (16.2's
     at b4 1024x512, timed summed over each forward: the image-pooling
-    branch's (4, 256, 1, 1) among them; 16.1's at b2 64x64), and at
+    branch's (4, 256, 1, 1) among them; 16.1's at b2 64x64), at
+    SegFormer-B5's decoder BatchNorm input (4, 768, 128, 256), and at
     adversarial shapes (odd planes, one element, planes that start at an odd
     element), f32 and bf16, NCHW and channels_last, each call repeated to show
     that the result is the same bit for bit; its raw-moments output (mean and
@@ -45,7 +47,8 @@ Phases:
     plain version; then BatchNorm's passes after the statistics
     (csrc/bn_norm.cu: bn_apply_kernel with the running update and in eval,
     bn_grad_sums_kernel, bn_grad_dx_kernel) against their plain versions at
-    every distinct R50 BatchNorm input and at odd shapes, f32 and bf16, in
+    every distinct R50 BatchNorm input, at SegFormer-B5's decoder BatchNorm
+    input and at odd shapes, f32 and bf16, in
     K2's four layouts (NCHW and channels_last, each also one element off a
     16-byte boundary), the reduction
     repeated to the same bits, and timed over one forward's 53 inputs (f32:
@@ -362,16 +365,33 @@ def k1_inputs(torch, n_pix, n_feat, n_cls, seed):
     return feat, protos, prior, scale
 
 
+# SegFormer-B5's K1 call (F = 768 on the 1/4 grid of b4 1024x512: one block
+# a SM) and the input of its decoder's one BatchNorm (linear_fuse.bn)
+SEGFORMER_K1 = (4 * 128 * 256, 768, 19)
+SEGFORMER_BN = (4, 768, 128, 256)
+
+
+def k1_timed(torch, K, P, shape, tau, thresh):
+    """K1 at `shape` (mahalanobis, cold L2) against its plain version and its
+    bound: (kernel ms, plain ms, bound ms, bound by)."""
+    n_pix, n_feat, n_cls = shape
+    feat, protos, prior, scale = k1_inputs(torch, n_pix, n_feat, n_cls, 1)
+    k_ms = cuda_ms(torch, lambda: K.pseudo_labels(feat, protos, prior, tau, thresh, scale))
+    p_ms = cuda_ms(torch, lambda: P.pseudo_labels_plain(feat, protos, prior, tau, thresh, scale))
+    nbytes = 4 * (n_pix * n_feat + n_cls * n_feat + 2 * n_pix * n_cls + n_feat + 1 + 2 * n_pix)
+    return (k_ms, p_ms, *bound_ms(nbytes, 2.0 * n_pix * n_cls * n_feat + n_pix * n_feat))
+
+
 def check_k1(torch, K, P):
     main = (4 * 65 * 129, 256, 19)
     thresh, tau = 0.3, torch.tensor(1.0, device="cuda")
     # the main path's shape, a phase-12 rank's batch of 2, phase 10.2's batch
-    # of 8, then C = 1 and 32 and P off the 128-pixel tile
+    # of 8, then C = 1 and 32 and P off the 128-pixel tile, then SegFormer-B5's
     # phase 14's spatial ranks: each one's pixels, b2 on (1 x 2), b1 on (2 x 2),
     # its block of the 65 feature rows (33 or 32)
     spatial = [(b * rows * 129, 256, 19) for b in (2, 1) for rows in (33, 32)]
     cases = [main, (2 * 65 * 129, 256, 19), (8 * 65 * 129, 256, 19), (main[0], 256, 1),
-             (main[0], 256, 32), (700, 256, 19), (1, 256, 19), *spatial]
+             (main[0], 256, 32), (700, 256, 19), (1, 256, 19), *spatial, SEGFORMER_K1]
     max_err = 0.0
     for n_pix, n_feat, n_cls in cases:
         feat, protos, prior, scale = k1_inputs(torch, n_pix, n_feat, n_cls, 1)
@@ -406,16 +426,18 @@ def check_k1(torch, K, P):
           f"{100 * share(b_ms, ms):.1f}% of the bound; feat.sum() alone {read:.4f} ms; "
           f"K1 at P=1 {ms_one:.4f} ms")
     timed = {}
-    for n_pix, n_feat, n_cls in spatial[:2]:  # a (1 x 2) spatial rank's pixels
-        f_, p_, pr_, sc_ = k1_inputs(torch, n_pix, n_feat, n_cls, 1)
-        k_ms = cuda_ms(torch, lambda: K.pseudo_labels(f_, p_, pr_, tau, thresh, sc_))
-        p_ms = cuda_ms(torch, lambda: P.pseudo_labels_plain(f_, p_, pr_, tau, thresh, sc_))
-        nb = 4 * (n_pix * n_feat + n_cls * n_feat + 2 * n_pix * n_cls + n_feat + 1 + 2 * n_pix)
-        s_ms, s_by = bound_ms(nb, 2.0 * n_pix * n_cls * n_feat + n_pix * n_feat)
-        timed[n_pix] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": s_ms, "bound_by": s_by}
-        print(f"K1 at a (1 x 2) spatial rank's P={n_pix} (mahalanobis, cold L2): kernel "
+    for shape in spatial[:2]:  # a (1 x 2) spatial rank's pixels
+        k_ms, p_ms, s_ms, s_by = k1_timed(torch, K, P, shape, tau, thresh)
+        timed[shape[0]] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": s_ms, "bound_by": s_by}
+        print(f"K1 at a (1 x 2) spatial rank's P={shape[0]} (mahalanobis, cold L2): kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {s_ms:.4f} ms ({s_by}), "
               f"{100 * share(s_ms, k_ms):.1f}% of the bound")
+    k_ms, p_ms, s_ms, s_by = k1_timed(torch, K, P, SEGFORMER_K1, tau, thresh)
+    segformer = {"shape": list(SEGFORMER_K1), "ms": k_ms, "plain_ms": p_ms, "bound_ms": s_ms,
+                 "bound_by": s_by, "bound_share": share(s_ms, k_ms)}
+    print(f"K1 at SegFormer-B5's P={SEGFORMER_K1[0]} F={SEGFORMER_K1[1]} (mahalanobis, cold "
+          f"L2): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {s_ms:.4f} ms ({s_by}), "
+          f"{100 * share(s_ms, k_ms):.1f}% of the bound")
     return {"name": "pseudo_labels_kernel", "route": "cuda",
             "source": "onda_torch/csrc/pseudo_labels.cu",
             "replaces": "onda_tpu/ops/pallas_kernels.py:60",
@@ -423,7 +445,8 @@ def check_k1(torch, K, P):
             "checked_shapes": [list(c) for c in cases],
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "bound_share": share(b_ms, ms),
-            "library_ms": None, "spatial_ranks": timed, "check": "pass"}
+            "library_ms": None, "spatial_ranks": timed, "segformer_b5": segformer,
+            "check": "pass"}
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +576,8 @@ def check_k2(torch, K, layers, out_dir):
     check(len(shapes) == 53, f"expected 53 BatchNorm calls in R50, got {len(shapes)}")
     distinct = sorted(set(shapes), key=lambda s: -math.prod(s))
     # checked, not timed: phase 8.1's shapes and their shards on a (1 x 2)
-    # grid (13.5), a phase-12 rank's batch of 2 and phase 10.2's batch of 8;
+    # grid (13.5), a phase-12 rank's batch of 2, phase 10.2's batch of 8 and
+    # SegFormer-B5's decoder BatchNorm input;
     # checked and timed in f32: phase 13's ranks, a (1 x 2) grid's at b4
     # and a (2 x 2) grid's at b2 (channel shards)
     grids = {"(1 x 2) b4": bn_input_shapes(torch, batch=4, tp=TP_SIZE),
@@ -574,7 +598,7 @@ def check_k2(torch, K, layers, out_dir):
     timed_f32 = grid_shapes.union(*v3_full.values())
     extra = (set(segment_bn_shapes(torch)) | set(segment_bn_shapes(torch, tp=TP_SIZE))
              | set(bn_input_shapes(torch, batch=2))
-             | set(bn_input_shapes(torch, batch=8)) | grid_shapes | v3_shapes)
+             | set(bn_input_shapes(torch, batch=8)) | grid_shapes | v3_shapes | {SEGFORMER_BN})
     others = sorted(extra - set(distinct), key=lambda s: -math.prod(s))
     g = torch.Generator(device="cuda").manual_seed(2)
     rows, max_err, raw_err = [], 0.0, 0.0
@@ -770,7 +794,8 @@ def bn_case(torch, shape, g):
 
 def check_bn_passes(torch, K, out_dir):
     """The BatchNorm passes against their plain versions at every distinct
-    BatchNorm input of one R50 b4 1024x512 forward and at odd shapes, f32
+    BatchNorm input of one R50 b4 1024x512 forward, at SegFormer-B5's
+    decoder BatchNorm input (checked, not timed) and at odd shapes, f32
     and bf16, each layout; then timed over the 53 inputs of one forward (f32,
     summed with multiplicity): the forward as training runs it (with the
     running update) and one backward (reduction and dx), each against its
@@ -780,7 +805,7 @@ def check_bn_passes(torch, K, out_dir):
     distinct = sorted(set(shapes), key=lambda s: -math.prod(s))
     g = torch.Generator(device="cuda").manual_seed(5)
     rows, per_shape, worst = [], {}, {}
-    for shape in distinct + BN_ODD_SHAPES:
+    for shape in distinct + [SEGFORMER_BN] + BN_ODD_SHAPES:
         x32, dy32, gamma, beta, rm, rv = bn_case(torch, shape, g)
         for dtype in (torch.float32, torch.bfloat16):
             x, dy = x32.to(dtype), dy32.to(dtype)
@@ -831,7 +856,7 @@ def check_bn_passes(torch, K, out_dir):
             "replaces": "no TPU kernel (plain jnp in onda_tpu/models/layers.py)",
             "shape": "the 53 BatchNorm inputs of one R50 forward, b4 1024x512 f32 NCHW (times "
                      "summed)",
-            "checked_shapes": [list(s) for s in distinct + BN_ODD_SHAPES],
+            "checked_shapes": [list(s) for s in distinct + [SEGFORMER_BN] + BN_ODD_SHAPES],
             "max_gaps": {f"{k} {d[6:]}": v for (k, d), v in worst.items()},
             "forward_ms": tot[0], "forward_plain_ms": tot[1], "forward_bound_ms": tot[4],
             "forward_bound_share": share(tot[4], tot[0]), "backward_ms": tot[2],

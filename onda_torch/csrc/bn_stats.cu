@@ -197,7 +197,9 @@ __global__ void __launch_bounds__(kThreads)
         raw[c] = m;
         raw[C + c] = b / (double)M;
       } else {
-        const double v = b / (double)M - m * m;
+        // rounded product, then difference: no FMA, so that the variance is
+        // the one models/layers.py takes from these moments, to the bit
+        const double v = __dsub_rn(b / (double)M, __dmul_rn(m, m));
         mean[c] = (float)m;
         var[c] = (float)(v > 0.0 ? v : 0.0);
       }
@@ -257,7 +259,7 @@ __global__ void finalize_kernel(const float* __restrict__ psum, const float* __r
       raw[c] = m;
       raw[gridDim.x + c] = q / count;
     } else {
-      const double v = q / count - m * m;
+      const double v = __dsub_rn(q / count, __dmul_rn(m, m));  // no FMA, as above
       mean[c] = (float)m;
       var[c] = (float)(v > 0.0 ? v : 0.0);
     }

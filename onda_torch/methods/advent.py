@@ -23,7 +23,7 @@ Around the step, `train` feeds the source replay and the target stream
 through `DeviceFeeder`s, evaluates the student, renders samples and writes
 `advent_state.pt` once per epoch and at the end (`run_adversarial`, which
 PROTO_ADVENT shares). Under OTHERS.SCHEDULE the loop records its phases and
-the step its `student` and `update` stages (`timing.SpanRecorder`).
+the step its `student` and `update` stages (`utils.spans.SpanRecorder`).
 
 Under OTHERS.DATA_PARALLEL across ranks (`parallel`; each rank holds the
 local slice of the global batch) the step is the global batch's, as GSPMD
@@ -70,9 +70,10 @@ from ..parallel import distributed as dist
 from ..parallel import tensor as T
 from ..parallel.mesh import resolve
 from ..utils import checkpoint as ckpt
+from ..utils.spans import SpanRecorder, attach
 from . import optim
 from .proto_online import LazyLogs, ProtoOnlineAdapter
-from .timing import SpanRecorder, samples_due
+from .timing import samples_due
 
 SOURCE_LABEL, TARGET_LABEL = 0.0, 1.0  # advent.py:35
 # the JAX package draws d_aux from key 1 and d_main from key 2; the port seeds
@@ -225,6 +226,7 @@ class AdventAdapter(T.ShardedModel):
         self.num_classes = num_classes
         self.logger = logger
         self.spans = SpanRecorder(self.device, enabled=bool(value_or(cfg.OTHERS.SCHEDULE, False)))
+        attach(self.model, self.spans)
         self.disc = FCDiscriminator(num_classes).to(self.device)
         self.plan_shards(variables, tp)
         variables = {name: self._shard(tree) for name, tree in variables.items()}

@@ -29,7 +29,9 @@ def label_params(params: dict, frozen_bn: bool = True, aux_grad: bool = True) ->
     """Name → FROZEN | HEAD | backbone multiplicity k (1/3/4).
 
     `aux_grad=False` freezes the structural aux head (`layer5` beside `layer6`):
-    with multi_level off no loss reaches it (reference model_handler.py:58)."""
+    with multi_level off no loss reaches it (reference model_handler.py:58).
+    SegFormer's `decode_head.` is the head; its `backbone.` leaves,
+    LayerNorms' affines included, are backbone leaves updated once a step."""
     aux_head = any(k.startswith("layer6.") for k in params) and any(
         k.startswith("layer5.") for k in params)
 
@@ -48,6 +50,8 @@ def label_params(params: dict, frozen_bn: bool = True, aux_grad: bool = True) ->
             "bn" in module or parts[-3:-1] == ["downsample", "1"])
         if frozen_bn and is_bn_affine:
             return FROZEN
+        if parts[0] == "decode_head":  # SegFormer's decoder, its BatchNorm's affine aside
+            return HEAD
         if parts[0] in ("layer1", "layer2", "layer3", "layer4"):
             return 4 if "downsample" in parts else 3
         return BACKBONE

@@ -27,8 +27,8 @@ from __future__ import annotations
 import torch
 
 from ..config import value_or
+from ..utils.spans import NULL
 from .state import DYNAMIC, STATIC, SwitchState
-from .timing import NULL
 
 
 def _gated_dynamic(dyn_forward, compute, template, spans):

@@ -29,7 +29,9 @@ raw target logits under PREDICTION_SAVE, evaluates, renders samples and
 checkpoints once per epoch. Under OTHERS.ASYNC_SAVE the checkpoint's disk
 write runs in the background (`utils.checkpoint`). Under OTHERS.SCHEDULE,
 or while OTHERS.PROFILE traces, the loop records its phases and the step
-its `teachers`, `student` and `update` stages (`timing.SpanRecorder`).
+its `teachers`, `student` and `update` stages (`utils.spans.SpanRecorder`);
+a model that records spans of its own (SegFormer: `encoder`, `decoder`,
+`attention`) records them into the same recorder.
 
 OTHERS.DATA_PARALLEL across ranks (`parallel`; one process per rank under
 torchrun, each with the local slice of the global batch) computes the step
@@ -99,10 +101,11 @@ from ..parallel import spatial as S
 from ..parallel import tensor as T
 from ..parallel.mesh import resolve
 from ..utils import checkpoint as ckpt
+from ..utils.spans import NULL, SpanRecorder, attach
 from . import optim
 from .prior_policy import POLICY_BY_METHOD, compute_prior
 from .state import AdaptState, clone_tree, make_adapt_state
-from .timing import NULL, SpanRecorder, samples_due
+from .timing import samples_due
 
 MONITOR_KEYS = (
     "model",
@@ -115,9 +118,6 @@ MONITOR_KEYS = (
     "pseudolabel confidence",
     "percentage_static",
 )
-
-NUM_FEATURES = 256  # ProDA classifier feature width (reference deeplabv2.py:205)
-
 
 def dump_logits_batch(base: str, index: int, logits_nchw: torch.Tensor) -> None:
     """Write one prediction batch as the reference's consumers read it: an
@@ -278,6 +278,7 @@ class ProtoOnlineAdapter(T.ShardedModel):
         self.num_classes = num_classes
         self.logger = logger
         self.spans = SpanRecorder(self.device, enabled=bool(value_or(cfg.OTHERS.SCHEDULE, False)))
+        attach(self.model, self.spans)
         self.policy = POLICY_BY_METHOD.get(cfg.METHOD.ADAPTATION.NAME, "base")
 
         mon_args = {}
@@ -288,7 +289,8 @@ class ProtoOnlineAdapter(T.ShardedModel):
         self.monitor = Monitor(MONITOR_KEYS, limit=int(cfg_spec.AVG_MONITOR_SIZE),
                                device=self.device, **mon_args)
 
-        proto = P.init_state(num_classes, NUM_FEATURES, tau=float(cfg_spec.TAU), device=self.device)
+        proto = P.init_state(num_classes, model.feature_width,
+                             tau=float(cfg_spec.TAU), device=self.device)
         self.skip_proto = False
         if isinstance(cfg_spec.LOAD_PROTO, str):
             proto, loaded = P.load(proto, cfg_spec.LOAD_PROTO)
@@ -851,7 +853,7 @@ class ProtoOnlineAdapter(T.ShardedModel):
                   "skipping trace")
             profile_steps = 0
         profiler = None
-        # OTHERS.SCHEDULE: the loop's spans (`timing.SpanRecorder`) and their
+        # OTHERS.SCHEDULE: the loop's spans (`utils.spans.SpanRecorder`) and their
         # log keys. Batch Fetch: waiting for the fed batches; Step Dispatch:
         # queueing the step; Host Work: insertions, evaluation, samples,
         # checkpoints; Log Sync: reading the step's packed logs; the stages'

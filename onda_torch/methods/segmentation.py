@@ -50,8 +50,8 @@ from ..parallel import distributed as dist
 from ..parallel import tensor as T
 from ..parallel.mesh import resolve
 from ..utils import checkpoint as ckpt
+from ..utils.spans import SpanRecorder, attach
 from . import optim
-from .timing import SpanRecorder
 
 HEAD_LR_SCALE = 10.0  # hard-coded in the reference (segmentation.py:59-87), not LR_RATIO
 AUX_WEIGHT = 0.1
@@ -72,6 +72,7 @@ class SegmentTrainer(T.ShardedModel):
         self.num_classes = num_classes
         self.logger = logger
         self.spans = SpanRecorder(self.device, enabled=bool(value_or(cfg.OTHERS.SCHEDULE, False)))
+        attach(self.model, self.spans)
         self.plan_shards(variables, tp)
         variables = {name: self._shard(tree) for name, tree in variables.items()}
         self.params = {k: v.detach().to(self.device) for k, v in variables["params"].items()}

@@ -190,6 +190,8 @@ class DeepLabV2(nn.Module):
     aux head. `compute_dtype` is the dtype the image is cast to on entry and
     every convolution computes in; parameters and buffers stay f32."""
 
+    feature_width = 256  # the ProDA classifier's "feat" (reference deeplabv2.py:205)
+
     def __init__(self, num_classes=19, layers: Sequence[int] = (3, 4, 23, 3),
                  classifier="ProDA", multi_level=False, norm=TorchBatchNorm, droprate=0.1,
                  proda_layout=False, bn_clr=False, dtype=None, remat=False):

@@ -11,8 +11,9 @@ GSPMD computes them for the JAX step on a `data` mesh: K2 gives each rank's
 raw moments in f64 (`kernels.bn_moments`), one all-reduce over the data
 group sums them, and the variance is taken once from the global moments; the
 backward all-reduces the per-channel sums of dy and dy·x̂ before its closed
-form, and the running update uses the global count. Dropout draws its mask
-for the global batch and keeps this rank's rows.
+form, and the running update uses the global count. Dropout and drop path
+(SegFormer's stochastic depth) draw their masks for the global batch and
+keep this rank's rows.
 
 On a spatial axis (`parallel.spatial`) each rank holds a block of every
 tensor's rows: a convolution whose window spans rows, and the ceil-mode max
@@ -29,7 +30,8 @@ fall within a shard, and otherwise gathers its input and affine first.
 
 Convolutions and dense layers compute in an optional `compute_dtype` (bf16)
 over f32 parameters, cast on entry as flax's `nn.Conv(dtype=bf16,
-param_dtype=f32)` casts them; normalisations take their statistics in f32.
+param_dtype=f32)` casts them; normalisations (SegFormer's LayerNorm too)
+take their statistics in f32.
 `rematerialized` runs a block under activation checkpointing.
 """
 
@@ -282,10 +284,37 @@ def dropout2d(x, rate: float, train: bool, generator=None):
     if not train or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
+    return x * _batch_mask(x, (x.shape[1], 1, 1), keep, generator) / keep
+
+
+def _batch_mask(x, tail, keep: float, generator):
+    """A Bernoulli(keep) mask of shape (N, *tail) in x's type, drawn from
+    `generator` for the global batch's rows and cut to this rank's."""
     n, r = x.shape[0], dist.data_rank()
-    probs = torch.full((n * dist.data_world(), x.shape[1], 1, 1), keep, device=x.device)
-    mask = torch.bernoulli(probs, generator=generator)[r * n:(r + 1) * n].to(x.dtype)
-    return x * mask / keep
+    probs = torch.full((n * dist.data_world(), *tail), keep, device=x.device)
+    return torch.bernoulli(probs, generator=generator)[r * n:(r + 1) * n].to(x.dtype)
+
+
+def drop_path(x, rate: float, train: bool, generator=None):
+    """Stochastic depth on a residual branch x (N, ...): each sample's
+    branch dropped with probability `rate` and the kept ones scaled by
+    1/(1 − rate) (timm's `drop_path`), the mask drawn from `generator` as an
+    (N, 1, ..., 1) Bernoulli draw; off in eval mode, at rate 0 (no draw) and
+    with a None generator. Under data parallelism every rank draws the
+    global batch's mask and keeps its rows, as `dropout2d` does."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    return x * _batch_mask(x, (1,) * (x.dim() - 1), keep, generator) / keep
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis with its statistics and affine in f32,
+    returning the input's type (bf16 under OTHERS.PRECISION bf16)."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 class Dropout2d(nn.Module):

@@ -32,6 +32,7 @@ MODEL_NAMES = [
     "DeepLabv2-Resnet101",
     "DeepLabv2-Resnet101-ProDA",
     "DeepLabv2-Resnet50-GN",
+    "SegFormer-B5",
 ]
 
 ADAPTATION_METHOD_NAMES = [
@@ -50,6 +51,15 @@ LAYERS = {
     "DeepLabv2-Resnet101": (3, 4, 23, 3),
     "DeepLabv2-Resnet101-ProDA": (3, 4, 23, 3),
     "DeepLabv2-Resnet50-GN": (3, 4, 6, 3),
+}
+
+
+# SegFormer's shapes by model name (NVlabs/SegFormer mix_transformer.py::mit_b5,
+# segformer.b5.1024x1024.city.160k.py's decoder_params)
+SEGFORMER = {
+    "SegFormer-B5": {"embed_dims": (64, 128, 320, 512), "depths": (3, 6, 40, 3),
+                     "heads": (1, 2, 5, 8), "sr_ratios": (8, 4, 2, 1), "mlp_ratio": 4,
+                     "decoder": 768},
 }
 
 
@@ -101,6 +111,19 @@ def _load_checkpoint(model, path: str, sd: dict | None = None) -> None:
     model.load_state_dict(sd, strict=True)
 
 
+def _load_mmseg_checkpoint(model, path: str) -> None:
+    """Load an mmseg checkpoint of SegFormer (`{"meta": ..., "state_dict":
+    sd}`, or the bare state_dict) strictly. BaseDecodeHead builds a
+    classifier `decode_head.conv_seg` (its `channels` → classes) that
+    SegFormerHead's forward never calls, its classifier being `linear_pred`:
+    those leaves are dropped."""
+    sd = checkpoint.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
+        sd = sd["state_dict"]
+    sd = {k: v for k, v in sd.items() if not k.startswith("decode_head.conv_seg.")}
+    model.load_state_dict(sd, strict=True)
+
+
 def _given(value) -> bool:
     return value is not None and not unset(value) and value != "None"
 
@@ -115,7 +138,10 @@ def get_model(cfg, n_classes: int, device="cuda"):
     anything else in f32; OTHERS.REMAT `true` rematerialises each bottleneck
     (`onda_tpu/registry.py:38-109`). `DeepLabv2-Resnet101-ProDA` forces
     MODEL.MULTI_LEVEL off, builds its `bn_pretrain` when the checkpoint has
-    one (ImageNet checkpoints excepted) and unpickles it once."""
+    one (ImageNet checkpoints excepted) and unpickles it once. `SegFormer-B5`
+    (SEGFORMER's shapes) has no aux head, so MODEL.MULTI_LEVEL is forced
+    off, and MODEL.LOAD is an mmseg checkpoint; it has no remat and no
+    tensor-parallel plan."""
     from .models import build_deeplab_v2
 
     name = cfg.MODEL.NAME
@@ -125,6 +151,8 @@ def get_model(cfg, n_classes: int, device="cuda"):
     dtype = torch.bfloat16 if cfg.OTHERS.PRECISION in ("bf16", "bfloat16") else None
     remat = isinstance(cfg.OTHERS.REMAT, bool) and cfg.OTHERS.REMAT
     load = cfg.MODEL.LOAD
+    if name in SEGFORMER:
+        return _get_segformer(cfg, name, n_classes, dtype, remat, load, device)
     sd, options = None, {}
     if name == "DeepLabv2-Resnet101-ProDA":
         # Microsoft ProDA's R101 (reference model_handler.py:28-30,
@@ -143,6 +171,22 @@ def get_model(cfg, n_classes: int, device="cuda"):
                                  remat=remat, **options)
     if _given(load):
         _load_checkpoint(model, str(load), sd)
+    model = model.to(device)
+    return model, variables_of(model)
+
+
+def _get_segformer(cfg, name, n_classes, dtype, remat, load, device):
+    from .models.segformer import SegFormer
+
+    tp = cfg.OTHERS.TENSOR_PARALLEL
+    if remat or (_given(tp) and int(tp) > 1):
+        raise ValueError(f"{name} runs without OTHERS.REMAT and OTHERS.TENSOR_PARALLEL")
+    cfg.MODEL.MULTI_LEVEL = False
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = SegFormer(n_classes, **SEGFORMER[name], dtype=dtype)
+    if _given(load):
+        _load_mmseg_checkpoint(model, str(load))
     model = model.to(device)
     return model, variables_of(model)
 

@@ -29,11 +29,11 @@ from onda_torch.data import loader as loader_mod
 from onda_torch.data.loader import DeviceFeeder
 from onda_torch.data.metadata import Table, load_dataset_info, load_table
 from onda_torch.methods.proto_online import ProtoOnlineAdapter
-from onda_torch.methods.timing import SpanRecorder
 from onda_torch.registry import get_db
 from onda_torch.utils import viz
 from onda_torch.utils.checkpoint import checkpoints_by_mtime, save_atomic
 from onda_torch.utils.logging_ import Logger
+from onda_torch.utils.spans import SpanRecorder
 
 from .synthetic import make_synthetic_dataset
 

@@ -131,7 +131,8 @@ def test_r50_bn_shapes_are_the_main_path_shapes():
 
 
 K1_CASES = [(4 * 65 * 129, 256, 19), (4 * 65 * 129, 256, 1), (4 * 65 * 129, 256, 32),
-            (700, 256, 19), (1, 256, 19), (700, 4, 32)]
+            (700, 256, 19), (1, 256, 19), (700, 4, 32), (4 * 128 * 256, 768, 19)]
+H100_SMEM_BLOCK, H100_SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024  # opt-in, per SM, per block
 
 
 @pytest.mark.parametrize("n_pix,n_feat,n_cls", K1_CASES)
@@ -158,6 +159,32 @@ def test_k1_plan_covers_every_pixel_once(n_pix, n_feat, n_cls):
 def _constants(name):
     text = (CSRC / name).read_text()
     return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+def k1_smem_bytes(n_feat, n_cls):
+    """csrc/pseudo_labels.cu's `smem_bytes`: the scaled prototypes, the
+    scale, their norms, the ring of kStages stages and the tile's cross
+    products and norms, in f32."""
+    k = _constants("pseudo_labels.cu")
+    assert "constexpr int kRow = kChunk + 4;" in (CSRC / "pseudo_labels.cu").read_text()
+    fpad = -(-n_feat // k["kChunk"]) * k["kChunk"]
+    cp = -(-n_cls // 4) * 4
+    stage = max(k["kTile"] * (k["kChunk"] + 4), k["kTile"] * (n_cls | 1))
+    return 4 * (fpad * cp + fpad + cp + k["kStages"] * stage + k["kTile"] * (cp + 2))
+
+
+@pytest.mark.parametrize("n_feat,blocks_per_sm", [(256, 2), (768, 1)],
+                         ids=["deeplab_f256", "segformer_f768"])
+def test_k1_shared_memory_at_the_models_widths(n_feat, blocks_per_sm):
+    """A block's shared memory at C = 19 opts in past 48 KB (the launch sets
+    cudaFuncAttributeMaxDynamicSharedMemorySize) and stays under the H100's
+    227 KB a block: about 104 KiB at DeepLab's F = 256 (two blocks a SM),
+    146 KiB at SegFormer's F = 768 (one)."""
+    smem = k1_smem_bytes(n_feat, 19)
+    assert 48 * 1024 < smem <= H100_SMEM_BLOCK
+    assert H100_SMEM_SM // (smem + SMEM_RESERVED) == blocks_per_sm
+    assert smem == {256: 106576, 768: 149584}[n_feat]
+    assert k1_smem_bytes(2048, 32) > H100_SMEM_BLOCK  # refused: the cuda test's wide case
 
 
 def test_plan_constants_match_the_sources():
@@ -209,6 +236,53 @@ def test_cuda_kernels_match_plain(n_pix, n_cls):
                 # is 0 (one value a channel) only the f32 rounding of x² is left
                 torch.testing.assert_close(mean.double(), w_mean, rtol=0, atol=1e-6 * amax)
                 torch.testing.assert_close(var.double(), w_var, rtol=1e-4, atol=1e-6 * amax**2)
+
+
+@pytest.mark.cuda
+def test_cuda_k1_at_the_segformer_width():
+    """K1 at SegFormer-B5's main path: F = 768 on the 1/4 grid of a b4
+    1024x512 batch (P = 131,072), C = 19, against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n_pix, n_feat, n_cls = 4 * 128 * 256, 768, 19
+    protos = torch.randn(n_cls, n_feat, device="cuda", generator=g)
+    pick = torch.randint(0, n_cls, (n_pix,), device="cuda", generator=g)
+    feat = protos[pick] + 2.0 * torch.randn(n_pix, n_feat, device="cuda", generator=g)
+    prior = torch.rand(n_pix, n_cls, device="cuda", generator=g) + 0.05
+    prior = prior / prior.sum(-1, keepdim=True)
+    scale = 0.5 + torch.rand(n_feat, device="cuda", generator=g)
+    tau = torch.tensor(20.0, device="cuda")
+    soft, hard, pmax = K.pseudo_labels(feat, protos, prior, tau, 0.3, scale)
+    w_soft, w_hard, w_pmax = TP.pseudo_labels_plain(feat, protos, prior, tau, 0.3, scale)
+    torch.testing.assert_close(soft, w_soft, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(pmax, w_pmax, rtol=1e-4, atol=1e-5)
+    assert (hard == w_hard).float().mean() > 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+def test_cuda_k2_statistics_are_the_variance_of_its_moments(dtype, channels_last):
+    """K2's variance is E[x²] − E[x]² of its own raw moments in f64, rounded
+    product then difference (no FMA), as `layers.bn_train` takes it from the
+    moments under data parallelism: the same bits, here on channels whose
+    variance is small beside their mean, where a fused multiply-add's one
+    rounding would differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for shape in [(2, 2048, 5, 5), (4, 256, 9, 9), (3, 17, 33, 25)] * 20:
+        c = shape[1]
+        spread = 0.02 + 0.5 * torch.rand(1, c, 1, 1, device="cuda", generator=g)
+        x = (torch.randn(shape, device="cuda", generator=g) * spread
+             + 8 * torch.randn(1, c, 1, 1, device="cuda", generator=g)).to(dtype)
+        if channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
+        mean, var = K.bn_stats(x)
+        raw = K.bn_moments(x)
+        assert torch.equal(mean, raw[0].float())
+        assert torch.equal(var, torch.clamp(raw[1] - raw[0] * raw[0], min=0.0).float())
 
 
 # ---------------------------------------------------------------------------

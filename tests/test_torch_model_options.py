@@ -193,10 +193,10 @@ def test_state_dict_keys_match_jax_at_full_depth(name):
 
 
 # ---------------------------------------------------------------------------
-# get_model: every name with both options
+# get_model: every DeepLab-v2 name (registry.LAYERS) with both options
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", registry.MODEL_NAMES)
+@pytest.mark.parametrize("name", [n for n in registry.MODEL_NAMES if n in registry.LAYERS])
 def test_get_model_honours_precision_and_remat(name, monkeypatch):
     """Each name in f32 and bf16, REMAT on and off (depth cut to one block a
     stage): PRECISION "bf16"/"bfloat16" sets the compute dtype and nothing

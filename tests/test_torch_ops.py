@@ -216,7 +216,8 @@ def test_metrics_match_jax(rng):
 @pytest.mark.parametrize("every,n_target", [(0, 4), (3, 4), (1, 1), (-1, 2)])
 def test_samples_due_matches_jax(every, n_target):
     from onda_tpu.methods.timing import samples_due as jax_due
-    from onda_torch.methods.timing import SpanRecorder, samples_due
+    from onda_torch.methods.timing import samples_due
+    from onda_torch.utils.spans import SpanRecorder
 
     assert [samples_due(every, i, n_target) for i in range(9)] == \
         [jax_due(every, i, n_target) for i in range(9)]

@@ -1,4 +1,4 @@
-"""The port's span recorder (`onda_torch/methods/timing.py`): off it is the
+"""The port's span recorder (`onda_torch/utils/spans.py`): off it is the
 shared null context and records nothing; its OTHERS.SCHEDULE `time/*` keys
 are the interval averages of the stage meter it replaced; the prototype and
 adversarial loops record their phases, their steps' stages and their host
@@ -19,8 +19,8 @@ import torch
 
 from onda_torch import registry
 from onda_torch.config import cfg_from_file
-from onda_torch.methods import timing
-from onda_torch.methods.timing import NULL, SpanRecorder
+from onda_torch.utils import spans as timing
+from onda_torch.utils.spans import NULL, SpanRecorder
 
 ROOT = Path(__file__).resolve().parents[1]
 B, H, W, C = 1, 32, 64, 19
